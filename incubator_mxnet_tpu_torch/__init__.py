@@ -1,0 +1,14 @@
+"""incubator_mxnet_tpu_torch — the PyTorch/CUDA port of
+`incubator_mxnet_tpu`, slice by slice.
+
+Its layout mirrors the JAX package's so each module's counterpart is
+easy to find; it imports torch, numpy and the standard library, never
+JAX and nothing of the JAX package.  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
+"""
+from . import context, convert, gluon, models, ops, random, serving
+from .base import MXNetError
+from .context import cpu, gpu, num_gpus
+
+__all__ = ["MXNetError", "context", "convert", "cpu", "gluon", "gpu",
+           "models", "num_gpus", "ops", "random", "serving"]

@@ -1,0 +1,43 @@
+"""Carry weights from the JAX package into the port (port-only module).
+
+`load_jax_params` fills a port model from numpy arrays keyed by the
+JAX package's structural parameter names — the keys its
+``Block._collect_params_with_prefix`` gives and ``save_parameters``
+writes (``embed.weight``, ``layer0.attn.qkv.weight``,
+``layer0.ln1.gamma``, ..., ``head.bias``).  The port's blocks use the
+same names and layouts (`Dense` weight (out, in), `LayerNorm`
+gamma/beta), so the copy is one-to-one; each array is cast to the
+parameter's dtype and moved to its device.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .base import MXNetError
+
+__all__ = ["load_jax_params"]
+
+
+@torch.no_grad()
+def load_jax_params(net, arrays: Mapping[str, np.ndarray]):
+    """Copy ``arrays`` (structural name -> numpy array) into ``net``'s
+    parameters; raises `MXNetError` on a missing key, an extra key or a
+    shape mismatch, before any parameter is written.  Returns ``net``."""
+    params = dict(net.named_parameters())
+    missing = sorted(set(params) - set(arrays))
+    extra = sorted(set(arrays) - set(params))
+    if missing or extra:
+        raise MXNetError(f"load_jax_params: missing keys {missing}, "
+                         f"extra keys {extra}")
+    for name, p in params.items():
+        shape = tuple(np.shape(arrays[name]))
+        if shape != tuple(p.shape):
+            raise MXNetError(f"load_jax_params: {name} has shape {shape}, "
+                             f"the model expects {tuple(p.shape)}")
+    for name, p in params.items():
+        src = torch.from_numpy(np.array(arrays[name], np.float32))
+        p.copy_(src.to(device=p.device, dtype=p.dtype))
+    return net

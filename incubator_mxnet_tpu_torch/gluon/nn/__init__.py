@@ -1,0 +1,5 @@
+"""Neural-network layers (counterpart of
+`incubator_mxnet_tpu/gluon/nn/`)."""
+from .basic_layers import Dense, DropoutAdd, Embedding, LayerNorm
+
+__all__ = ["Dense", "DropoutAdd", "Embedding", "LayerNorm"]

@@ -1,0 +1,240 @@
+"""Autoregressive KV-cache generation for `models.TransformerLM`
+(PyTorch/CUDA port of `incubator_mxnet_tpu/models/generation.py`, the
+float path).
+
+The JAX package compiles prefill plus the whole token loop into one XLA
+program; PyTorch runs eagerly, so here the prefill is one pass over the
+prompt and the token loop is a Python loop over `_decode_token`.  The
+math is the JAX package's, helper for helper:
+
+* `_prefill` runs the prompt with the training path's causal attention
+  (`ops.flash_attention`, the hand-written CUDA kernel on the card);
+* `_cached_self_attn` / `_decode_token` attend one token against the
+  dense per-layer caches with plain torch ops — f32 scores, iota mask at
+  ``finfo(f32).min``, f32 softmax and PV — as the JAX package leaves
+  this math to XLA;
+* sampling is counter-based: the draws at position ``t`` come from a
+  stream seeded by ``(seed, t)`` alone (`random.counter_seed`), so a
+  seeded run reproduces exactly.  Torch's streams are not JAX's: the
+  same seed samples different tokens in the two packages.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..gluon.nn.basic_layers import layer_norm as _ln
+from ..ops.flash_attention import flash_attention
+from ..random import counter_seed
+
+__all__ = ["lm_generate"]
+
+_F32_MIN = torch.finfo(torch.float32).min
+
+
+def _dense(x, w, b, out_dtype=None):
+    """nn.Dense math on raw tensors: x @ W.T + b (weight is (out, in))."""
+    y = F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+    return y if out_dtype is None else y.to(out_dtype)
+
+
+def _qkv_heads(qkv, H):
+    """(..., 3C) -> three (..., H, D) tensors, the MHA split order."""
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+    D = q.shape[-1] // H
+    shp = q.shape[:-1] + (H, D)
+    return q.reshape(shp), k.reshape(shp), v.reshape(shp)
+
+
+def _activation(h, act):
+    """The FFN activation: tanh-approximate gelu in f32, else relu."""
+    if act == "gelu":
+        return F.gelu(h.float(), approximate="tanh").to(h.dtype)
+    return F.relu(h)
+
+
+def _gather_params(net):
+    """The live parameter tensors in the JAX package's pytree layout."""
+    def wb(layer):
+        return layer.weight, layer.bias
+
+    layers = [{"ln1": (lyr.ln1.gamma, lyr.ln1.beta),
+               "qkv": wb(lyr.attn.qkv),
+               "proj": wb(lyr.attn.proj),
+               "ln2": (lyr.ln2.gamma, lyr.ln2.beta),
+               "ffn1": wb(lyr.ffn.ffn_dense1),
+               "ffn2": wb(lyr.ffn.ffn_dense2)} for lyr in net._layers]
+    return {"embed": net.embed.weight, "pe": net._pe,
+            "ln": (net.ln.gamma, net.ln.beta), "head": wb(net.head),
+            "layers": layers}
+
+
+def _embed(params, toks, positions):
+    """Token embedding · sqrt(C) plus the positional encoding at
+    ``positions`` (an int or a tensor of positions)."""
+    emb = params["embed"]
+    return (emb[toks.long()] * math.sqrt(emb.shape[1])
+            + params["pe"][positions].to(emb.dtype))
+
+
+def _ffn_fwd(x, lp, act):
+    return _dense(_activation(_dense(x, *lp["ffn1"]), act), *lp["ffn2"])
+
+
+def _logits_of(params, h_last):
+    return _dense(_ln(h_last, *params["ln"]), *params["head"],
+                  out_dtype=torch.float32)
+
+
+def _prefill(params, prompt, acts, H, pad_to):
+    """Run the prompt with the training path's causal attention; returns
+    (h_last (B, C) at the final prompt position, per-layer K/V caches
+    (B, H, pad_to, D))."""
+    B, P = prompt.shape
+    emb = params["embed"]
+    C = emb.shape[1]
+    h = _embed(params, prompt, torch.arange(P, device=emb.device))
+    kcs, vcs = [], []
+    for lp, act in zip(params["layers"], acts):
+        x = _ln(h, *lp["ln1"])
+        q, k, v = _qkv_heads(_dense(x, *lp["qkv"]), H)   # (B, P, H, D)
+        kt = k.transpose(1, 2).contiguous()               # (B, H, P, D)
+        vt = v.transpose(1, 2).contiguous()
+        a = flash_attention(q.transpose(1, 2).contiguous(), kt, vt,
+                            causal=True).transpose(1, 2)
+        h = h + _dense(a.reshape(B, P, C), *lp["proj"])
+        h = h + _ffn_fwd(_ln(h, *lp["ln2"]), lp, act)
+        kc = kt.new_zeros((B, H, pad_to, kt.shape[-1]))
+        vc = vt.new_zeros((B, H, pad_to, vt.shape[-1]))
+        kc[:, :, :P] = kt
+        vc[:, :, :P] = vt
+        kcs.append(kc)
+        vcs.append(vc)
+    return h[:, -1], kcs, vcs
+
+
+def _cached_self_attn(lp, h, kcache, vcache, t, H):
+    """The cached one-token self-attention sub-step: pre-LN, qkv, cache
+    write at position t (in place: the caches are this call's state,
+    where the JAX scan threads them through its carry), f32 iota-masked
+    scores and softmax, PV product, output projection."""
+    Bp, C = h.shape
+    D = C // H
+    x = _ln(h, *lp["ln1"])
+    q, k, v = _qkv_heads(_dense(x, *lp["qkv"]), H)        # (B', H, D)
+    kcache[:, :, t] = k
+    vcache[:, :, t] = v
+    s = torch.einsum("bhd,bhkd->bhk", q.float(),
+                     kcache.float()) / math.sqrt(D)
+    pos = torch.arange(s.shape[-1], device=s.device)
+    s = torch.where(pos <= t, s, _F32_MIN)
+    p = torch.softmax(s, dim=-1)
+    a = torch.einsum("bhk,bhkd->bhd", p, vcache.float()).to(h.dtype)
+    return h + _dense(a.reshape(Bp, C), *lp["proj"])
+
+
+def _decode_token(params, acts, kcaches, vcaches, tok, t, H):
+    """One transformer step for token ``tok`` (B,) at position ``t``
+    against the per-layer caches; returns f32 logits (B, V)."""
+    h = _embed(params, tok, t)
+    for li, (lp, act) in enumerate(zip(params["layers"], acts)):
+        h = _cached_self_attn(lp, h, kcaches[li], vcaches[li], t, H)
+        h = h + _ffn_fwd(_ln(h, *lp["ln2"]), lp, act)
+    return _logits_of(params, h)
+
+
+def _top_k_logits(logits, temperature, top_k):
+    """Temperature-scaled logits with everything below the k-th largest
+    pushed to ``finfo(f32).min``."""
+    lg = logits / temperature
+    if top_k > 0:
+        kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+        lg = torch.where(lg < kth, _F32_MIN, lg)
+    return lg
+
+
+def _gumbel(shape, stream_seed: int, device):
+    """Gumbel noise from the counter-based stream ``stream_seed``;
+    argmax(logits + noise) samples softmax(logits)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(stream_seed)
+    u = torch.rand(shape, generator=g, device=device)
+    return -torch.log(-torch.log(u))
+
+
+def _make_pick(temperature, top_k):
+    """Batch token pick: greedy argmax at temperature <= 0, else
+    top-k-truncated sampling from the stream of (seed, t)."""
+    def pick(logits, t, seed):
+        if temperature <= 0.0:
+            return logits.argmax(dim=-1)
+        lg = _top_k_logits(logits, temperature, top_k)
+        noise = _gumbel(lg.shape, counter_seed(seed, t), lg.device)
+        return (lg + noise).argmax(dim=-1)
+
+    return pick
+
+
+def _greedy_loop(first_logits, step_fn, pick, seed, t0, N, eos_id):
+    """Emit N tokens at positions t0 .. t0+N-1: the first from
+    ``first_logits``, the rest from ``step_fn(tok, t) -> logits``.
+    eos_id >= 0 freezes a finished row at eos.  Returns (B, N)."""
+    tok = pick(first_logits, t0 - 1, seed)
+    done = tok == eos_id
+    out = [tok]
+    for t in range(t0, t0 + N - 1):
+        nxt = pick(step_fn(tok, t), t, seed)
+        if eos_id >= 0:
+            nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+            done = done | (nxt == eos_id)
+        out.append(nxt)
+        tok = nxt
+    return torch.stack(out, dim=1)
+
+
+def _as_tokens(prompt, device):
+    if isinstance(prompt, torch.Tensor):
+        return prompt.to(device=device, dtype=torch.long)
+    return torch.as_tensor(np.asarray(prompt, np.int64), device=device)
+
+
+@torch.no_grad()
+def lm_generate(net, prompt, max_new_tokens: int, *, temperature: float = 0.0,
+                top_k: int = 0, eos_id: int = -1, seed: int = 0,
+                pad_to_bucket: bool = False):
+    """Generate ``max_new_tokens`` continuations of ``prompt`` with the
+    `models.TransformerLM` ``net`` on the net's device.
+
+    prompt: int (B, P) tensor or array.  temperature=0 → greedy argmax;
+    temperature>0 samples (optionally top_k-truncated) from the
+    counter-based streams of ``seed``.  eos_id >= 0 freezes a sequence
+    at eos (further positions emit eos_id).  Returns an int32 (B, P+N)
+    tensor — the prompt followed by the generated tokens.
+
+    ``pad_to_bucket`` is accepted for the JAX signature: the JAX
+    package pads to bound its compiled-program cache, and its output is
+    token-identical either way, so eager PyTorch runs the exact shape.
+    """
+    prompt = _as_tokens(prompt, net.embed.weight.device)
+    B, P = prompt.shape
+    N = int(max_new_tokens)
+    if N < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {N}")
+    if P + N > net._max_len:
+        raise ValueError(
+            f"prompt+new = {P + N} exceeds max_len {net._max_len}")
+    H = net._layers[0].attn._num_heads
+    acts = tuple(lyr.ffn._act for lyr in net._layers)
+    params = _gather_params(net)
+    pick = _make_pick(float(temperature), int(top_k))
+    h_last, kcs, vcs = _prefill(params, prompt, acts, H, P + N)
+
+    def step_fn(tok, t):
+        return _decode_token(params, acts, kcs, vcs, tok, t, H)
+
+    gen = _greedy_loop(_logits_of(params, h_last), step_fn, pick, int(seed),
+                       P, N, int(eos_id))
+    return torch.cat([prompt, gen], dim=1).to(torch.int32)

@@ -1,0 +1,154 @@
+"""Single-query paged attention over the serving KV pool (PyTorch/CUDA
+port of `incubator_mxnet_tpu/ops/paged_attention.py`).
+
+The serving programs decode one token per lane against that lane's
+block table; the prefill-chunk program runs the same attention with
+each window row as a lane.  Two versions of one function:
+
+* `paged_attention_dense` — the plain PyTorch version, the JAX dense
+  recipe verbatim: gather every page into a (B, H, W, D) view, f32
+  scores / sqrt(D), ``finfo(f32).min`` position mask, full-width f32
+  softmax, f32 PV.  The CPU path, and the oracle the kernel is held to.
+* ``csrc/paged_attention.cu`` — the hand-written CUDA kernel that
+  replaces the Pallas TPU kernel `_paged_kernel` (launched by
+  `_paged_core`).  One thread block per (lane, head) walks the lane's
+  pages through its block-table row with an f32 online softmax and
+  skips pages past ``pos // block_size``.  It is bound by the bytes of
+  the live pages; the source says what its design does about that.
+
+`paged_attention` takes the plain version only for CPU tensors; for
+CUDA tensors it launches the kernel or raises.  Both keep the two facts
+the serving engine's eviction contract rests on (docs/serving.md, "Why
+eviction is exact"): masked slots contribute exactly 0.0 and lanes
+never mix.  They agree to f32 roundoff, not bitwise, and an engine only
+ever runs one of them.
+
+Layouts are the JAX package's: q (B, H, D); pools (num_blocks, H, bs,
+D) in q's dtype; tables (B, blocks_per_seq) int32; pos (B,) int32,
+attending slots ``<= pos``; output (B, H, D) in q's dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .. import _build
+from ..base import MXNetError
+
+__all__ = ["paged_attention", "paged_attention_dense"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64, 128)
+_MAX_BLOCK = 64
+_IMPLS = (None, "kernel", "dense")
+
+
+def paged_attention_dense(q, pool_k, pool_v, tables, pos):
+    """The dense-gather recipe, verbatim: gather the lane's pages into a
+    (B, H, W, D) view, f32 scores / sqrt(D), iota position mask at
+    ``finfo(f32).min``, full-width f32 softmax, f32 PV."""
+    B, nbps = tables.shape
+    H, bs, D = pool_k.shape[1], pool_k.shape[2], pool_k.shape[3]
+    W = nbps * bs
+    idx = tables.long()
+    gk = pool_k[idx].permute(0, 2, 1, 3, 4).reshape(B, H, W, D)
+    gv = pool_v[idx].permute(0, 2, 1, 3, 4).reshape(B, H, W, D)
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), gk.float()) / math.sqrt(D)
+    kpos = torch.arange(W, device=q.device)
+    s = torch.where(kpos[None, None, :] <= pos.long()[:, None, None], s,
+                    torch.finfo(torch.float32).min)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", p, gv.float()).to(q.dtype)
+
+
+def _check(q, pool_k, pool_v, tables, pos):
+    if q.dim() != 3 or pool_k.dim() != 4 or tables.dim() != 2 \
+            or pos.dim() != 1:
+        raise MXNetError("paged_attention: q (B, H, D), pools "
+                         "(num_blocks, H, bs, D), tables (B, nbps), pos (B,)")
+    B, H, D = q.shape
+    bs = pool_k.shape[2]
+    if pool_k.shape != pool_v.shape or pool_k.shape[1] != H \
+            or pool_k.shape[3] != D or tables.shape[0] != B \
+            or pos.shape[0] != B:
+        raise MXNetError(
+            f"paged_attention: shapes disagree: q {tuple(q.shape)}, pools "
+            f"{tuple(pool_k.shape)}/{tuple(pool_v.shape)}, tables "
+            f"{tuple(tables.shape)}, pos {tuple(pos.shape)}")
+    if D not in _HEAD_DIMS:
+        raise MXNetError(f"paged_attention: head dim {D} not in {_HEAD_DIMS}")
+    if bs > _MAX_BLOCK or bs & (bs - 1):
+        raise MXNetError(f"paged_attention: block size {bs} must be a "
+                         f"power of two <= {_MAX_BLOCK}")
+    if q.dtype not in _DTYPES or pool_k.dtype != q.dtype \
+            or pool_v.dtype != q.dtype:
+        raise MXNetError(f"paged_attention: q and pools must share one "
+                         f"dtype of {list(_DTYPES)}")
+    if tables.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise MXNetError("paged_attention: tables and pos must be int32")
+    for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
+                    ("tables", tables), ("pos", pos)):
+        if t.device != q.device:
+            raise MXNetError(f"paged_attention: {name} is on {t.device}, "
+                             f"q on {q.device}")
+        if not t.is_contiguous():
+            raise MXNetError(f"paged_attention: {name} must be contiguous")
+
+
+def _launch(q, pool_k, pool_v, tables, pos):
+    import ctypes
+
+    lib = _build.load("paged_attention")
+    fn = lib.mx_paged_attention
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    B, H, D = q.shape
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    err = fn(_DTYPES[q.dtype], q.data_ptr(), pool_k.data_ptr(),
+             pool_v.data_ptr(), tables.data_ptr(), pos.data_ptr(),
+             out.data_ptr(), B, H, D, pool_k.shape[2], tables.shape[1],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise MXNetError(f"paged_attention kernel launch failed "
+                         f"(CUDA error {err})")
+    paged_attention.launches += 1
+    return out
+
+
+def paged_attention(q, pool_k, pool_v, tables, pos, *,
+                    scale_k=None, scale_v=None, impl: Optional[str] = None):
+    """Single-query attention of ``q`` (B, H, D) against the paged KV
+    pool (num_blocks, H, block_size, D) through per-lane block tables
+    (B, blocks_per_seq) at positions ``pos`` (B,), attending slots
+    ``<= pos``.
+
+    CUDA tensors launch the kernel, CPU tensors take the plain version.
+    ``impl`` may name the one the tensors' device implies ("kernel" for
+    CUDA, "dense" for CPU); naming the other raises.  int8 pages
+    (``scale_k``/``scale_v``) are not ported yet.
+    """
+    if impl not in _IMPLS:
+        raise ValueError(f"paged_attention impl {impl!r} (kernel|dense)")
+    if scale_k is not None or scale_v is not None:
+        raise NotImplementedError(
+            "paged_attention: int8 KV pages are not ported yet")
+    on_cuda = q.device.type == "cuda"
+    if impl is not None and impl != ("kernel" if on_cuda else "dense"):
+        raise MXNetError(f"paged_attention impl {impl!r} does not run on "
+                         f"{q.device.type} tensors")
+    if not on_cuda:
+        if q.device.type != "cpu":
+            raise MXNetError(f"paged_attention: unsupported device "
+                             f"{q.device}")
+        return paged_attention_dense(q, pool_k, pool_v, tables, pos)
+    _check(q, pool_k, pool_v, tables, pos)
+    return _launch(q, pool_k, pool_v, tables, pos)
+
+
+# kernel launches since import (the main-path proof in chip_smoke.py)
+paged_attention.launches = 0

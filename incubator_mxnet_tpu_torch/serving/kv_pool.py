@@ -1,0 +1,273 @@
+"""Paged KV-cache block accounting for the serving engine (a copy of
+`incubator_mxnet_tpu/serving/kv_pool.py`: pure Python, no device code).
+
+The pool itself is a pair of per-layer device arrays of shape
+``(num_blocks, H, block_size, D)`` held by `programs.PagedPrograms`;
+THIS module is only the host-side allocator that decides which block
+ids a sequence may write.  Splitting the accounting from the arrays keeps the device
+side static-shaped (admitting or evicting a sequence never changes an
+array shape) while the host side stays trivially testable.
+
+Design rules:
+
+* **Block 0 is the scratch block** (`SCRATCH_BLOCK`): every
+  unallocated block-table entry points at it, and inactive batch lanes
+  write their garbage K/V there.  Its content is always *finite*
+  (it only ever receives real activations or its zero initialization),
+  which is what makes masked attention over it contribute exactly 0 —
+  the bit-identity argument in docs/serving.md leans on this.
+* **Deterministic allocation**: `alloc` always hands out the
+  lowest-numbered free blocks first and then harvests the
+  least-recently-used cached block.  Two runs that admit the same
+  requests in the same order produce identical block tables —
+  eviction-parity tests (and production triage) depend on replayable
+  layouts.
+* **Fail-fast accounting**: freeing a block twice, or freeing the
+  scratch block, raises — a double-free here would silently corrupt a
+  neighbour sequence's cache, the exact class of bug the serving
+  robustness envelope exists to exclude.
+* **One allocation, every pool**: the speculative decoding of the JAX
+  package addresses a draft-model KV pool with the SAME block tables and
+  ids, so one `alloc` covers both pools; `covers` is its commit-time
+  fail-fast check.  The port keeps the check for the slice that ports
+  speculation.
+
+Prefix caching — refcounts and content addressing
+------------------------------------------------------------
+
+When constructed with a ``block_size`` the pool becomes a hash-consed
+prefix cache over *full* KV blocks:
+
+* Every allocated block carries a **refcount**; `free` is a decref.
+  A block whose content was published via `register` is not returned
+  to the free heap when its refcount drops to zero — it parks in an
+  LRU of *evictable* cached blocks, still addressable by `lookup`,
+  and is only harvested (content dropped) when `alloc` runs out of
+  never-cached free blocks.
+* A full block ``i`` of a prompt is **content-addressed** by
+  ``(chain_hash(tokens[0:(i+1)*block_size]), i)``: a block's K/V
+  depends on *every* token at or before it (attention reads the whole
+  prefix), so the key must cover the whole prefix, not just the
+  block's own slice.  The chain hash is a rolling CRC-32; because a
+  32-bit hash can collide, every entry also stores its own token
+  slice and `lookup` verifies token equality block-by-block along the
+  chain walk before binding — a collision is a cache *miss*, never a
+  wrong binding.
+* `lookup` + `bind` admit a request copy-on-write: bound shared
+  blocks are never written by the request (chunked prefill starts at
+  the first uncached position, decode writes at positions
+  past the prompt), so the first divergent position simply falls into
+  the request's private blocks.  `register` publishes a finished
+  prompt's full blocks first-wins: two requests racing to admit the
+  same new prefix both prefill privately and the second registration
+  is a no-op, which is safe (same tokens ⇒ bit-identical content)
+  and leak-free (the loser's blocks just stay private).
+"""
+from __future__ import annotations
+
+import heapq
+import zlib
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+__all__ = ["SCRATCH_BLOCK", "BlockPool"]
+
+SCRATCH_BLOCK = 0
+
+
+class BlockPool:
+    """Refcounted free-list allocator + prefix cache over ``num_blocks``
+    KV blocks.
+
+    Block ids run ``0 .. num_blocks-1``; id 0 (`SCRATCH_BLOCK`) is
+    reserved and never handed out, so a pool of ``num_blocks`` serves
+    ``num_blocks - 1`` allocatable blocks.  Passing ``block_size``
+    enables prefix caching (`lookup`/`bind`/`register`); without it
+    the pool degrades to a plain allocator.  Not thread-safe
+    by itself — the engine serializes access under its own lock.
+    """
+
+    def __init__(self, num_blocks: int, block_size: Optional[int] = None):
+        if num_blocks < 2:
+            raise ValueError(
+                f"need >= 2 blocks (scratch + 1 usable), got {num_blocks}")
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size) if block_size else None
+        self._free: List[int] = list(range(1, self.num_blocks))
+        heapq.heapify(self._free)
+        self._ref: Dict[int, int] = {}
+        # (chain_hash, block_idx) -> (token_slice, block_id)
+        self._entries: Dict[Tuple[int, int], Tuple[Tuple[int, ...], int]] = {}
+        # block_id -> (chain_hash, block_idx) for registered blocks
+        self._block_key: Dict[int, Tuple[int, int]] = {}
+        # refcount-0 registered blocks, oldest-first (LRU harvest order)
+        self._evictable: "OrderedDict[int, Tuple[int, int]]" = OrderedDict()
+
+    @staticmethod
+    def covers(n_blocks: int, block_size: int, position: int) -> bool:
+        """True when ``n_blocks`` table blocks of ``block_size`` cover
+        write ``position`` (0-based) — the speculative commit's
+        fail-fast check that an accepted window never outran the
+        lane's reservation (a violation would mean rejected-position
+        garbage could be admitted by a later mask)."""
+        return 0 <= position < n_blocks * block_size
+
+    @staticmethod
+    def _chain(h: int, block_tokens: Tuple[int, ...]) -> int:
+        """Rolling content hash: fold one block's token slice into the
+        prefix hash.  CRC-32 keeps it cheap and deterministic across
+        processes (unlike salted ``hash()``); collision safety comes
+        from the token-equality check in `lookup`, not from the hash."""
+        data = b",".join(str(t).encode() for t in block_tokens)
+        return zlib.crc32(data, h) & 0xFFFFFFFF
+
+    # ------------------------------------------------------------- #
+    # accounting views
+    # ------------------------------------------------------------- #
+    @property
+    def num_free(self) -> int:
+        """Blocks available to `alloc`: the never-cached free heap plus
+        refcount-0 cached blocks (evictable on demand).  A drained
+        engine therefore reports every block free even while its
+        prefix cache is warm."""
+        return len(self._free) + len(self._evictable)
+
+    @property
+    def num_allocated(self) -> int:
+        return len(self._ref)
+
+    @property
+    def num_cached(self) -> int:
+        """Registered (content-addressed) blocks still resident,
+        whether referenced or parked evictable."""
+        return len(self._block_key)
+
+    @property
+    def num_shared(self) -> int:
+        """Blocks currently bound by more than one sequence."""
+        return sum(1 for rc in self._ref.values() if rc > 1)
+
+    def refcount(self, block_id: int) -> int:
+        return self._ref.get(block_id, 0)
+
+    def prefix_stats(self) -> Dict[str, int]:
+        return {
+            "cached_blocks": self.num_cached,
+            "evictable_blocks": len(self._evictable),
+            "shared_blocks": self.num_shared,
+        }
+
+    # ------------------------------------------------------------- #
+    # allocation / release
+    # ------------------------------------------------------------- #
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """``n`` private block ids (refcount 1) or None (caller backs
+        off) when fewer than ``n`` are available — all-or-nothing, so
+        a half-admitted sequence can never exist.  Never-cached free
+        blocks are preferred lowest-id-first; only then are cached
+        refcount-0 blocks harvested oldest-first, dropping their cache
+        entries."""
+        if n < 0:
+            raise ValueError(f"block count must be >= 0, got {n}")
+        if n > self.num_free:
+            return None
+        ids: List[int] = []
+        for _ in range(n):
+            if self._free:
+                b = heapq.heappop(self._free)
+            else:
+                b, key = self._evictable.popitem(last=False)
+                del self._entries[key]
+                del self._block_key[b]
+            self._ref[b] = 1
+            ids.append(b)
+        return ids
+
+    def free(self, ids: Sequence[int]) -> None:
+        """Decref blocks (eviction/retirement path).  A block reaching
+        refcount 0 returns to the free heap unless its content is
+        registered in the prefix cache, in which case it parks
+        evictable (most-recently-used end) with content intact."""
+        for b in ids:
+            if b == SCRATCH_BLOCK:
+                raise ValueError("cannot free the scratch block")
+            rc = self._ref.get(b)
+            if rc is None:
+                raise ValueError(f"double free of block {b}")
+            if rc > 1:
+                self._ref[b] = rc - 1
+                continue
+            del self._ref[b]
+            key = self._block_key.get(b)
+            if key is not None:
+                self._evictable[b] = key
+                self._evictable.move_to_end(b)
+            else:
+                heapq.heappush(self._free, b)
+
+    # ------------------------------------------------------------- #
+    # prefix cache
+    # ------------------------------------------------------------- #
+    def lookup(self, tokens: Sequence[int]) -> Tuple[List[int], int]:
+        """Walk the prompt's full-block prefix chain and return
+        ``(block_ids, cached_len)`` for the longest resident,
+        token-verified prefix.  At most ``(P-1) // block_size`` blocks
+        are usable — the last prompt position must always be computed
+        live to produce the first-token logits, and keeping the cached
+        length block-aligned is what lets bound blocks stay read-only
+        (copy-on-write without ever copying).  Does NOT take
+        references — call `bind` on the result while still holding the
+        engine lock."""
+        if self.block_size is None:
+            return [], 0
+        bs = self.block_size
+        max_blocks = (len(tokens) - 1) // bs
+        ids: List[int] = []
+        h = 0
+        for i in range(max_blocks):
+            sl = tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
+            h = self._chain(h, sl)
+            ent = self._entries.get((h, i))
+            if ent is None or ent[0] != sl:
+                break                      # miss OR hash collision
+            ids.append(ent[1])
+        return ids, len(ids) * bs
+
+    def bind(self, ids: Sequence[int]) -> None:
+        """Incref cache-hit blocks (binding them into a new sequence's
+        table).  An evictable block comes back live; a block another
+        sequence still holds just gains a reference."""
+        for b in ids:
+            if b in self._ref:
+                self._ref[b] += 1
+            else:
+                self._evictable.pop(b, None)
+                self._ref[b] = 1
+
+    def unbind(self, ids: Sequence[int]) -> None:
+        """Roll back a `bind` when the private-tail `alloc` failed —
+        plain decref (content stays cached)."""
+        self.free(ids)
+
+    def register(self, tokens: Sequence[int], block_ids: Sequence[int]) -> None:
+        """Publish a finished prompt's full blocks into the cache,
+        first-wins.  Only blocks covering ``P // block_size * bs``
+        prompt tokens are registered — the tail block also receives
+        decode-time writes and is never shareable.  Idempotent for
+        already-registered (bound) blocks; a racing second
+        registration of the same prefix leaves its own blocks private."""
+        if self.block_size is None:
+            return
+        bs = self.block_size
+        h = 0
+        for i in range(len(tokens) // bs):
+            sl = tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
+            h = self._chain(h, sl)
+            key = (h, i)
+            if key in self._entries:
+                continue                   # first registration wins
+            b = int(block_ids[i])
+            if b in self._block_key:       # block already published
+                continue                   # under a different prefix
+            self._entries[key] = (sl, b)
+            self._block_key[b] = key

@@ -1,0 +1,126 @@
+"""Rules of the PyTorch/CUDA port (`incubator_mxnet_tpu_torch/`).
+
+* The port imports neither JAX nor anything of the JAX package: it
+  imports with ``jax`` blocked, and an AST scan of its sources and of
+  chip_smoke.py finds no such import.
+* Entry points run on ``cuda`` unless the caller asks for the CPU;
+  without a GPU they raise `MXNetError` instead of carrying on there.
+* Importing the package, and running its CPU path, builds nothing:
+  neither ``nvcc`` nor a ``ctypes`` load is touched.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import incubator_mxnet_tpu_torch as mxt
+from incubator_mxnet_tpu_torch import MXNetError, context
+from incubator_mxnet_tpu_torch.models import TransformerLM
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "incubator_mxnet_tpu_torch")
+SMALL = dict(vocab=11, units=16, hidden_size=32, num_layers=1, num_heads=2,
+             max_len=32, dropout=0.0)
+
+
+def _run(code):
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+
+
+def _port_sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_package_imports_with_jax_blocked():
+    res = _run("import sys\n"
+               "sys.modules['jax'] = None\n"
+               "sys.modules['incubator_mxnet_tpu'] = None\n"
+               "import incubator_mxnet_tpu_torch as m\n"
+               "import incubator_mxnet_tpu_torch.convert\n"
+               "print(sorted(n for n, m in sys.modules.items()\n"
+               "             if m is not None\n"
+               "             and n.split('.')[0] in ('jax', 'jaxlib')))\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_no_jax_import_in_sources():
+    bad = []
+    for path in _port_sources():
+        for mod in _imported_modules(path):
+            top = (mod or "").split(".")[0]
+            if top in ("jax", "jaxlib", "incubator_mxnet_tpu"):
+                bad.append((os.path.relpath(path, ROOT), mod))
+    assert bad == []
+
+
+def test_no_numpy_subpackage():
+    assert not os.path.exists(os.path.join(PKG, "numpy"))
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert context.default_device() == torch.device("cuda")
+    with pytest.raises(MXNetError):
+        TransformerLM(**SMALL)
+    with pytest.raises(MXNetError):
+        TransformerLM(**SMALL, device="cuda")
+    with pytest.raises(MXNetError):
+        mxt.random.seed(0)
+    net = TransformerLM(**SMALL, device="cpu")
+    assert net.embed.weight.device.type == "cpu"
+    assert isinstance(mxt.random.seed(0, device="cpu"), torch.Generator)
+    assert mxt.cpu() == torch.device("cpu")
+    assert mxt.gpu(1) == torch.device("cuda", 1)
+
+
+def test_same_seed_same_weights_on_every_build():
+    a = TransformerLM(**SMALL, device="cpu", seed=7)
+    b = TransformerLM(**SMALL, device="cpu", seed=7)
+    c = TransformerLM(**SMALL, device="cpu", seed=8)
+    assert all(torch.equal(p, q) for p, q in zip(a.parameters(),
+                                                 b.parameters()))
+    assert not torch.equal(a.head.weight, c.head.weight)
+
+
+def test_cpu_path_never_builds_or_loads_kernels():
+    res = _run(
+        "import ctypes, subprocess, torch\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('kernel build or load attempted')\n"
+        "subprocess.Popen = refuse\n"
+        "ctypes.CDLL = refuse\n"
+        "import incubator_mxnet_tpu_torch as m\n"
+        "from incubator_mxnet_tpu_torch import _build\n"
+        "from incubator_mxnet_tpu_torch.models import TransformerLM\n"
+        "net = TransformerLM(vocab=11, units=16, hidden_size=32,\n"
+        "                    num_layers=1, num_heads=2, max_len=32,\n"
+        "                    device='cpu')\n"
+        "out = net.generate([[1, 2, 3]], 4)\n"
+        "with net.serve(max_batch=1, block_size=8) as eng:\n"
+        "    toks = eng.submit([1, 2, 3], 4).result(timeout=60)\n"
+        "assert toks == out[0, 3:].tolist(), (toks, out)\n"
+        "assert not _build._libs\n"
+        "assert m.ops.flash_attention.launches == 0\n"
+        "assert m.ops.paged_attention.launches == 0\n"
+        "print('ok')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"

@@ -1,0 +1,489 @@
+"""The PyTorch/CUDA port's paged serving engine
+(`incubator_mxnet_tpu_torch/serving/`), mirroring tests/test_serving.py
+and tests/test_serving_prefix.py.
+
+The load-bearing contracts, as in the JAX package:
+
+* **Greedy parity** — engine tokens equal the JAX `lm_generate` and the
+  port's own `generate` token for token, alone and co-batched, with
+  chunked prefill (every prompt here crosses several chunk boundaries).
+* **Eviction bit-identity** — cancelling a neighbour mid-batch leaves
+  the survivor's tokens identical to an unperturbed run.
+* **Prefix cache** — a cache-hit admission is bit-identical to a cold
+  one; shared blocks are decref'd exactly.
+* **Overload safety** — a full queue sheds, SLO estimates shed late
+  requests, deadlines evict mid-batch, abandoned streams release their
+  blocks, close() joins the scheduler thread, and scheduler errors are
+  parked and re-raised.
+
+Tiny nets (V=61, C=16, one layer), 1 ms polls, one shared engine.
+"""
+import threading
+import time
+
+import jax.numpy as jnp
+import numpy as onp
+import pytest
+import torch
+
+import incubator_mxnet_tpu as mx
+from incubator_mxnet_tpu.models.generation import lm_generate as jax_generate
+from incubator_mxnet_tpu.models.transformer import TransformerLM as JaxLM
+from incubator_mxnet_tpu.ndarray.ndarray import NDArray
+from incubator_mxnet_tpu_torch.convert import load_jax_params
+from incubator_mxnet_tpu_torch.models import TransformerLM, lm_generate
+from incubator_mxnet_tpu_torch.serving import (BlockPool, RequestCancelled,
+                                               RequestFailed, RequestShed,
+                                               RequestTimedOut, ServingEngine)
+
+V, C, DFF, L, H, MAXLEN = 61, 16, 32, 1, 2, 64
+P1 = onp.array([3, 7, 11, 2, 9], onp.int32)
+P2 = onp.array([5, 1, 2], onp.int32)
+_RS = onp.random.RandomState(42)
+PREF = _RS.randint(0, V, size=16).astype(onp.int32)    # 2 full blocks @ 8
+PA = onp.concatenate([PREF, _RS.randint(0, V, size=5).astype(onp.int32)])
+PB = onp.concatenate([PREF, _RS.randint(0, V, size=5).astype(onp.int32)])
+PLONG = _RS.randint(0, V, size=33).astype(onp.int32)
+_POLL = 0.001
+
+
+def _wait(pred, timeout=30.0):
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        if pred():
+            return True
+        time.sleep(0.002)
+    return False
+
+
+def _slow(phase_wanted, seconds):
+    def hook(phase):
+        if phase == phase_wanted:
+            time.sleep(seconds)
+    return hook
+
+
+@pytest.fixture(scope="module")
+def nets():
+    mx.random.seed(0)
+    jnet = JaxLM(vocab=V, units=C, hidden_size=DFF, num_layers=L,
+                 num_heads=H, max_len=MAXLEN, dropout=0.0)
+    jnet.initialize()
+    jnet(NDArray(jnp.ones((1, 4), jnp.int32)))
+    tnet = TransformerLM(vocab=V, units=C, hidden_size=DFF, num_layers=L,
+                         num_heads=H, max_len=MAXLEN, dropout=0.0,
+                         device="cpu")
+    load_jax_params(tnet, {k: p.data().asnumpy() for k, p in
+                           jnet._collect_params_with_prefix().items()})
+    return jnet, tnet
+
+
+@pytest.fixture(scope="module")
+def net(nets):
+    return nets[1]
+
+
+_REFS = {}
+
+
+def _ref(nets, prompt, n):
+    """JAX `lm_generate` tokens (generated part), cached per request."""
+    key = (prompt.tobytes(), n)
+    if key not in _REFS:
+        _REFS[key] = onp.asarray(
+            jax_generate(nets[0], prompt[None, :], n))[0, len(prompt):]
+    return _REFS[key].tolist()
+
+
+@pytest.fixture(scope="module")
+def engine(net):
+    """The shared engine: prefill_chunk=4 makes every prompt here span
+    several chunk boundaries."""
+    eng = ServingEngine(net, max_batch=2, block_size=8, prefill_chunk=4,
+                        poll_interval=_POLL)
+    yield eng
+    eng.close()
+
+
+@pytest.fixture
+def clean_engine(engine):
+    engine.set_fault_hook(None)
+    engine.set_ttft_budget(None)
+    yield engine
+    assert engine.drain(timeout=30)
+    engine.set_fault_hook(None)
+    engine.set_ttft_budget(None)
+
+
+# --------------------------------------------------------------------- #
+# block pool (a copy of the JAX package's; the same cases)
+# --------------------------------------------------------------------- #
+def test_block_pool_deterministic_and_guarded():
+    pool = BlockPool(6)
+    assert pool.num_free == 5
+    assert pool.alloc(3) == [1, 2, 3]
+    assert pool.alloc(3) is None
+    pool.free([2])
+    assert pool.alloc(1) == [2]
+    with pytest.raises(ValueError):
+        pool.free([2, 2])
+    with pytest.raises(ValueError):
+        pool.free([0])
+    with pytest.raises(ValueError):
+        BlockPool(1)
+
+
+def test_pool_lookup_register_roundtrip():
+    pool = BlockPool(8, 4)
+    toks = list(range(100, 111))
+    ids = pool.alloc(3)
+    pool.register(toks, ids)
+    assert pool.lookup(toks) == (ids[:2], 8)
+    assert pool.lookup(toks[:8]) == (ids[:1], 4)
+    assert pool.lookup(toks[:4] + [1, 2, 3, 4, 9]) == (ids[:1], 4)
+    assert pool.lookup([9] * 11) == ([], 0)
+
+
+def test_pool_refcounts_shared_free_and_lru_harvest():
+    pool = BlockPool(6, 4)
+    toks = list(range(1, 9))
+    a = pool.alloc(2)
+    pool.register(toks, a)
+    hits, clen = pool.lookup(toks + [7])
+    assert hits == a and clen == 8
+    pool.bind(hits)
+    assert pool.num_shared == 2
+    pool.free(a)
+    assert pool.num_allocated == 2 and pool.num_shared == 0
+    pool.free(a)
+    assert pool.num_allocated == 0 and pool.num_free == 5
+    with pytest.raises(ValueError):
+        pool.free(a)
+    assert pool.lookup(toks + [7]) == (a, 8)
+    assert pool.alloc(3) == [3, 4, 5]
+    assert set(pool.alloc(2)) == set(a)
+    assert pool.lookup(toks + [7]) == ([], 0)
+    assert pool.num_cached == 0
+
+
+def test_pool_bind_rollback_and_first_registration_wins():
+    pool = BlockPool(8, 4)
+    toks = list(range(10, 18))
+    a = pool.alloc(2)
+    b = pool.alloc(2)
+    pool.register(toks, a)
+    pool.register(toks, b)                 # racing loser: a no-op
+    pool.free(b)
+    pool.free(a)
+    hits, _ = pool.lookup(toks + [3])
+    pool.bind(hits)
+    pool.unbind(hits)                      # admission rolled back
+    assert pool.num_allocated == 0 and pool.num_free == 7
+    assert pool.lookup(toks + [3]) == (a, 8)
+
+
+def test_pool_hash_collision_is_a_miss(monkeypatch):
+    pool = BlockPool(8, 4)
+    monkeypatch.setattr(BlockPool, "_chain", staticmethod(lambda h, sl: 1))
+    t1 = [1, 2, 3, 4, 5, 6, 7, 8]
+    a = pool.alloc(2)
+    pool.register(t1, a)
+    assert pool.lookup([9, 9, 9, 9, 5, 6, 7, 8, 0]) == ([], 0)
+    assert pool.lookup(t1 + [0]) == (a, 8)
+
+
+# --------------------------------------------------------------------- #
+# parity with lm_generate (JAX and port), chunked prefill, prefix cache
+# --------------------------------------------------------------------- #
+def test_greedy_parity_alone_and_cobatched(nets, clean_engine):
+    ref1, ref2 = _ref(nets, P1, 8), _ref(nets, P2, 6)
+    port1 = lm_generate(nets[1], P1[None, :], 8)[0, len(P1):].tolist()
+    assert port1 == ref1
+    assert clean_engine.submit(P1, 8).result(timeout=60) == ref1
+    r1 = clean_engine.submit(P1, 8)
+    r2 = clean_engine.submit(P2, 6)
+    assert r1.result(timeout=60) == ref1
+    assert r2.result(timeout=60) == ref2
+
+
+def test_chunked_prefill_and_cache_hit_bit_identical(nets, clean_engine):
+    eng = clean_engine
+    ref = _ref(nets, PA, 8)
+    cold = eng.submit(PA, 8)
+    assert cold.result(timeout=60) == ref
+    hits0 = eng.stats()["prefix_cache"]["hits"]
+    hit = eng.submit(PA, 8)
+    assert hit.result(timeout=60) == ref
+    assert hit.cached_tokens == 16         # 2 of 3 prompt blocks bound
+    st = eng.stats()
+    assert st["prefix_cache"]["hits"] == hits0 + 1
+    assert st["blocks_free"] == st["blocks_total"]
+
+
+def test_eos_and_single_token_retire(nets, clean_engine):
+    full = _ref(nets, P1, 8)
+    assert clean_engine.submit(P1, 1).result(timeout=60) == full[:1]
+    old = clean_engine._eos
+    clean_engine._eos = full[0]
+    try:
+        assert clean_engine.submit(P1, 8).result(timeout=60) == full[:1]
+    finally:
+        clean_engine._eos = old
+
+
+def test_mid_batch_eviction_leaves_survivor_bit_identical(clean_engine):
+    eng = clean_engine
+    ra, rb = eng.submit(P1, 10), eng.submit(P2, 10)
+    base = ra.result(timeout=60)
+    rb.result(timeout=60)
+    assert eng.drain(timeout=30)
+    eng.set_fault_hook(_slow("step", 0.02))
+    ra, rb = eng.submit(P1, 10), eng.submit(P2, 10)
+    assert _wait(lambda: len(rb.tokens) >= 3)
+    rb.cancel()
+    assert ra.result(timeout=60) == base
+    with pytest.raises(RequestCancelled):
+        rb.result(timeout=60)
+    eng.set_fault_hook(None)
+    assert eng.submit(P1, 10).result(timeout=60) == base
+
+
+def test_evict_while_shared_decrefs_exactly(nets, clean_engine):
+    eng = clean_engine
+    ref_b = _ref(nets, PB, 10)
+    eng.set_fault_hook(_slow("step", 0.02))
+    ra = eng.submit(PA, 20)                # both bind PREF's 2 blocks
+    rb = eng.submit(PB, 10)
+    assert _wait(lambda: len(rb.tokens) >= 2)
+    assert eng._pool.num_shared >= 2
+    ra.cancel()
+    with pytest.raises(RequestCancelled):
+        ra.result(timeout=30)
+    assert rb.result(timeout=60) == ref_b
+    eng.set_fault_hook(None)
+    st = eng.stats()
+    assert st["blocks_free"] == st["blocks_total"]
+    assert eng._pool.num_allocated == 0
+
+
+def test_cancel_mid_chunked_prefill_releases_only_private(nets,
+                                                          clean_engine):
+    eng = clean_engine
+    ref = _ref(nets, PLONG, 6)
+    assert eng.submit(PLONG, 6).result(timeout=60) == ref
+    cached_before = eng._pool.num_cached
+    assert cached_before >= 4
+    pb = onp.concatenate([PLONG[:8],
+                          _RS.randint(0, V, size=25).astype(onp.int32)])
+    eng.set_fault_hook(_slow("prefill", 0.05))
+    req = eng.submit(pb, 6)
+    assert _wait(lambda: eng._pool.num_allocated > 0)
+    req.cancel()
+    with pytest.raises(RequestCancelled):
+        req.result(timeout=30)
+    eng.set_fault_hook(None)
+    assert eng.drain(timeout=30)
+    assert eng._pool.num_allocated == 0
+    assert eng._pool.num_cached == cached_before
+    hits0 = eng.stats()["prefix_cache"]["hits"]
+    assert eng.submit(PLONG, 6).result(timeout=60) == ref
+    assert eng.stats()["prefix_cache"]["hits"] == hits0 + 1
+
+
+def test_race_to_admit_same_new_prefix(nets, clean_engine):
+    eng = clean_engine
+    fresh = _RS.randint(0, V, size=21).astype(onp.int32)
+    ref = _ref(nets, fresh, 6)
+    r1, r2 = eng.submit(fresh, 6), eng.submit(fresh, 6)
+    assert r1.result(timeout=60) == ref
+    assert r2.result(timeout=60) == ref
+    assert eng._pool.num_allocated == 0
+    hits0 = eng.stats()["prefix_cache"]["hits"]
+    assert eng.submit(fresh, 6).result(timeout=60) == ref
+    assert eng.stats()["prefix_cache"]["hits"] == hits0 + 1
+
+
+def test_sampling_matches_generate_and_ignores_cobatching(net):
+    """A request's draws depend on its seed and positions alone: the
+    engine samples what `generate` samples for one prompt, co-batched
+    or not."""
+    kw = dict(temperature=0.9, top_k=5)
+    want = lm_generate(net, P1[None, :], 8, seed=11,
+                       **kw)[0, len(P1):].tolist()
+    with ServingEngine(net, max_batch=2, block_size=8, prefill_chunk=4,
+                       poll_interval=_POLL, **kw) as eng:
+        assert eng.submit(P1, 8, seed=11).result(timeout=60) == want
+        r1 = eng.submit(P1, 8, seed=11)
+        r2 = eng.submit(P2, 8, seed=3)
+        assert r1.result(timeout=60) == want
+        assert r2.result(timeout=60) == lm_generate(
+            net, P2[None, :], 8, seed=3, **kw)[0, len(P2):].tolist()
+
+
+# --------------------------------------------------------------------- #
+# overload and lifecycle
+# --------------------------------------------------------------------- #
+def test_evicted_blocks_are_reused(clean_engine):
+    eng = clean_engine
+    eng.set_fault_hook(_slow("step", 0.02))
+    r1 = eng.submit(P1, 20)
+    assert _wait(lambda: r1.status == "running")
+    held = set(r1.block_ids)
+    r1.cancel()
+    with pytest.raises(RequestCancelled):
+        r1.result(timeout=30)
+    eng.set_fault_hook(None)
+    r3 = eng.submit(P2, 6)
+    r3.result(timeout=60)
+    assert set(r3.block_ids) & held
+    st = eng.stats()
+    assert st["blocks_free"] == st["blocks_total"]
+    assert st["evicted"].get("cancel", 0) >= 1
+
+
+def test_deadline_evicts_mid_batch(clean_engine):
+    eng = clean_engine
+    eng.set_fault_hook(_slow("step", 0.02))
+    req = eng.submit(P1, 50, deadline=0.08)
+    with pytest.raises(RequestTimedOut):
+        req.result(timeout=30)
+    assert req.status == "evicted"
+    assert 0 < len(req.tokens) < 50
+    assert eng.stats()["evicted"].get("timeout", 0) >= 1
+
+
+def test_queue_saturation_sheds_without_deadlock(net):
+    eng = ServingEngine(net, max_batch=1, block_size=8, max_queue=2,
+                        poll_interval=_POLL,
+                        fault_hook=_slow("step", 0.02))
+    try:
+        reqs = [eng.submit(P2, 6) for _ in range(8)]
+        shed = [r for r in reqs if r.status == "shed"]
+        assert shed
+        for r in shed:
+            with pytest.raises(RequestShed) as ei:
+                r.result(timeout=5)
+            assert ei.value.reason == "queue_full"
+        assert eng.drain(timeout=60)
+        done = [r for r in reqs if r.status == "done"]
+        assert len(done) + len(shed) == len(reqs)
+        assert eng.stats()["shed"]["queue_full"] == len(shed)
+        r = eng.submit(P2, 2, block=True, timeout=30)
+        assert r.result(timeout=30)
+    finally:
+        eng.close()
+
+
+def test_slo_budget_sheds_estimated_late_requests(clean_engine):
+    eng = clean_engine
+    eng.submit(P2, 2).result(timeout=60)   # seeds the prefill EWMA
+    eng.set_fault_hook(_slow("step", 0.05))
+    occupants = [eng.submit(P1, 12), eng.submit(P2, 12)]
+    assert _wait(lambda: all(r.status == "running" for r in occupants))
+    eng.set_ttft_budget(1e-4)
+    late = eng.submit(P2, 4)
+    with pytest.raises(RequestShed) as ei:
+        late.result(timeout=30)
+    assert ei.value.reason == "slo"
+    eng.set_ttft_budget(None)
+    eng.set_fault_hook(None)
+    for r in occupants:
+        r.result(timeout=60)
+
+
+def test_abandoned_stream_releases_blocks(clean_engine):
+    eng = clean_engine
+    eng.set_fault_hook(_slow("step", 0.02))
+    req = eng.submit(P1, 30)
+    it = req.stream()
+    assert isinstance(next(it), int)
+    it.close()
+    assert _wait(lambda: eng.stats()["blocks_free"]
+                 == eng.stats()["blocks_total"])
+    assert req.status == "cancelled"
+    eng.set_fault_hook(None)
+
+
+def test_close_joins_scheduler_and_rejects_new_work(net):
+    eng = ServingEngine(net, max_batch=1, block_size=8, poll_interval=_POLL)
+    thread = eng._thread
+    eng.close()
+    assert not thread.is_alive()
+    with pytest.raises(RuntimeError):
+        eng.submit(P2, 2)
+    eng.close()                            # idempotent
+
+
+def test_close_aborts_inflight_requests(net):
+    eng = ServingEngine(net, max_batch=1, block_size=8, max_queue=4,
+                        poll_interval=_POLL,
+                        fault_hook=_slow("step", 0.05))
+    running = eng.submit(P1, 50)
+    queued = eng.submit(P2, 50)
+    assert _wait(lambda: running.status == "running")
+    eng.close()
+    for r in (running, queued):
+        assert r.status == "cancelled"
+        with pytest.raises(RequestCancelled):
+            r.result(timeout=5)
+
+
+def test_scheduler_error_is_parked_and_reraised(net):
+    boom = RuntimeError("injected scheduler fault")
+
+    def hook(phase):
+        if phase == "step":
+            raise boom
+
+    eng = ServingEngine(net, max_batch=1, block_size=8,
+                        poll_interval=_POLL, fault_hook=hook)
+    req = eng.submit(P2, 8)
+    with pytest.raises(RequestFailed):
+        req.result(timeout=30)
+    assert req.status == "failed"
+    with pytest.raises(RequestFailed):
+        eng.submit(P2, 2)
+    with pytest.raises(RequestFailed) as ei:
+        eng.close()
+    assert ei.value.__cause__ is boom
+    eng.close()
+
+
+def test_submit_validation(clean_engine):
+    with pytest.raises(ValueError):
+        clean_engine.submit(onp.zeros((0,), onp.int32), 2)
+    with pytest.raises(ValueError):
+        clean_engine.submit(P1, 0)
+    with pytest.raises(ValueError):
+        clean_engine.submit(P1, MAXLEN)
+    with pytest.raises(ValueError):
+        ServingEngine(clean_engine._net, max_batch=0)
+    with pytest.raises(ValueError):
+        ServingEngine(clean_engine._net, block_size=12)
+
+
+def test_concurrent_submitters_are_thread_safe(nets, clean_engine):
+    ref = _ref(nets, P2, 4)
+    results = [None] * 6
+
+    def worker(i):
+        results[i] = clean_engine.submit(P2, 4, block=True,
+                                         timeout=60).result(timeout=60)
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(results))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads)
+    assert all(r == ref for r in results)
+
+
+def test_serve_caches_the_engine(nets):
+    net = nets[1]
+    ref = _ref(nets, P2, 6)
+    with net.serve(max_batch=2, block_size=8, poll_interval=_POLL) as eng:
+        assert eng.submit(torch.from_numpy(P2), 6).result(timeout=60) == ref
+        assert net.serve() is eng
+    assert eng.closed
