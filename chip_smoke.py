@@ -27,6 +27,35 @@ Phases (any failure ends the run with a non-zero exit code):
    and the bound (bytes over 3.35 TB/s, operations over 989 TFLOP/s for
    bf16).
 
+7. training kernels — the dropout keep-mask kernel bit-identical to its
+   plain Philox version at (4096, 1024) bf16/f32, rates 0.1 and 0.5, and
+   at odd sizes, with the keep fraction within 4 sigma of 1 - rate; the
+   cross-entropy forward (lse, row sum) and backward (dlogits) kernels
+   against their plain versions at (4096, 30522) bf16, at small and odd
+   vocabularies and at logits of +-1e4, eps 0 and 0.1 (lse within 1e-4
+   relative, the row sum within 1e-6 of the row's sum of magnitudes,
+   each dlogit within rtol·|ref| + atol·max|ref|, f32 1e-5/1e-6 and
+   bf16 1e-2/1e-5, a bound that a zeroed or softmax-less dlogits is
+   shown to fail on the same inputs);
+8. training main path — BERTForPretraining at BERT-large width (V=30522,
+   D=1024, Dff=4096, L=24, H=16) in bf16 over f32 master weights,
+   initialized from seed 0, dropout 0.1, the MLM+NSP loss of bench.py's
+   PretrainWithLoss, SGD momentum 0.9 through the Trainer
+   (keep_grads=False), B=32 T=128 on a fixed batch from seed 0: 2
+   warm-up and 5 timed steps; the loss is finite every step, every
+   trainable parameter the forward reaches changes in step 1, and each
+   step launches the dropout kernel 49 times and each cross-entropy
+   kernel once while flash is never launched; step time, tokens/s, MFU
+   (bench.py's FLOP count over 989 TFLOP/s bf16 on an H100 SXM), peak
+   memory and the card's busy share over one profiled step;
+9. training parity — the same width at 2 layers in f32, dropout 0.1, one
+   step from one seed, once through the kernels and once with every
+   kernel call swapped for its plain version: the same loss (rtol 1e-5),
+   grads and updated weights (atol 1e-4 of each tensor's max);
+10. training timing — each training kernel at the inputs the main path
+   gave it, beside its plain version, its one-call PyTorch yardstick
+   and its byte bound.
+
 The line before the last is a JSON object with every kernel's launches,
 error, time, plain-version time, bound and library time; the line
 before it is the nvidia-smi name and power limit; the last line is
@@ -46,15 +75,24 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from incubator_mxnet_tpu_torch import _build
-from incubator_mxnet_tpu_torch.models import TransformerLM
+from incubator_mxnet_tpu_torch import _build, autograd, nd
+from incubator_mxnet_tpu_torch import random as mx_random
+from incubator_mxnet_tpu_torch.gluon import HybridBlock, Trainer
+from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from incubator_mxnet_tpu_torch.models import BERTForPretraining, TransformerLM
 from incubator_mxnet_tpu_torch.models import generation as gen_mod
 from incubator_mxnet_tpu_torch.ops import flash_attention as _fa_fn
 from incubator_mxnet_tpu_torch.ops import paged_attention as _pa_fn
 from incubator_mxnet_tpu_torch.ops.flash_attention import (
     _reference_attention_lse, flash_attention_with_lse)
+from incubator_mxnet_tpu_torch.ops import dropout_kernel as dk_mod
+from incubator_mxnet_tpu_torch.ops import xent_kernel as xk_mod
+from incubator_mxnet_tpu_torch.ops.dropout_kernel import (dropout_mask,
+                                                          mask_reference)
 from incubator_mxnet_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_dense)
+from incubator_mxnet_tpu_torch.ops.xent_kernel import (
+    dlogits_reference, stats_reference, xent_backward, xent_forward)
 from incubator_mxnet_tpu_torch.serving import ServingEngine
 from incubator_mxnet_tpu_torch.serving import programs as prog_mod
 
@@ -72,7 +110,31 @@ KERNELS = {
     "flash_attention": dict(
         fn=_fa_fn, source="incubator_mxnet_tpu_torch/csrc/flash_attention.cu",
         replaces="incubator_mxnet_tpu/ops/flash_attention.py:211"),
+    "dropout_mask": dict(
+        fn=dropout_mask, source="incubator_mxnet_tpu_torch/csrc/dropout.cu",
+        replaces="incubator_mxnet_tpu/ops/dropout_kernel.py:250"),
+    "xent_forward": dict(
+        fn=xent_forward, source="incubator_mxnet_tpu_torch/csrc/xent.cu",
+        replaces="incubator_mxnet_tpu/ops/xent_kernel.py:157"),
+    "xent_backward": dict(
+        fn=xent_backward, source="incubator_mxnet_tpu_torch/csrc/xent.cu",
+        replaces="incubator_mxnet_tpu/ops/xent_kernel.py:178"),
 }
+SERVING_KERNELS = ("paged_attention", "flash_attention")
+TRAINING_KERNELS = ("dropout_mask", "xent_forward", "xent_backward")
+# the flagship of bench.py: BERT-large, phase-1 shapes, dropout 0.1
+BERT = dict(vocab_size=30522, units=1024, hidden_size=4096, num_layers=24,
+            num_heads=16)
+BERT_BATCH = (32, 128)
+DROPOUT = 0.1
+SGD = {"learning_rate": 1e-3, "momentum": 0.9, "multi_precision": True}
+LSE_RTOL = 1e-4
+SUM_RTOL = 1e-6                     # of the row's sum of magnitudes
+# dlogits, elementwise: |dx - ref| <= rtol·|ref| + atol·max|ref|.  The
+# rtol is about one rounding of the output dtype; the atol, relative to
+# the largest dlogit, stays below the softmax term of the off-label
+# entries, so an output without it fails
+DX_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (1e-2, 1e-5)}
 
 
 def log(*args):
@@ -124,13 +186,21 @@ def _flush_l2():
     _FLUSH.fill_(1)
 
 
+# ~5 ms of GPU clock: longer than the host takes to enqueue any timed call
+_HOST_LEAD_CYCLES = 10_000_000
+
+
 def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
-    """Median device time of one ``fn()`` call (CUDA events, cold L2)."""
+    """Median device time of one ``fn()`` call (CUDA events, cold L2).
+    A sleep kernel queued before the start event keeps the card busy
+    while the host enqueues the call, so the host's launch cost (the
+    wrapper, ctypes, Python) stays out of the measured interval."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         _flush_l2()
+        torch.cuda._sleep(_HOST_LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -362,7 +432,8 @@ def phase_main_path(smi: str) -> dict:
         assert solo == toks[5], "solo run differs from co-batched run"
         busy = device_busy(prof, solo_s)
     torch.cuda.synchronize()
-    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    launches = {name: KERNELS[name]["fn"].launches
+                for name in SERVING_KERNELS}
     for name, n in launches.items():
         assert n > 0, f"{name} was never launched on the main path"
 
@@ -525,29 +596,463 @@ def time_flash(res) -> dict:
     }
 
 
+# ---------------------------------------------------------------- phase 7
+def check_dropout(dtype, shape, rate, seed) -> int:
+    """The kernel's mask equals the plain Philox mask bit for bit; the
+    keep fraction is within 4 sigma of 1 - rate; the same seed gives the
+    same mask and another seed another.  Returns the element count."""
+    x = torch.randn(shape, device=DEV).to(dtype)
+    n = x.numel()
+    m = dropout_mask(x, seed, rate)
+    ref = mask_reference(n, seed, rate, device=DEV).view(shape)
+    torch.cuda.synchronize()
+    tag = f"dropout {dtype} {shape} rate={rate}"
+    assert m.dtype == torch.uint8 and m.shape == x.shape, tag
+    assert torch.equal(m, ref), f"{tag}: mask differs from the plain version"
+    assert torch.equal(dropout_mask(x, seed, rate), m), f"{tag}: same seed"
+    if n >= 4096:
+        keep = m.float().mean().item()
+        sigma = math.sqrt(rate * (1 - rate) / n)
+        assert abs(keep - (1 - rate)) <= 4 * sigma, f"{tag}: keep {keep}"
+        assert not torch.equal(dropout_mask(x, seed + 1, rate), m), \
+            f"{tag}: another seed gives the same mask"
+    return n
+
+
+def check_xent(N, V, dtype, eps, scale=1.0, seed=0) -> dict:
+    """Forward (lse, row sum) and backward (dlogits) kernels against
+    their plain versions on the same inputs; returns the max errors."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn((N, V), generator=g) * scale).to(DEV, dtype)
+    labels = torch.randint(0, V, (N,), generator=g).to(DEV)
+    gr = torch.rand((N,), generator=g).to(DEV)
+    want_sum = eps != 0.0
+    lse, xsum = xent_forward(x, want_sum)
+    ref_lse, ref_sum = stats_reference(x, want_sum)
+    dx = xent_backward(x, labels, ref_lse, gr, eps)
+    ref_dx = dlogits_reference(x, labels, ref_lse, gr, eps)
+    torch.cuda.synchronize()
+    tag = f"xent ({N}, {V}) {dtype} eps={eps} scale={scale}"
+    assert lse.dtype == torch.float32 and lse.shape == (N,), tag
+    assert dx.dtype == dtype and dx.shape == x.shape, tag
+    assert torch.isfinite(lse).all(), f"{tag}: non-finite lse"
+    lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1)).max().item()
+    assert lse_err <= LSE_RTOL, f"{tag}: lse err {lse_err}"
+    if want_sum:
+        # a sum's rounding scales with the sum of magnitudes, not with
+        # the (possibly cancelled) result
+        l1 = x.float().abs().sum(-1).clamp(min=1)
+        sum_err = ((xsum - ref_sum).abs() / l1).max().item()
+        assert sum_err <= SUM_RTOL, f"{tag}: row-sum err {sum_err}"
+    dx_err = check_dlogits(dx, ref_dx, x, labels, gr, eps, tag)
+    return {"lse": lse_err, "dlogits": dx_err}
+
+
+def _dlogits_excess(dx, ref) -> float:
+    """The largest ratio of |dx - ref| to its allowance rtol·|ref| +
+    atol·max|ref| (`DX_TOL`); at most 1 passes."""
+    rtol, atol = DX_TOL[ref.dtype]
+    r = ref.float()
+    allow = rtol * r.abs() + atol * r.abs().max()
+    tiny = torch.finfo(torch.float32).tiny
+    return ((dx.float() - r).abs() / allow.clamp(min=tiny)).max().item()
+
+
+def check_dlogits(dx, ref, x, labels, g, eps, tag) -> float:
+    """dlogits within `DX_TOL` of the plain version's, elementwise; a
+    zeroed output and one without the softmax term (``-target·g``) must
+    fail that bound on the same inputs, so the bound can tell a wrong
+    kernel.  Returns the max absolute error."""
+    excess = _dlogits_excess(dx, ref)
+    assert excess <= 1.0, f"{tag}: dlogits {excess:.3g}x their allowance"
+    V = x.shape[-1]
+    tgt = F.one_hot(labels.long(), V).float()
+    if eps != 0.0:
+        tgt = (1.0 - eps) * tgt + eps / V
+    no_softmax = (-tgt * g.float()[:, None]).to(ref.dtype)
+    for bad, what in ((torch.zeros_like(ref), "zeroed"),
+                      (no_softmax, "softmax-less")):
+        assert _dlogits_excess(bad, ref) > 1.0, \
+            f"{tag}: a {what} dlogits would pass the bound"
+    return (dx.float() - ref.float()).abs().max().item()
+
+
+XENT_CASES = ((4096, 30522, torch.bfloat16, 0.0, 1.0),
+              (4096, 30522, torch.bfloat16, 0.1, 1.0),
+              (512, 30522, torch.float32, 0.0, 1.0),
+              (256, 30522, torch.bfloat16, 0.0, 1e4),
+              (256, 30522, torch.float32, 0.1, 1e4),
+              (64, 1000, torch.float32, 0.0, 1.0),
+              (64, 1000, torch.bfloat16, 0.1, 1.0),
+              (33, 1001, torch.bfloat16, 0.0, 1.0),
+              (9, 7, torch.float32, 0.1, 1.0))
+
+
+def phase_training_kernels() -> dict:
+    errs = {"dropout_mask": {}, "xent_forward": {}, "xent_backward": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for rate in (0.1, 0.5):
+            check_dropout(dtype, (4096, 1024), rate, seed=1234567891234)
+        for shape in ((1001, 3), (7,), (5,), (1,)):
+            check_dropout(dtype, shape, 0.3, seed=99)
+        errs["dropout_mask"][name] = 0.0          # bit-identical above
+    # degenerate rates draw no mask: no launch
+    x = torch.ones((64, 64), device=DEV)
+    n0 = dropout_mask.launches
+    assert torch.equal(dk_mod.fused_dropout(x, 1, 0.0), x)
+    assert torch.count_nonzero(dk_mod.fused_dropout(x, 1, 1.0)) == 0
+    assert dropout_mask.launches == n0, "a degenerate rate launched"
+    for N, V, dtype, eps, scale in XENT_CASES:
+        e = check_xent(N, V, dtype, eps, scale)
+        name = str(dtype).replace("torch.", "")
+        errs["xent_forward"][name] = max(errs["xent_forward"].get(name, 0.0),
+                                         e["lse"])
+        errs["xent_backward"][name] = max(
+            errs["xent_backward"].get(name, 0.0), e["dlogits"])
+    log(json.dumps({"training_kernels": [
+        {"name": k, "max_err": v} for k, v in errs.items()],
+        "tol": {"dropout_mask": "bit-identical", "xent_forward":
+                f"lse rel {LSE_RTOL}", "xent_backward": {
+                    str(dt).replace("torch.", ""):
+                        f"rtol {r} of |ref| + atol {a} of max|ref|"
+                    for dt, (r, a) in DX_TOL.items()}}}))
+    return errs
+
+
+# ---------------------------------------------------------------- phase 8
+class PretrainWithLoss(HybridBlock):
+    """bench.py's PretrainWithLoss: the net plus the MLM cross-entropy
+    through the public gluon loss (the streamed cross-entropy kernels)
+    and the NSP term through log_softmax."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+        self.mlm_loss = SoftmaxCrossEntropyLoss()
+
+    def forward(self, tokens, labels):
+        mlm_logits, nsp_logits = self.net(tokens)
+        mlm = self.mlm_loss(mlm_logits, labels).mean()
+        nsp_logp = nd.log_softmax(nsp_logits.float())
+        return mlm - nsp_logp[:, 0].mean()
+
+
+def _bert_batch(V, B, T, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, V, (B, T), generator=g)
+    labels = torch.randint(0, V, (B, T), generator=g)
+    return tokens.to(DEV), labels.to(DEV)
+
+
+def _bert_model(cfg, dtype, seed):
+    mx_random.seed(seed, device=DEV)
+    net = BERTForPretraining(**cfg, dropout=DROPOUT, device=DEV)
+    net.initialize()
+    if dtype != torch.float32:
+        net.cast(dtype)
+    model = PretrainWithLoss(net)
+    model.hybridize()
+    trainer = Trainer(model.collect_params(), "sgd", dict(SGD),
+                      keep_grads=False)
+    return net, model, trainer
+
+
+def _counts():
+    return {n: KERNELS[n]["fn"].launches
+            for n in TRAINING_KERNELS + ("flash_attention",)}
+
+
+def phase_training(smi: str) -> dict:
+    B, T = BERT_BATCH
+    L, D, V = BERT["num_layers"], BERT["units"], BERT["vocab_size"]
+    t0 = time.perf_counter()
+    net, model, trainer = _bert_model(BERT, torch.bfloat16, seed=0)
+    tokens, labels = _bert_batch(V, B, T)
+    n_params = sum(p.numel() for p in net.collect_params().values()
+                   if p.grad_req != "null")
+    torch.cuda.synchronize()
+    log(f"training path: BERTForPretraining {BERT} bf16 + f32 masters, "
+        f"{n_params} trainable parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rec = {}
+
+    def keep_first(key):
+        def keep(args, kw):
+            rec.setdefault(key, args)
+        return keep
+
+    def step():
+        with autograd.record():
+            loss = model(tokens, labels)
+        loss.backward()
+        trainer.step(1)
+        return loss
+
+    per_step = {"dropout_mask": 2 * L + 1, "xent_forward": 1,
+                "xent_backward": 1, "flash_attention": 0}
+    torch.cuda.reset_peak_memory_stats()
+    # the counts start from 0 here and are read right after the phase
+    for name in per_step:
+        KERNELS[name]["fn"].launches = 0
+    with recording(dk_mod, "_mask_cuda", keep_first("mask")), \
+            recording(xk_mod, "_fwd_cuda", keep_first("fwd")), \
+            recording(xk_mod, "_bwd_cuda", keep_first("bwd")):
+        # step 1 by hand: which parameters it reaches, and that each moves
+        before = {n: p.detach().clone()
+                  for n, p in model.collect_params().items()}
+        c0 = _counts()
+        with autograd.record():
+            loss = model(tokens, labels)
+        loss.backward()
+        unreached = sorted(n for n, p in model.collect_params().items()
+                           if p.requires_grad and p.grad is None)
+        trainer.step(1)
+        losses = [loss.detach()]
+        # a bf16 weight near 1 (a LayerNorm gain) need not move in one
+        # step at lr 1e-3; its f32 master, the value of record, must
+        for i, name in enumerate(before):
+            st = trainer._states.get(i)
+            now = st[0] if isinstance(st, tuple) else \
+                trainer._params[i].detach()
+            moved = not torch.equal(now.float(), before[name].float())
+            if trainer._params[i].grad_req == "null" or name in unreached:
+                assert not moved, f"{name} moved without a gradient"
+            else:
+                assert moved, f"{name} did not change in step 1"
+        del before
+        # bench.py's forward passes no token types: only that table is
+        # left out of the graph, and the Trainer steps it with a zero
+        # gradient (as the JAX package's zero-initialised gradient)
+        assert unreached == ["net.bert.token_type_embed.weight"], unreached
+        c1 = _counts()
+        assert all(c1[n] - c0[n] == k for n, k in per_step.items()), \
+            (c0, c1)
+        losses.append(step().detach())                # warm-up 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            c0 = _counts()
+            losses.append(step().detach())
+            c1 = _counts()
+            assert all(c1[n] - c0[n] == k for n, k in per_step.items()), \
+                (c0, c1)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 5
+    launches = _counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    loss_vals = torch.stack(losses).float().cpu()
+    assert torch.isfinite(loss_vals).all(), f"non-finite loss {loss_vals}"
+    for name, n in launches.items():
+        assert n == 7 * per_step[name], (name, n)
+    # one more step under the profiler: the card's busy share
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    busy = device_busy(prof, prof_s)
+    n_embed = V * D + 512 * D + 2 * D
+    flops_per_token = 6 * (n_params - n_embed) + 12 * L * T * D
+    tok_s = B * T / dt
+    # the H100 SXM's dense bf16 peak, picked by torch's device name
+    name = torch.cuda.get_device_name(0)
+    peak = PEAK_FLOPS[torch.bfloat16] \
+        if "H100" in name and "PCIe" not in name else None
+    mfu = tok_s * flops_per_token / peak if peak else None
+    log(f"training main path [{smi}]: B={B} T={T}, step "
+        f"{dt * 1e3:.2f} ms (mean of 5 after 2 warm-up), {tok_s:.1f} "
+        f"tokens/s, MFU "
+        + (f"{mfu:.4f} of {peak / 1e12:.0f} TFLOP/s bf16" if mfu
+           else "not measured (no peak known for this card)")
+        + f" ({flops_per_token} flop/token), peak memory "
+        f"{peak_bytes / 2**30:.2f} GiB, losses "
+        f"{[round(v, 4) for v in loss_vals.tolist()]}; launches {launches}")
+    log(f"one profiled training step [{smi}]: {prof_s * 1e3:.1f} ms wall, "
+        f"card busy {busy['busy_s'] * 1e3:.1f} ms = {busy['busy_share']:.3f} "
+        f"(idle {1 - busy['busy_share']:.3f}), {busy['kernels']} kernels; "
+        f"device ms by kernel: " + "; ".join(
+            f"{n} {ms:.3f}" for n, ms in busy["top"]))
+    return {"launches": {n: launches[n] for n in TRAINING_KERNELS},
+            "rec": rec, "step_s": dt, "tok_s": tok_s,
+            "mfu": mfu, "peak_bytes": peak_bytes, "busy": busy}
+
+
+# ---------------------------------------------------------------- phase 9
+@contextlib.contextmanager
+def plain_kernels():
+    """Swap every training kernel's launcher for its plain version (the
+    parity harness's switch; the main path never enters it)."""
+    saved = (dk_mod._mask_cuda, xk_mod._fwd_cuda, xk_mod._bwd_cuda)
+    dk_mod._mask_cuda = lambda n, seed, rate, dev: mask_reference(
+        n, seed, rate, device=dev)
+    xk_mod._fwd_cuda = stats_reference
+    xk_mod._bwd_cuda = dlogits_reference
+    try:
+        yield
+    finally:
+        dk_mod._mask_cuda, xk_mod._fwd_cuda, xk_mod._bwd_cuda = saved
+
+
+def _one_step(cfg, B, T, plain: bool):
+    net, model, trainer = _bert_model(cfg, torch.float32, seed=1)
+    tokens, labels = _bert_batch(cfg["vocab_size"], B, T, seed=1)
+    c0 = _counts()
+    with plain_kernels() if plain else contextlib.nullcontext():
+        with autograd.record():
+            loss = model(tokens, labels)
+        loss.backward()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.collect_params().items()
+                 if p.grad is not None}
+        trainer.step(1)
+    torch.cuda.synchronize()
+    c1 = _counts()
+    moved = {n: c1[n] - c0[n] for n in TRAINING_KERNELS}
+    # the plain run launches nothing, the kernels' run every kernel
+    assert all((m == 0) == plain for m in moved.values()), (plain, moved)
+    weights = {n: p.detach().clone()
+               for n, p in model.collect_params().items()}
+    return float(loss.detach()), grads, weights
+
+
+def phase_train_parity() -> dict:
+    cfg = dict(BERT, num_layers=2)
+    B, T = 8, 128
+    loss_k, grads_k, w_k = _one_step(cfg, B, T, plain=False)
+    loss_p, grads_p, w_p = _one_step(cfg, B, T, plain=True)
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), (loss_k, loss_p)
+    assert grads_k.keys() == grads_p.keys()
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+    g_err = max(rel(grads_k[n], grads_p[n]) for n in grads_p)
+    w_err = max(rel(w_k[n], w_p[n]) for n in w_p)
+    assert g_err <= 1e-4, f"training parity: grad err {g_err}"
+    assert w_err <= 1e-4, f"training parity: weight err {w_err}"
+    log(f"training parity (f32, 2 layers, width {BERT['units']}, B={B} "
+        f"T={T}, dropout {DROPOUT}): loss {loss_k:.7f} kernels vs "
+        f"{loss_p:.7f} plain; max grad err {g_err:.2e}, max weight err "
+        f"{w_err:.2e} (of each tensor's max) over {len(grads_p)} grads")
+    return {"loss_err": abs(loss_k - loss_p) / abs(loss_p), "grad": g_err,
+            "weight": w_err}
+
+
+# ---------------------------------------------------------------- phase 10
+def _bound(nbytes, flops, peak_flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_training_kernels(tres) -> dict:
+    rec = tres["rec"]
+    (x2, want_sum), (bx, labels, lse, g, eps) = rec["fwd"], rec["bwd"]
+    n_mask, seed, rate, mdev = rec["mask"]
+    N, V = x2.shape
+    out = {}
+    # forward: read (N, V) once, write lse; ~4 f32 ops an element
+    ref_lse, _ = stats_reference(x2, want_sum)
+    err = ((xent_forward(x2, want_sum)[0] - ref_lse).abs()
+           / ref_lse.abs().clamp(min=1)).max().item()
+    assert err <= LSE_RTOL, f"xent forward at main-path inputs: err {err}"
+    bound, by = _bound(x2.numel() * x2.element_size() + N * 4, 4 * N * V,
+                       PEAK_FLOPS[torch.float32])
+    out["xent_forward"] = {
+        "shape": f"({N}, {V}) {x2.dtype}", "max_abs_err": err,
+        "ms": time_ms(lambda: xent_forward(x2, want_sum)),
+        "plain_ms": time_ms(lambda: stats_reference(x2, want_sum)),
+        "library_ms": time_ms(lambda: F.cross_entropy(
+            x2, labels, reduction="none")),
+        "bound_ms": bound, "bound_by": by}
+    # backward: read (N, V) and the row vectors once, write (N, V)
+    err = check_dlogits(xent_backward(bx, labels, lse, g, eps),
+                        dlogits_reference(bx, labels, lse, g, eps), bx,
+                        labels, g, eps, "xent backward at main-path inputs")
+    xr = bx.detach().requires_grad_()
+    ce = F.cross_entropy(xr, labels, reduction="none")
+    bound, by = _bound(2 * bx.numel() * bx.element_size() + N * 12,
+                       4 * N * V, PEAK_FLOPS[torch.float32])
+    out["xent_backward"] = {
+        "shape": f"({N}, {V}) {bx.dtype}", "max_abs_err": err,
+        "ms": time_ms(lambda: xent_backward(bx, labels, lse, g, eps)),
+        "plain_ms": time_ms(lambda: dlogits_reference(bx, labels, lse, g,
+                                                      eps)),
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            ce, xr, g.to(ce.dtype), retain_graph=True)),
+        "bound_ms": bound, "bound_by": by}
+    # keep-mask: writes one byte an element and reads nothing; its
+    # Philox work is integer arithmetic, for which the data-sheet table
+    # gives no peak, so only bytes enter the bound
+    xm = torch.empty((n_mask,), device=mdev)
+    ok = torch.equal(dropout_mask(xm, seed, rate),
+                     mask_reference(n_mask, seed, rate, device=mdev))
+    assert ok, "dropout mask at main-path inputs differs"
+    bound, by = _bound(n_mask, 0, PEAK_FLOPS[torch.float32])
+    out["dropout_mask"] = {
+        "shape": f"{n_mask} elements rate={rate}", "max_abs_err": 0.0,
+        "ms": time_ms(lambda: dropout_mask(xm, seed, rate)),
+        "plain_ms": time_ms(lambda: mask_reference(n_mask, seed, rate,
+                                                   device=mdev)),
+        "library_ms": time_ms(lambda: torch.empty(
+            n_mask, dtype=torch.uint8, device=mdev).bernoulli_(1 - rate)),
+        "bound_ms": bound, "bound_by": by}
+    return out
+
+
 def main() -> int:
-    smi = phase_device()
-    phase_build()
-    errs = phase_kernels()
-    res = phase_main_path(smi)
-    paged = time_paged(res)
-    flash = time_flash(res)
-    phase_parity()
-    for kind, r in paged.items():
+    t_start = time.perf_counter()
+    took = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        took[name] = round(time.perf_counter() - t0, 2)
+        return out
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    # the serving phases run first, as before the training slice, so
+    # their host-bound numbers compare with earlier runs of the script
+    errs = timed("kernels", phase_kernels)
+    res = timed("main_path", phase_main_path, smi)
+    times = timed("timing_paged", time_paged, res)
+    times["flash_attention"] = timed("timing_flash", time_flash, res)
+    timed("parity", phase_parity)
+    del res["rec"], res["pools"]
+    errs.update(timed("training_kernels", phase_training_kernels))
+    tres = timed("training", phase_training, smi)
+    timed("training_parity", phase_train_parity)
+    times.update(timed("training_timing", time_training_kernels, tres))
+    log(f"phases took {time.perf_counter() - t_start:.1f} s: "
+        + json.dumps(took))
+    for kind in ("step", "chunk"):
+        r = times[kind]
         log(f"paged_attention [{kind}] {r['shape']}: {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['live_pages']} live pages, {r['bytes']} B) [{smi}]")
+    flash = times["flash_attention"]
     log(f"flash_attention {flash['shape']}: {flash['ms']:.4f} ms, plain "
         f"{flash['plain_ms']:.4f} ms, sdpa {flash['library_ms']:.4f} ms, "
         f"bound {flash['bound_ms']:.4f} ms ({flash['flops']} flop, "
         f"{flash['bytes']} B) [{smi}]")
-    step = paged["step"]
+    for name in TRAINING_KERNELS:
+        r = times[name]
+        log(f"{name} {r['shape']}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
+    times["paged_attention"] = times["step"]
+    launches = {**res["launches"], **tres["launches"]}
     rows = []
-    for name, t in (("paged_attention", step), ("flash_attention", flash)):
-        k = KERNELS[name]
+    for name in SERVING_KERNELS + TRAINING_KERNELS:
+        k, t = KERNELS[name], times[name]
         rows.append({
             "name": name, "route": "cuda", "source": k["source"],
-            "replaces": k["replaces"], "launches": res["launches"][name],
+            "replaces": k["replaces"], "launches": launches[name],
             "max_abs_err": max(max(errs[name].values()), t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -20,12 +20,12 @@ import threading
 
 from .base import MXNetError
 
-__all__ = ["SOURCES", "build_all", "load"]
+__all__ = ["SOURCES", "build_all", "load", "stream"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("paged_attention", "flash_attention")
+SOURCES = ("paged_attention", "flash_attention", "dropout", "xent")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -101,3 +101,11 @@ def load(name: str):
             _finish(name, so, tmp, proc)
             lib = _libs[name] = ctypes.CDLL(so)
         return lib
+
+
+def stream(device) -> int:
+    """The handle of PyTorch's current CUDA stream on ``device``, which
+    every kernel launches on."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,7 +1,10 @@
-"""Gluon surface of the PyTorch/CUDA port: the block base and the
-layers the serving slice runs (counterpart of
-`incubator_mxnet_tpu/gluon/`)."""
-from . import nn
+"""Gluon surface of the PyTorch/CUDA port (counterpart of
+`incubator_mxnet_tpu/gluon/`): blocks and parameters, the layers, the
+softmax cross-entropy loss and the single-device Trainer."""
+from . import loss, nn
 from .block import Block, HybridBlock
+from .parameter import Parameter, ParameterDict
+from .trainer import Trainer
 
-__all__ = ["Block", "HybridBlock", "nn"]
+__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Trainer",
+           "loss", "nn"]

@@ -1,5 +1,5 @@
 """Neural-network layers (counterpart of
 `incubator_mxnet_tpu/gluon/nn/`)."""
-from .basic_layers import Dense, DropoutAdd, Embedding, LayerNorm
+from .basic_layers import Dense, Dropout, DropoutAdd, Embedding, LayerNorm
 
-__all__ = ["Dense", "DropoutAdd", "Embedding", "LayerNorm"]
+__all__ = ["Dense", "Dropout", "DropoutAdd", "Embedding", "LayerNorm"]

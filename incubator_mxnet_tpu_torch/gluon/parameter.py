@@ -1,0 +1,107 @@
+"""Gluon parameters of the PyTorch/CUDA port (counterpart of
+`incubator_mxnet_tpu/gluon/parameter.py`).
+
+A `Parameter` is an `nn.Parameter` that also carries Gluon's
+``grad_req``, kept in ``requires_grad``: ``"null"`` is ``False``;
+``"write"`` and ``"add"`` are ``True``.  As in the JAX package, each
+backward that reaches a ``"write"`` parameter replaces its gradient
+and each one that reaches an ``"add"`` parameter adds to it; a
+backward that does not reach it leaves it alone.  Torch always adds,
+so a ``"write"`` parameter carries a gradient hook that drops the old
+gradient just before torch stores the new one.  The hook belongs to
+the parameter alone, so backwards on other threads or other models
+touch no gradient but their own.  (`torch.autograd.grad`, which stores
+no gradient, runs the hook too; the port's API never calls it on a
+parameter.)
+
+Parameters are allocated when their block is built (no deferred
+shapes: every port layer is given its input width) and filled by
+``initialize()``.
+"""
+from __future__ import annotations
+
+import functools
+import weakref
+
+import torch
+from torch import nn
+
+from .. import initializer as init_mod
+from ..base import MXNetError
+
+__all__ = ["Parameter", "ParameterDict", "new_parameter"]
+
+_REQS = ("write", "add", "null")
+
+
+def _write_hook(ref, grad):
+    """Before torch adds ``grad`` to the parameter's gradient: under
+    ``"write"``, drop the old gradient so that ``grad`` replaces it."""
+    p = ref()
+    if p is not None and p._req == "write" and p.grad is not None:
+        p.grad = None
+
+
+class Parameter(nn.Parameter):
+    def __new__(cls, data, grad_req: str = "write"):
+        if grad_req not in _REQS:
+            raise MXNetError(f"grad_req must be one of {_REQS}, got "
+                             f"{grad_req!r}")
+        p = super().__new__(cls, data, requires_grad=True)
+        p._req = "add" if grad_req == "add" else "write"
+        p._initialized = False
+        # a weak reference: the hook must not keep its parameter alive.
+        # torch takes hooks only while the tensor requires grad, and
+        # keeps them when grad_req turns it off and on again
+        p.register_hook(functools.partial(_write_hook, weakref.ref(p)))
+        p.requires_grad_(grad_req != "null")
+        return p
+
+    @property
+    def grad_req(self) -> str:
+        return self._req if self.requires_grad else "null"
+
+    @grad_req.setter
+    def grad_req(self, req: str) -> None:
+        if req not in _REQS:
+            raise MXNetError(f"grad_req must be one of {_REQS}, got {req!r}")
+        if req != "null":
+            self._req = req
+        self.requires_grad_(req != "null")
+        if req == "null":
+            self.grad = None
+
+
+def new_parameter(shape, device, dtype, grad_req: str = "write") -> Parameter:
+    """An uninitialized parameter (``initialize()`` or a weight loader
+    fills it)."""
+    return Parameter(torch.empty(shape, device=device, dtype=dtype),
+                     grad_req)
+
+
+class ParameterDict(dict):
+    """Structural name -> `Parameter`, as ``Block.collect_params``
+    returns it."""
+
+    def initialize(self, init=None, force_reinit: bool = False) -> None:
+        """Fill every parameter not filled yet (all of them with
+        ``force_reinit``) with ``init`` (default ``Uniform(0.07)``),
+        after the name rules of `initializer.Initializer`."""
+        initializer = init_mod.create(init) if init is not None \
+            else init_mod.Uniform()
+        for name, p in self.items():
+            if getattr(p, "_initialized", False) and not force_reinit:
+                continue
+            initializer(name, p)
+            p._initialized = True
+
+    def zero_grad(self) -> None:
+        for p in self.values():
+            if p.grad is not None:
+                p.grad.zero_()
+
+    def setattr(self, name: str, value) -> None:
+        """Set attribute ``name`` (``grad_req``, ...) on every
+        parameter."""
+        for p in self.values():
+            setattr(p, name, value)

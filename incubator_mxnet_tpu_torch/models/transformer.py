@@ -16,7 +16,9 @@ import torch
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import DropoutAdd, Embedding, LayerNorm, Dense
+from ..ops.flash_attention import flash_attention
 from .bert import MultiHeadAttention, PositionwiseFFN
+from .generation import _qkv_heads
 
 __all__ = ["TransformerLM", "positional_encoding"]
 
@@ -36,7 +38,17 @@ def positional_encoding(T, C, dtype=torch.float32, device=None):
 
 
 class _CausalSelfAttention(MultiHeadAttention):
-    _causal_attn = True
+    """Causal self-attention through the flash kernel at every size, as
+    the JAX package's `_CausalSelfAttention.forward` calls it (the
+    crossover routing of `MultiHeadAttention` is BERT's)."""
+
+    def forward(self, x):
+        B, T, C = x.shape
+        q, k, v = _qkv_heads(self.qkv(x), self._num_heads)   # (B, T, H, D)
+        out = flash_attention(q.transpose(1, 2).contiguous(),
+                              k.transpose(1, 2).contiguous(),
+                              v.transpose(1, 2).contiguous(), causal=True)
+        return self.proj(out.transpose(1, 2).reshape(B, T, C))
 
 
 class _LMLayer(HybridBlock):
@@ -64,8 +76,9 @@ class TransformerLM(HybridBlock):
     ``device`` defaults to ``cuda`` (`MXNetError` without a GPU unless
     ``device="cpu"``); weights are drawn from ``seed`` on the CPU, so a
     seed gives the same model on every device: normal(0, 0.02) matrices
-    and embeddings, zero biases, unit LayerNorm gains.  The model is
-    built in eval mode — this slice serves; training comes later.
+    and embeddings, zero biases, unit LayerNorm gains.  Its parameters
+    are built with ``grad_req="null"``: training it needs the flash
+    backward, which is not ported yet.
     """
 
     def __init__(self, vocab=32000, units=512, hidden_size=2048,
@@ -87,6 +100,8 @@ class TransformerLM(HybridBlock):
                                                         device=dev),
                              persistent=False)
         self._init_weights(seed)
+        # serving only until the flash backward is ported
+        self.collect_params().setattr("grad_req", "null")
         self.eval()
 
     @property

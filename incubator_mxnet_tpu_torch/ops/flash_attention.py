@@ -33,10 +33,35 @@ from .. import _build
 from ..base import MXNetError
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
-           "attention_reference"]
+           "attention_reference", "attention_bthd", "kernel_active"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 128
+
+# the JAX package's forward crossover off the CPU: below this many
+# scores per (batch, head) its models take the XLA attention
+# (`attention_bthd`), at or above it the flash kernel
+_FLASH_MIN_SCORES = 512 * 512
+
+
+def kernel_active(tq: int, tk: int, device) -> bool:
+    """Would a model's attention take the flash kernel at these sizes on
+    ``device``?  On CUDA, at or above the JAX package's crossover
+    (``tq * tk >= 512 * 512``); on the CPU never (models there take
+    `attention_bthd`)."""
+    return torch.device(device).type == "cuda" \
+        and tq * tk >= _FLASH_MIN_SCORES
+
+
+def attention_bthd(q, k, v, scale: Optional[float] = None):
+    """Transpose-free attention on (B, T, H, D) tensors: f32 scores,
+    softmax, f32 PV, output in q's dtype — the XLA computation of the
+    JAX package's `attention_bthd` (non-causal, unmasked) in torch ops,
+    differentiable through `torch.autograd`."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
 def _causal_mask(tq, tk, device):

@@ -1,0 +1,5 @@
+"""Optimizers of the PyTorch/CUDA port (counterpart of
+`incubator_mxnet_tpu/optimizer/`)."""
+from .optimizer import SGD, Optimizer, create, register
+
+__all__ = ["Optimizer", "SGD", "create", "register"]

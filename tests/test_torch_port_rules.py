@@ -2,7 +2,7 @@
 
 * The port imports neither JAX nor anything of the JAX package: it
   imports with ``jax`` blocked, and an AST scan of its sources and of
-  chip_smoke.py finds no such import.
+  chip_smoke.py and chip_serving_ab.py finds no such import.
 * Entry points run on ``cuda`` unless the caller asks for the CPU;
   without a GPU they raise `MXNetError` instead of carrying on there.
 * Importing the package, and running its CPU path, builds nothing:
@@ -37,6 +37,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "chip_serving_ab.py")
 
 
 def _imported_modules(path):
@@ -124,3 +125,108 @@ def test_cpu_path_never_builds_or_loads_kernels():
         "print('ok')\n")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+# ---- the training slice: BERT, the Trainer and three more kernels ----
+TINY_BERT = dict(vocab_size=600, units=16, hidden_size=32, num_layers=1,
+                 num_heads=2)
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    from incubator_mxnet_tpu_torch.models import BERTForPretraining
+    from incubator_mxnet_tpu_torch.ops import dropout_mask, xent_forward
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError):
+        BERTForPretraining(**TINY_BERT)
+    net = BERTForPretraining(**TINY_BERT, device="cpu")
+    assert net.nsp.weight.device.type == "cpu"
+    # the kernels' wrappers run on the tensor's device: cuda or cpu only
+    meta = torch.empty((4, 600), device="meta")
+    with pytest.raises(MXNetError):
+        dropout_mask(meta, 1, 0.1)
+    with pytest.raises(MXNetError):
+        xent_forward(meta)
+
+
+def test_training_cpu_path_never_builds_or_loads_kernels():
+    res = _run(
+        "import ctypes, subprocess, torch\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('kernel build or load attempted')\n"
+        "subprocess.Popen = refuse\n"
+        "ctypes.CDLL = refuse\n"
+        "import incubator_mxnet_tpu_torch as m\n"
+        "from incubator_mxnet_tpu_torch import _build, autograd\n"
+        "from incubator_mxnet_tpu_torch.gluon import Trainer\n"
+        "from incubator_mxnet_tpu_torch.gluon.loss import "
+        "SoftmaxCrossEntropyLoss\n"
+        "from incubator_mxnet_tpu_torch.models import BERTForPretraining\n"
+        "from incubator_mxnet_tpu_torch.ops import (dropout_mask,\n"
+        "    xent_forward, xent_backward)\n"
+        f"net = BERTForPretraining(**{TINY_BERT!r}, device='cpu')\n"
+        "net.initialize()\n"
+        "tr = Trainer(net.collect_params(), 'sgd', {'momentum': 0.9})\n"
+        "toks = torch.randint(0, 600, (2, 8))\n"
+        "with autograd.record():\n"
+        "    mlm, nsp = net(toks)\n"
+        "    loss = SoftmaxCrossEntropyLoss()(mlm, toks).mean()\n"
+        "loss.backward()\n"
+        "tr.step(2)\n"
+        "assert not _build._libs\n"
+        "assert dropout_mask.launches == 0\n"
+        "assert xent_forward.launches == xent_backward.launches == 0\n"
+        "print('ok')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def _launchers():
+    from incubator_mxnet_tpu_torch.ops import dropout_kernel as dk
+    from incubator_mxnet_tpu_torch.ops import xent_kernel as xk
+
+    x = torch.zeros((4, 600))
+    return {
+        "dropout": (lambda: dk._mask_cuda(2400, 7, 0.1, x.device),
+                    dk.dropout_mask),
+        "xent_forward": (lambda: xk._fwd_cuda(x, False), xk.xent_forward),
+        "xent_backward": (lambda: xk._bwd_cuda(
+            x, torch.zeros(4, dtype=torch.long), torch.zeros(4),
+            torch.ones(4), 0.0), xk.xent_backward),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["dropout", "xent_forward",
+                                    "xent_backward"])
+def test_forced_build_failure_raises(monkeypatch, kernel):
+    from incubator_mxnet_tpu_torch import _build
+
+    def broken_build(name):
+        raise MXNetError(f"nvcc failed on csrc/{name}.cu")
+
+    monkeypatch.setattr(_build, "load", broken_build)
+    launch, counted = _launchers()[kernel]
+    before = counted.launches
+    with pytest.raises(MXNetError, match="nvcc failed"):
+        launch()
+    assert counted.launches == before
+
+
+@pytest.mark.parametrize("kernel", ["dropout", "xent_forward",
+                                    "xent_backward"])
+def test_forced_launch_failure_raises(monkeypatch, kernel):
+    from incubator_mxnet_tpu_torch import _build
+
+    class Lib:
+        def __getattr__(self, name):
+            def refused_launch(*args):
+                return 700                  # cudaErrorIllegalAddress
+            return refused_launch
+
+    monkeypatch.setattr(_build, "load", lambda name: Lib())
+    monkeypatch.setattr(_build, "stream", lambda device: 0)
+    launch, counted = _launchers()[kernel]
+    before = counted.launches
+    with pytest.raises(MXNetError, match="launch failed"):
+        launch()
+    assert counted.launches == before
