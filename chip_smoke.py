@@ -11,7 +11,14 @@ Phases (any failure ends the run with a non-zero exit code):
 3. kernels — hold each kernel against its plain PyTorch version on the
    card (f32 atol 2e-5, bf16 atol 2e-2), plus the paged kernel's
    masked-slot and lane bit-exactness and the flash kernel's
-   logsumexp and fully-masked rows;
+   logsumexp and fully-masked rows; then the flash backward kernels
+   (dK/dV, dQ) against ``flash_bwd_plain`` over the same shapes, f32
+   and bf16, directly and through the ``(out, lse)`` autograd Function
+   with both cotangents: each gradient within rtol·|ref| +
+   atol·max|ref| (f32 1e-4/1e-5, bf16 1e-2/2e-3), a bound that a
+   zeroed output, a dS without its Δ term and a P taken with lse + 1
+   are shown to fail on the same inputs; two launches bit-identical,
+   rows that see no key with dq exactly 0;
 4. main path — a 12-layer, 1024-wide, 16-head, V=32000 TransformerLM in
    bf16 with random weights from a seed: ``net.generate`` (B=8, P=128,
    N=32), then a paged ServingEngine over 8 requests of 32-300 prompt
@@ -21,11 +28,11 @@ Phases (any failure ends the run with a non-zero exit code):
 5. parity  — the same width in f32 at 2 layers: engine tokens equal
    ``net.generate`` tokens, or first differ where the top-2 logit gap is
    below 1e-3;
-6. timing  — each kernel at the inputs the main path gave it (recorded
-   during phase 4), held to its plain version there, and timed beside
-   the plain version, the one-call PyTorch yardstick where there is one,
-   and the bound (bytes over 3.35 TB/s, operations over 989 TFLOP/s for
-   bf16).
+6. timing  — the paged kernel and the flash forward at the inputs the
+   main path gave them (recorded during phase 4), held to their plain
+   versions there, and timed beside the plain version, the one-call
+   PyTorch yardstick where there is one, and the bound (bytes over
+   3.35 TB/s, operations over 989 TFLOP/s for bf16).
 
 7. training kernels — the dropout keep-mask kernel bit-identical to its
    plain Philox version at (4096, 1024) bf16/f32, rates 0.1 and 0.5, and
@@ -45,7 +52,7 @@ Phases (any failure ends the run with a non-zero exit code):
    warm-up and 5 timed steps; the loss is finite every step, every
    trainable parameter the forward reaches changes in step 1, and each
    step launches the dropout kernel 49 times and each cross-entropy
-   kernel once while flash is never launched; step time, tokens/s, MFU
+   kernel once while no flash kernel is launched; step time, tokens/s, MFU
    (bench.py's FLOP count over 989 TFLOP/s bf16 on an H100 SXM), peak
    memory and the card's busy share over one profiled step;
 9. training parity — the same width at 2 layers in f32, dropout 0.1, one
@@ -54,10 +61,25 @@ Phases (any failure ends the run with a non-zero exit code):
    grads and updated weights (atol 1e-4 of each tensor's max);
 10. training timing — each training kernel at the inputs the main path
    gave it, beside its plain version, its one-call PyTorch yardstick
-   and its byte bound.
+   and its byte bound;
+11. T=512 main path — phase 8 at BERT's phase-2 sequence length, B=8
+   T=512 (the same 4,096 tokens a step): attention takes the flash
+   kernels, and each step launches the flash forward, the dK/dV and
+   the dQ kernel 24 times each, the dropout kernel 49 times and each
+   cross-entropy kernel once;
+12. T=512 parity — phase 9 at B=2, T=512, where the plain versions also
+   stand in for the flash forward and backward;
+13. T=512 timing — the flash forward, dK/dV and dQ kernels at the
+   inputs the T=512 main path gave them (the last layer, step 1), held
+   to the plain versions there, beside them, SDPA's forward or backward (timed
+   alone, never a route of the port) and the bound (for the backward,
+   8 (dK/dV) or 6 (dQ) x B·H·D flops per live (query, key) pair over
+   989 TFLOP/s, against the bytes read and written over 3.35 TB/s).
 
-The line before the last is a JSON object with every kernel's launches,
-error, time, plain-version time, bound and library time; the line
+The line before the last is a JSON object with every kernel's launches
+(summed over the main paths that ran it), error, time, plain-version
+time, bound and library time (the flash forward's at the T=512 inputs;
+its time at the generate prefill is printed above); the line
 before it is the nvidia-smi name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of the
 JAX package.
@@ -65,6 +87,7 @@ JAX package.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import math
 import subprocess
@@ -84,7 +107,8 @@ from incubator_mxnet_tpu_torch.models import generation as gen_mod
 from incubator_mxnet_tpu_torch.ops import flash_attention as _fa_fn
 from incubator_mxnet_tpu_torch.ops import paged_attention as _pa_fn
 from incubator_mxnet_tpu_torch.ops.flash_attention import (
-    _reference_attention_lse, flash_attention_with_lse)
+    _reference_attention_lse, flash_attention_with_lse, flash_bwd_dkdv,
+    flash_bwd_dq, flash_bwd_plain)
 from incubator_mxnet_tpu_torch.ops import dropout_kernel as dk_mod
 from incubator_mxnet_tpu_torch.ops import xent_kernel as xk_mod
 from incubator_mxnet_tpu_torch.ops.dropout_kernel import (dropout_mask,
@@ -95,6 +119,10 @@ from incubator_mxnet_tpu_torch.ops.xent_kernel import (
     dlogits_reference, stats_reference, xent_backward, xent_forward)
 from incubator_mxnet_tpu_torch.serving import ServingEngine
 from incubator_mxnet_tpu_torch.serving import programs as prog_mod
+
+# the module (ops.flash_attention is the function of that name)
+fa_mod = importlib.import_module("incubator_mxnet_tpu_torch.ops."
+                                 "flash_attention")
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 PARITY_GAP = 1e-3                   # flash-vs-paged roundoff tie bound
@@ -110,6 +138,14 @@ KERNELS = {
     "flash_attention": dict(
         fn=_fa_fn, source="incubator_mxnet_tpu_torch/csrc/flash_attention.cu",
         replaces="incubator_mxnet_tpu/ops/flash_attention.py:211"),
+    "flash_bwd_dkdv": dict(
+        fn=flash_bwd_dkdv,
+        source="incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="incubator_mxnet_tpu/ops/flash_attention.py:393"),
+    "flash_bwd_dq": dict(
+        fn=flash_bwd_dq,
+        source="incubator_mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="incubator_mxnet_tpu/ops/flash_attention.py:417"),
     "dropout_mask": dict(
         fn=dropout_mask, source="incubator_mxnet_tpu_torch/csrc/dropout.cu",
         replaces="incubator_mxnet_tpu/ops/dropout_kernel.py:250"),
@@ -122,10 +158,14 @@ KERNELS = {
 }
 SERVING_KERNELS = ("paged_attention", "flash_attention")
 TRAINING_KERNELS = ("dropout_mask", "xent_forward", "xent_backward")
+FLASH_KERNELS = ("flash_attention", "flash_bwd_dkdv", "flash_bwd_dq")
 # the flagship of bench.py: BERT-large, phase-1 shapes, dropout 0.1
 BERT = dict(vocab_size=30522, units=1024, hidden_size=4096, num_layers=24,
             num_heads=16)
 BERT_BATCH = (32, 128)
+# phase-2 pretraining (BERT paper, A.2): T=512, the same 4,096 tokens a
+# step; attention takes the flash kernels, forward and backward
+BERT_BATCH_512 = (8, 512)
 DROPOUT = 0.1
 SGD = {"learning_rate": 1e-3, "momentum": 0.9, "multi_precision": True}
 LSE_RTOL = 1e-4
@@ -135,6 +175,12 @@ SUM_RTOL = 1e-6                     # of the row's sum of magnitudes
 # the largest dlogit, stays below the softmax term of the off-label
 # entries, so an output without it fails
 DX_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (1e-2, 1e-5)}
+# flash dq, dk, dv, elementwise: |g - ref| <= rtol·|ref| + atol·max|ref|.
+# The rtol is about one rounding of the output dtype (f32: a few of
+# its own; bf16: 2^-8 is 0.0039); the atol covers sums whose terms
+# cancel.  Each check shows a zeroed output, a dS without its Δ term
+# and a P taken with lse + 1 failing the same bound.
+BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 2e-3)}
 
 
 def log(*args):
@@ -307,6 +353,90 @@ def phase_kernels() -> dict:
                                               for n in v}}
         for k, v in errs.items()]}
     log(json.dumps(line))
+    return errs
+
+
+def _excess(got, ref, tol) -> float:
+    """The largest ratio of |got - ref| to rtol·|ref| + atol·max|ref|;
+    at most 1 passes."""
+    rtol, atol = tol
+    r = ref.float()
+    allow = rtol * r.abs() + atol * r.abs().max()
+    tiny = torch.finfo(torch.float32).tiny
+    return ((got.float() - r).abs() / allow.clamp(min=tiny)).max().item()
+
+
+def check_bwd_grads(got, q, k, v, do, lse, delta, causal, scale, tag):
+    """(dq, dk, dv) within `BWD_TOL` of `flash_bwd_plain` on the same
+    inputs, each; a zeroed output, a dS without its Δ term (dq, dk) and
+    a P taken with lse + 1 (dv) must fail that bound, so it can tell a
+    wrong kernel.  Returns the max absolute error."""
+    tol = BWD_TOL[q.dtype]
+    ref = flash_bwd_plain(q, k, v, do, lse, delta, causal, scale)
+    no_delta = flash_bwd_plain(q, k, v, do, lse, torch.zeros_like(delta),
+                               causal, scale)
+    lse_1 = flash_bwd_plain(q, k, v, do, lse + 1, delta, causal, scale)
+    bad = {"dq": (no_delta[0],), "dk": (no_delta[1],), "dv": (lse_1[2],)}
+    err = 0.0
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, f"{tag}: {name}"
+        ex = _excess(g, r, tol)
+        assert ex <= 1.0, f"{tag}: {name} {ex:.3g}x its allowance"
+        for b, what in zip((torch.zeros_like(r),) + bad[name],
+                           ("zeroed", "wrong-term")):
+            assert _excess(b, r, tol) > 1.0, \
+                f"{tag}: a {what} {name} would pass the bound"
+        err = max(err, (g.float() - r.float()).abs().max().item())
+    return err
+
+
+def check_flash_bwd(dtype, qshape, tk, causal, lse_variant) -> float:
+    """The dK/dV and dQ kernels against flash_bwd_plain; with
+    ``lse_variant`` through the autograd Function of
+    flash_attention_with_lse with cotangents on out and lse (Δ − dlse).
+    Two launches give the same bits; rows that see no key get dq 0."""
+    g = torch.Generator().manual_seed(2)
+    B, H, Tq, D = qshape
+    q = torch.randn(qshape, generator=g).to(DEV, dtype)
+    k = torch.randn((B, H, tk, D), generator=g).to(DEV, dtype)
+    v = torch.randn((B, H, tk, D), generator=g).to(DEV, dtype)
+    do = torch.randn(qshape, generator=g).to(DEV, dtype)
+    dlse = torch.randn((B, H, Tq), generator=g).to(DEV)
+    scale = 1.0 / math.sqrt(D)
+    tag = (f"flash bwd {dtype} q{qshape} tk={tk} causal={causal} "
+           f"lse={lse_variant}")
+    if lse_variant:
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+        out, lse = flash_attention_with_lse(qr, kr, vr, causal, scale)
+        dlse = torch.where(torch.isfinite(lse), dlse, torch.zeros_like(dlse))
+        got = torch.autograd.grad((out, lse), (qr, kr, vr), (do, dlse))
+        out, lse = out.detach(), lse.detach()
+        delta = (do.float() * out.float()).sum(-1) - dlse
+    else:
+        out, lse = flash_attention_with_lse(q, k, v, causal, scale)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        got = (flash_bwd_dq(*args),) + tuple(flash_bwd_dkdv(*args))
+        again = (flash_bwd_dq(*args),) + tuple(flash_bwd_dkdv(*args))
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            f"{tag}: two launches differ"
+    torch.cuda.synchronize()
+    dead = torch.isinf(lse)
+    assert torch.all(got[0][dead] == 0), f"{tag}: dq of rows without keys"
+    return check_bwd_grads(got, q, k, v, do, lse, delta, causal, scale, tag)
+
+
+def phase_flash_bwd_kernels() -> dict:
+    errs = {"flash_bwd_dkdv": {}, "flash_bwd_dq": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        e = max(check_flash_bwd(dtype, *case, lse_variant=lv)
+                for case in FLASH_CASES for lv in (False, True))
+        errs["flash_bwd_dkdv"][name] = errs["flash_bwd_dq"][name] = e
+    log(json.dumps({"flash_bwd_kernels": errs, "tol": {
+        str(dt).replace("torch.", ""): f"rtol {r} of |ref| + atol {a} of "
+                                       f"max|ref|"
+        for dt, (r, a) in BWD_TOL.items()}}))
     return errs
 
 
@@ -560,22 +690,17 @@ def time_paged(res) -> dict:
     return out
 
 
-def time_flash(res) -> dict:
-    (q, k, v), kw = res["rec"]["flash"]
-    causal = kw.get("causal", False)
+def time_flash_fwd(q, k, v, causal, scale, tag) -> dict:
+    """The flash forward at one call's inputs: held to the plain version
+    there, timed beside it, SDPA and the bound (read q, k, v; write out
+    and lse)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    scale = 1.0 / math.sqrt(D)
     out, _ = flash_attention_with_lse(q, k, v, causal, scale)
     ref, _ = _reference_attention_lse(q, k, v, causal, scale)
     err = (out.float() - ref.float()).abs().max().item()
-    assert err <= TOL[q.dtype], f"flash at main-path inputs: err {err}"
-    if causal:
-        rows = np.arange(Tq)
-        pairs = int(np.clip(rows + (Tk - Tq) + 1, 0, Tk).sum())
-    else:
-        pairs = Tq * Tk
-    flops = 4 * B * H * D * pairs
+    assert err <= TOL[q.dtype], f"flash at {tag} inputs: err {err}"
+    flops = 4 * B * H * D * _live_pairs(Tq, Tk, causal)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
         + B * H * Tq * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -594,6 +719,12 @@ def time_flash(res) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "flops": flops, "bytes": nbytes,
     }
+
+
+def time_flash(res) -> dict:
+    (q, k, v), kw = res["rec"]["flash"]
+    return time_flash_fwd(q, k, v, kw.get("causal", False),
+                          1.0 / math.sqrt(q.shape[-1]), "generate prefill")
 
 
 # ---------------------------------------------------------------- phase 7
@@ -648,22 +779,12 @@ def check_xent(N, V, dtype, eps, scale=1.0, seed=0) -> dict:
     return {"lse": lse_err, "dlogits": dx_err}
 
 
-def _dlogits_excess(dx, ref) -> float:
-    """The largest ratio of |dx - ref| to its allowance rtol·|ref| +
-    atol·max|ref| (`DX_TOL`); at most 1 passes."""
-    rtol, atol = DX_TOL[ref.dtype]
-    r = ref.float()
-    allow = rtol * r.abs() + atol * r.abs().max()
-    tiny = torch.finfo(torch.float32).tiny
-    return ((dx.float() - r).abs() / allow.clamp(min=tiny)).max().item()
-
-
 def check_dlogits(dx, ref, x, labels, g, eps, tag) -> float:
     """dlogits within `DX_TOL` of the plain version's, elementwise; a
     zeroed output and one without the softmax term (``-target·g``) must
     fail that bound on the same inputs, so the bound can tell a wrong
     kernel.  Returns the max absolute error."""
-    excess = _dlogits_excess(dx, ref)
+    excess = _excess(dx, ref, DX_TOL[ref.dtype])
     assert excess <= 1.0, f"{tag}: dlogits {excess:.3g}x their allowance"
     V = x.shape[-1]
     tgt = F.one_hot(labels.long(), V).float()
@@ -672,7 +793,7 @@ def check_dlogits(dx, ref, x, labels, g, eps, tag) -> float:
     no_softmax = (-tgt * g.float()[:, None]).to(ref.dtype)
     for bad, what in ((torch.zeros_like(ref), "zeroed"),
                       (no_softmax, "softmax-less")):
-        assert _dlogits_excess(bad, ref) > 1.0, \
+        assert _excess(bad, ref, DX_TOL[ref.dtype]) > 1.0, \
             f"{tag}: a {what} dlogits would pass the bound"
     return (dx.float() - ref.float()).abs().max().item()
 
@@ -760,11 +881,19 @@ def _bert_model(cfg, dtype, seed):
 
 def _counts():
     return {n: KERNELS[n]["fn"].launches
-            for n in TRAINING_KERNELS + ("flash_attention",)}
+            for n in TRAINING_KERNELS + FLASH_KERNELS}
 
 
-def phase_training(smi: str) -> dict:
-    B, T = BERT_BATCH
+def _per_step(L, T) -> dict:
+    """Launches of each kernel in one training step at sequence length
+    T: flash (forward, dK/dV, dQ) once a layer where the model's
+    attention takes it (at or above the 512² crossover), else never."""
+    flash = L if fa_mod.kernel_active(T, T, DEV) else 0
+    return {"dropout_mask": 2 * L + 1, "xent_forward": 1,
+            "xent_backward": 1, **{n: flash for n in FLASH_KERNELS}}
+
+
+def phase_training(smi: str, B: int, T: int) -> dict:
     L, D, V = BERT["num_layers"], BERT["units"], BERT["vocab_size"]
     t0 = time.perf_counter()
     net, model, trainer = _bert_model(BERT, torch.bfloat16, seed=0)
@@ -772,8 +901,8 @@ def phase_training(smi: str) -> dict:
     n_params = sum(p.numel() for p in net.collect_params().values()
                    if p.grad_req != "null")
     torch.cuda.synchronize()
-    log(f"training path: BERTForPretraining {BERT} bf16 + f32 masters, "
-        f"{n_params} trainable parameters, built in "
+    log(f"training path (B={B}, T={T}): BERTForPretraining {BERT} bf16 + "
+        f"f32 masters, {n_params} trainable parameters, built in "
         f"{time.perf_counter() - t0:.1f} s")
     rec = {}
 
@@ -789,15 +918,15 @@ def phase_training(smi: str) -> dict:
         trainer.step(1)
         return loss
 
-    per_step = {"dropout_mask": 2 * L + 1, "xent_forward": 1,
-                "xent_backward": 1, "flash_attention": 0}
+    per_step = _per_step(L, T)
     torch.cuda.reset_peak_memory_stats()
     # the counts start from 0 here and are read right after the phase
     for name in per_step:
         KERNELS[name]["fn"].launches = 0
     with recording(dk_mod, "_mask_cuda", keep_first("mask")), \
             recording(xk_mod, "_fwd_cuda", keep_first("fwd")), \
-            recording(xk_mod, "_bwd_cuda", keep_first("bwd")):
+            recording(xk_mod, "_bwd_cuda", keep_first("bwd")), \
+            recording(fa_mod, "_flash_bwd_core", keep_first("flash_bwd")):
         # step 1 by hand: which parameters it reaches, and that each moves
         before = {n: p.detach().clone()
                   for n, p in model.collect_params().items()}
@@ -875,8 +1004,7 @@ def phase_training(smi: str) -> dict:
         f"(idle {1 - busy['busy_share']:.3f}), {busy['kernels']} kernels; "
         f"device ms by kernel: " + "; ".join(
             f"{n} {ms:.3f}" for n, ms in busy["top"]))
-    return {"launches": {n: launches[n] for n in TRAINING_KERNELS},
-            "rec": rec, "step_s": dt, "tok_s": tok_s,
+    return {"launches": launches, "rec": rec, "step_s": dt, "tok_s": tok_s,
             "mfu": mfu, "peak_bytes": peak_bytes, "busy": busy}
 
 
@@ -885,15 +1013,19 @@ def phase_training(smi: str) -> dict:
 def plain_kernels():
     """Swap every training kernel's launcher for its plain version (the
     parity harness's switch; the main path never enters it)."""
-    saved = (dk_mod._mask_cuda, xk_mod._fwd_cuda, xk_mod._bwd_cuda)
+    saved = (dk_mod._mask_cuda, xk_mod._fwd_cuda, xk_mod._bwd_cuda,
+             fa_mod._flash_core, fa_mod._flash_bwd_core)
     dk_mod._mask_cuda = lambda n, seed, rate, dev: mask_reference(
         n, seed, rate, device=dev)
     xk_mod._fwd_cuda = stats_reference
     xk_mod._bwd_cuda = dlogits_reference
+    fa_mod._flash_core = _reference_attention_lse
+    fa_mod._flash_bwd_core = flash_bwd_plain
     try:
         yield
     finally:
-        dk_mod._mask_cuda, xk_mod._fwd_cuda, xk_mod._bwd_cuda = saved
+        (dk_mod._mask_cuda, xk_mod._fwd_cuda, xk_mod._bwd_cuda,
+         fa_mod._flash_core, fa_mod._flash_bwd_core) = saved
 
 
 def _one_step(cfg, B, T, plain: bool):
@@ -910,17 +1042,18 @@ def _one_step(cfg, B, T, plain: bool):
         trainer.step(1)
     torch.cuda.synchronize()
     c1 = _counts()
-    moved = {n: c1[n] - c0[n] for n in TRAINING_KERNELS}
-    # the plain run launches nothing, the kernels' run every kernel
-    assert all((m == 0) == plain for m in moved.values()), (plain, moved)
+    # the plain run launches nothing, the kernels' run every kernel of
+    # the path, as often as a main-path step does
+    want = {n: 0 if plain else k
+            for n, k in _per_step(cfg["num_layers"], T).items()}
+    assert {n: c1[n] - c0[n] for n in c1} == want, (plain, c0, c1)
     weights = {n: p.detach().clone()
                for n, p in model.collect_params().items()}
     return float(loss.detach()), grads, weights
 
 
-def phase_train_parity() -> dict:
+def phase_train_parity(B: int, T: int) -> dict:
     cfg = dict(BERT, num_layers=2)
-    B, T = 8, 128
     loss_k, grads_k, w_k = _one_step(cfg, B, T, plain=False)
     loss_p, grads_p, w_p = _one_step(cfg, B, T, plain=True)
     assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), (loss_k, loss_p)
@@ -1004,6 +1137,52 @@ def time_training_kernels(tres) -> dict:
     return out
 
 
+def _live_pairs(Tq, Tk, causal) -> int:
+    """(query, key) pairs a row sees: all, or causal bottom-right."""
+    if not causal:
+        return Tq * Tk
+    return int(np.clip(np.arange(Tq) + (Tk - Tq) + 1, 0, Tk).sum())
+
+
+def time_flash_training(tres) -> dict:
+    """The flash kernels at the inputs the T=512 main path gave them
+    (the first backward call of step 1: the last layer's): held to the
+    plain versions there and timed beside them, SDPA (timed alone, a
+    yardstick the port never calls) and the bound."""
+    q, k, v, do, lse, delta, causal, scale = tres["rec"]["flash_bwd"]
+    q, k, v = (t.detach() for t in (q, k, v))
+    B, H, Tq, D = q.shape
+    out = {"flash_attention": time_flash_fwd(q, k, v, causal, scale,
+                                             "T=512 main-path")}
+    # backward: read q, k, v, dO, lse, Δ; write dk, dv (dK/dV) or dq
+    args = (q, k, v, do, lse, delta, causal, scale)
+    got = (flash_bwd_dq(*args),) + tuple(flash_bwd_dkdv(*args))
+    err = check_bwd_grads(got, *args, "flash bwd at T=512 main-path inputs")
+    el = q.element_size()
+    in_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * el \
+        + 2 * B * H * Tq * 4
+    pairs = B * H * D * _live_pairs(Tq, k.shape[2], causal)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    so = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
+                                        scale=scale)
+    plain_ms = time_ms(lambda: flash_bwd_plain(*args))
+    for name, fn, outs, n_flops, wrt in (
+            ("flash_bwd_dkdv", flash_bwd_dkdv, (k, v), 8, (kr, vr)),
+            ("flash_bwd_dq", flash_bwd_dq, (q,), 6, (qr,))):
+        bound, by = _bound(in_bytes + sum(t.numel() for t in outs) * el,
+                           n_flops * pairs, PEAK_FLOPS[q.dtype])
+        out[name] = {
+            "shape": f"q {tuple(q.shape)} k {tuple(k.shape)} "
+                     f"causal={causal} {q.dtype}",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: fn(*args)),
+            "plain_ms": plain_ms,
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                so, wrt, do, retain_graph=True)),
+            "bound_ms": bound, "bound_by": by}
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     took = {}
@@ -1019,15 +1198,22 @@ def main() -> int:
     # the serving phases run first, as before the training slice, so
     # their host-bound numbers compare with earlier runs of the script
     errs = timed("kernels", phase_kernels)
+    errs.update(timed("flash_bwd_kernels", phase_flash_bwd_kernels))
     res = timed("main_path", phase_main_path, smi)
     times = timed("timing_paged", time_paged, res)
-    times["flash_attention"] = timed("timing_flash", time_flash, res)
+    serving_flash = timed("timing_flash", time_flash, res)
     timed("parity", phase_parity)
     del res["rec"], res["pools"]
     errs.update(timed("training_kernels", phase_training_kernels))
-    tres = timed("training", phase_training, smi)
-    timed("training_parity", phase_train_parity)
+    tres = timed("training", phase_training, smi, *BERT_BATCH)
+    timed("training_parity", phase_train_parity, 8, 128)
     times.update(timed("training_timing", time_training_kernels, tres))
+    del tres["rec"]
+    # phase-2 pretraining: attention through the flash kernels
+    tres512 = timed("training_512", phase_training, smi, *BERT_BATCH_512)
+    timed("training_parity_512", phase_train_parity, 2, 512)
+    times.update(timed("training_timing_512", time_flash_training, tres512))
+    del tres512["rec"]
     log(f"phases took {time.perf_counter() - t_start:.1f} s: "
         + json.dumps(took))
     for kind in ("step", "chunk"):
@@ -1035,20 +1221,24 @@ def main() -> int:
         log(f"paged_attention [{kind}] {r['shape']}: {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['live_pages']} live pages, {r['bytes']} B) [{smi}]")
-    flash = times["flash_attention"]
-    log(f"flash_attention {flash['shape']}: {flash['ms']:.4f} ms, plain "
-        f"{flash['plain_ms']:.4f} ms, sdpa {flash['library_ms']:.4f} ms, "
-        f"bound {flash['bound_ms']:.4f} ms ({flash['flops']} flop, "
-        f"{flash['bytes']} B) [{smi}]")
-    for name in TRAINING_KERNELS:
+    r = serving_flash
+    log(f"flash_attention at the generate prefill {r['shape']}: "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['flops']} flop, {r['bytes']} B) [{smi}]")
+    for name in FLASH_KERNELS + TRAINING_KERNELS:
         r = times[name]
         log(f"{name} {r['shape']}: {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
     times["paged_attention"] = times["step"]
-    launches = {**res["launches"], **tres["launches"]}
+    # each kernel's launches summed over the main paths that ran it
+    launches = {}
+    for path in (res, tres, tres512):
+        for name, n in path["launches"].items():
+            launches[name] = launches.get(name, 0) + n
     rows = []
-    for name in SERVING_KERNELS + TRAINING_KERNELS:
+    for name in ("paged_attention",) + FLASH_KERNELS + TRAINING_KERNELS:
         k, t = KERNELS[name], times[name]
         rows.append({
             "name": name, "route": "cuda", "source": k["source"],

@@ -9,9 +9,11 @@ are the JAX package's structural names
 Attention routing is the JAX package's off the CPU: below the flash
 crossover (`ops.flash_attention.kernel_active`; always on the CPU) the
 heads stay in (B, T, H, D) and `attention_bthd` runs as torch ops,
-which autograd differentiates; at or above it the flash kernel runs,
-whose backward is not ported yet, so a recorded forward there raises.
-Padding masks (``valid_length``) are not ported and raise.
+which autograd differentiates; at or above it (T >= 512) the flash
+kernels run, and under ``autograd.record()`` the backward goes through
+the flash dK/dV and dQ kernels (`ops.flash_attention`).  Padding masks
+(``valid_length``) are not ported and raise: in the JAX package they
+take the XLA path, not flash.
 """
 from __future__ import annotations
 

@@ -10,8 +10,12 @@ structural parameter arrays are loaded into the port's model.  The
 same numpy batch then goes through both: forward logits within 1e-5,
 the MLM+NSP loss of bench.py's PretrainWithLoss within 1e-5, every
 parameter gradient within 1e-4 of its largest entry, and the weights
-after one ``Trainer.step`` within 1e-6.  Also: the attention routing,
-the autograd scopes, initialization from a seed and bf16 training.
+after one ``Trainer.step`` within 1e-6.  The same step again with
+attention on the flash route in both packages (the JAX Pallas kernels
+in interpret mode; the port's flash autograd Function, forced with
+``kernel_active``), at the same tolerances.  Also: the attention
+routing, the autograd scopes, initialization from a seed and bf16
+training.
 """
 import importlib.util
 import os
@@ -76,9 +80,9 @@ def _batch(seed):
             rs.randint(0, CFG["vocab_size"], (B, T)).astype(onp.int32))
 
 
-def _jax_net(seed=0):
+def _jax_net(seed=0, use_flash=False):
     mx.random.seed(seed)
-    net = jbert.BERTForPretraining(**CFG, dropout=0.0, use_flash=False)
+    net = jbert.BERTForPretraining(**CFG, dropout=0.0, use_flash=use_flash)
     net.initialize()
     net(NDArray(jnp.ones((B, T), jnp.int32)))
     return net
@@ -94,12 +98,11 @@ def _port_net(arrays, **kw):
     return load_jax_params(net, arrays)
 
 
-@pytest.fixture(scope="module")
-def stepped():
-    """Both packages after one recorded forward, backward and step."""
-    jnet = _jax_net()
+def _step_both(jnet, seed=1):
+    """Both packages from the JAX net's weights after one recorded
+    forward, backward and Trainer step on the same batch."""
     tnet = _port_net(_arrays(jnet))
-    toks, labels = _batch(1)
+    toks, labels = _batch(seed)
     jmodel = JPretrainWithLoss(jnet)
     tmodel = _chip_smoke().PretrainWithLoss(tnet)
     jtr = JTrainer(jmodel.collect_params(), "sgd", dict(SGD),
@@ -121,6 +124,24 @@ def stepped():
             "jgrads": jgrads, "tgrads": tgrads,
             "jw": {k: p.data().asnumpy() for k, p in jparams.items()},
             "tw": {k: p.detach().numpy() for k, p in tnet.named_parameters()}}
+
+
+@pytest.fixture(scope="module")
+def stepped():
+    """Both packages after one recorded forward, backward and step."""
+    return _step_both(_jax_net())
+
+
+def _check_grads(jg, tg):
+    """Every gradient within 1e-4 of its largest entry."""
+    assert jg.keys() == tg.keys()
+    for k, ref in jg.items():
+        got = tg[k].numpy() if tg[k] is not None else onp.zeros_like(ref)
+        scale = max(float(onp.abs(ref).max()), 1e-30)
+        assert float(onp.abs(got - ref).max()) <= 1e-4 * scale, k
+    # the forward does not read the token-type table (no token types)
+    assert tg["bert.token_type_embed.weight"] is None
+    assert not onp.any(jg["bert.token_type_embed.weight"])
 
 
 def test_structural_parameter_names_match_jax():
@@ -148,15 +169,7 @@ def test_pretrain_loss_matches_jax(stepped):
 
 
 def test_every_gradient_matches_jax(stepped):
-    jg, tg = stepped["jgrads"], stepped["tgrads"]
-    assert jg.keys() == tg.keys()
-    for k, ref in jg.items():
-        got = tg[k].numpy() if tg[k] is not None else onp.zeros_like(ref)
-        scale = max(float(onp.abs(ref).max()), 1e-30)
-        assert float(onp.abs(got - ref).max()) <= 1e-4 * scale, k
-    # the forward does not read the token-type table (no token types)
-    assert tg["bert.token_type_embed.weight"] is None
-    assert not onp.any(jg["bert.token_type_embed.weight"])
+    _check_grads(stepped["jgrads"], stepped["tgrads"])
 
 
 def test_weights_after_trainer_step_match_jax(stepped):
@@ -203,13 +216,43 @@ def test_bert_attention_at_crossover_takes_flash(monkeypatch):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
-def test_flash_route_refuses_grad_until_its_backward_is_ported(monkeypatch):
-    monkeypatch.setattr(tbert, "kernel_active", lambda tq, tk, dev: True)
-    tnet = _port_net(_arrays(_jax_net()))
-    toks, _ = _batch(7)
-    with autograd.record():
-        with pytest.raises(MXNetError):
-            tnet(torch.from_numpy(toks))
+@pytest.fixture(scope="module")
+def flash_stepped():
+    """The training step with attention on the flash route in both
+    packages: the JAX model at T=16 on the CPU takes the Pallas forward
+    and backward kernels in interpret mode; the port's attention is
+    forced onto its flash autograd Function (the plain forward and
+    backward on the CPU).  Returns what `_step_both` returns, plus the
+    port's flash calls."""
+    calls = []
+
+    def spy(q, k, v, causal=False, scale=None):
+        calls.append(q.requires_grad)
+        return tfa.flash_attention(q, k, v, causal, scale)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tbert, "kernel_active", lambda tq, tk, dev: True)
+        mp.setattr(tbert, "flash_attention", spy)
+        out = _step_both(_jax_net(use_flash=True), seed=7)
+    return dict(out, calls=calls)
+
+
+def test_flash_route_loss_matches_jax(flash_stepped):
+    st = flash_stepped
+    # forward and backward went through the Function in every layer
+    assert st["calls"] == [True] * CFG["num_layers"]
+    assert tfa.flash_attention.launches == 0       # the CPU launches nothing
+    assert abs(st["tloss"] - st["jloss"]) <= 1e-5
+
+
+def test_flash_route_gradients_match_jax(flash_stepped):
+    _check_grads(flash_stepped["jgrads"], flash_stepped["tgrads"])
+
+
+def test_flash_route_stepped_weights_match_jax(flash_stepped):
+    for k, ref in flash_stepped["jw"].items():
+        onp.testing.assert_allclose(flash_stepped["tw"][k], ref, atol=1e-6,
+                                    err_msg=k)
 
 
 def test_causal_lm_attention_still_takes_flash(monkeypatch):

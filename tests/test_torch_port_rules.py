@@ -182,11 +182,22 @@ def test_training_cpu_path_never_builds_or_loads_kernels():
 
 
 def _launchers():
+    import importlib
+
     from incubator_mxnet_tpu_torch.ops import dropout_kernel as dk
     from incubator_mxnet_tpu_torch.ops import xent_kernel as xk
 
+    fa = importlib.import_module("incubator_mxnet_tpu_torch.ops."
+                                 "flash_attention")
     x = torch.zeros((4, 600))
+    q = torch.zeros((1, 2, 8, 16))
+    rows = torch.zeros((1, 2, 8))
+    bwd = (q, q, q, q, rows, rows, False, 0.25)
     return {
+        "flash_forward": (lambda: fa._flash_core(q, q, q, False, 0.25),
+                          fa.flash_attention),
+        "flash_dkdv": (lambda: fa._dkdv_cuda(*bwd), fa.flash_bwd_dkdv),
+        "flash_dq": (lambda: fa._dq_cuda(*bwd), fa.flash_bwd_dq),
         "dropout": (lambda: dk._mask_cuda(2400, 7, 0.1, x.device),
                     dk.dropout_mask),
         "xent_forward": (lambda: xk._fwd_cuda(x, False), xk.xent_forward),
@@ -196,8 +207,11 @@ def _launchers():
     }
 
 
-@pytest.mark.parametrize("kernel", ["dropout", "xent_forward",
-                                    "xent_backward"])
+KERNELS = ["dropout", "xent_forward", "xent_backward", "flash_forward",
+           "flash_dkdv", "flash_dq"]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
 def test_forced_build_failure_raises(monkeypatch, kernel):
     from incubator_mxnet_tpu_torch import _build
 
@@ -212,8 +226,7 @@ def test_forced_build_failure_raises(monkeypatch, kernel):
     assert counted.launches == before
 
 
-@pytest.mark.parametrize("kernel", ["dropout", "xent_forward",
-                                    "xent_backward"])
+@pytest.mark.parametrize("kernel", KERNELS)
 def test_forced_launch_failure_raises(monkeypatch, kernel):
     from incubator_mxnet_tpu_torch import _build
 
@@ -230,3 +243,29 @@ def test_forced_launch_failure_raises(monkeypatch, kernel):
     with pytest.raises(MXNetError, match="launch failed"):
         launch()
     assert counted.launches == before
+
+
+def test_flash_training_cpu_path_never_builds_or_loads_kernels():
+    """The flash autograd Function, forward and backward, on CPU tensors
+    takes the plain versions: nothing is built, loaded or launched."""
+    res = _run(
+        "import ctypes, subprocess, torch\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('kernel build or load attempted')\n"
+        "subprocess.Popen = refuse\n"
+        "ctypes.CDLL = refuse\n"
+        "import importlib\n"
+        "from incubator_mxnet_tpu_torch import _build\n"
+        "fa = importlib.import_module("
+        "'incubator_mxnet_tpu_torch.ops.flash_attention')\n"
+        "q, k, v = (torch.randn(1, 2, 8, 16, requires_grad=True)\n"
+        "           for _ in range(3))\n"
+        "out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)\n"
+        "(out.sum() + lse.sum()).backward()\n"
+        "assert all(t.grad is not None for t in (q, k, v))\n"
+        "assert not _build._libs\n"
+        "assert fa.flash_attention.launches == 0\n"
+        "assert fa.flash_bwd_dkdv.launches == fa.flash_bwd_dq.launches == 0\n"
+        "print('ok')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
