@@ -10,7 +10,11 @@ Phases (any failure ends the run with a non-zero exit code):
    once, into incubator_mxnet_tpu_torch/_build/;
 3. kernels — hold each kernel against its plain PyTorch version on the
    card (f32 atol 2e-5, bf16 atol 2e-2), plus the paged kernel's
-   masked-slot and lane bit-exactness and the flash kernel's
+   masked-slot and lane bit-exactness (for the int8-page kernel on
+   `quantize_kv` pools: masked slots filled with random int8 values and
+   NaN / 1e30 scales give the bits of zeros there, one lane's pages
+   changed leave every other lane's bits, two launches agree) and the
+   flash kernel's
    logsumexp and fully-masked rows; then the flash backward kernels
    (dK/dV, dQ) against ``flash_bwd_plain`` over the same shapes, f32
    and bf16, directly and through the ``(out, lse)`` autograd Function
@@ -75,11 +79,30 @@ Phases (any failure ends the run with a non-zero exit code):
    alone, never a route of the port) and the bound (for the backward,
    8 (dK/dV) or 6 (dQ) x B·H·D flops per live (query, key) pair over
    989 TFLOP/s, against the bytes read and written over 3.35 TB/s).
+14. quantized main path (runs right after phase 5) — phase 4's net with
+   ``quantize_for_decode`` (int8 weights, the scale in the epilogue):
+   the int8 matmuls checked on the card, ``generate`` (B=8, P=128,
+   N=32), a ServingEngine with ``kv_dtype="int8"`` over phase 4's
+   requests with one prefix-cache hit, and a profiled solo request;
+   the int8-page kernel must launch exactly 12 x (steps + chunks) and
+   the float paged kernel never; prints tok/s, TTFT and TPOT p50, the
+   KV bytes per token and pool bytes beside the bf16 engine's, the
+   decode weight bytes and the card's busy share;
+15. quantized timing — the int8-page kernel at the kv8 engine's busiest
+   recorded step and chunk, held to its plain version, timed beside it,
+   the bound (int8 pages plus 4 B of scale a slot) and the float kernel
+   on the same pages dequantized to bf16;
+16. quantized parity — 2 layers, f32: the kv8 engine through the kernel
+   against the same engine on the plain versions (tokens equal, or
+   first different where the top-2 gap is below 1e-3), and greedy
+   parity >= 95% of the kv8 against the float engine and of int8-weight
+   against float ``generate``.
 
 The line before the last is a JSON object with every kernel's launches
 (summed over the main paths that ran it), error, time, plain-version
 time, bound and library time (the flash forward's at the T=512 inputs;
-its time at the generate prefill is printed above); the line
+its time at the generate prefill is printed above; the paged kernels'
+at their busiest decode step); the line
 before it is the nvidia-smi name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of the
 JAX package.
@@ -100,6 +123,7 @@ import torch.nn.functional as F
 
 from incubator_mxnet_tpu_torch import _build, autograd, nd
 from incubator_mxnet_tpu_torch import random as mx_random
+from incubator_mxnet_tpu_torch.contrib.quantization import quantize_kv
 from incubator_mxnet_tpu_torch.gluon import HybridBlock, Trainer
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.models import BERTForPretraining, TransformerLM
@@ -114,15 +138,18 @@ from incubator_mxnet_tpu_torch.ops import xent_kernel as xk_mod
 from incubator_mxnet_tpu_torch.ops.dropout_kernel import (dropout_mask,
                                                           mask_reference)
 from incubator_mxnet_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_dense)
+    paged_attention, paged_attention_dense, paged_attention_q8)
 from incubator_mxnet_tpu_torch.ops.xent_kernel import (
     dlogits_reference, stats_reference, xent_backward, xent_forward)
-from incubator_mxnet_tpu_torch.serving import ServingEngine
+from incubator_mxnet_tpu_torch.serving import PagedPrograms, ServingEngine
 from incubator_mxnet_tpu_torch.serving import programs as prog_mod
 
-# the module (ops.flash_attention is the function of that name)
+# the modules (ops.flash_attention and ops.paged_attention are the
+# functions of those names)
 fa_mod = importlib.import_module("incubator_mxnet_tpu_torch.ops."
                                  "flash_attention")
+pa_mod = importlib.import_module("incubator_mxnet_tpu_torch.ops."
+                                 "paged_attention")
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 PARITY_GAP = 1e-3                   # flash-vs-paged roundoff tie bound
@@ -135,6 +162,10 @@ KERNELS = {
     "paged_attention": dict(
         fn=_pa_fn, source="incubator_mxnet_tpu_torch/csrc/paged_attention.cu",
         replaces="incubator_mxnet_tpu/ops/paged_attention.py:168"),
+    "paged_attention_q8": dict(
+        fn=paged_attention_q8,
+        source="incubator_mxnet_tpu_torch/csrc/paged_attention.cu",
+        replaces="incubator_mxnet_tpu/ops/paged_attention.py:201"),
     "flash_attention": dict(
         fn=_fa_fn, source="incubator_mxnet_tpu_torch/csrc/flash_attention.cu",
         replaces="incubator_mxnet_tpu/ops/flash_attention.py:211"),
@@ -156,7 +187,11 @@ KERNELS = {
         fn=xent_backward, source="incubator_mxnet_tpu_torch/csrc/xent.cu",
         replaces="incubator_mxnet_tpu/ops/xent_kernel.py:178"),
 }
-SERVING_KERNELS = ("paged_attention", "flash_attention")
+SERVING_KERNELS = ("paged_attention", "flash_attention", "paged_attention_q8")
+# the kernels of the float serving path, and of the quantized one
+# (int8 weights, int8 KV pages)
+FLOAT_SERVING = ("paged_attention", "flash_attention")
+QUANT_SERVING = ("paged_attention_q8", "flash_attention")
 TRAINING_KERNELS = ("dropout_mask", "xent_forward", "xent_backward")
 FLASH_KERNELS = ("flash_attention", "flash_bwd_dkdv", "flash_bwd_dq")
 # the flagship of bench.py: BERT-large, phase-1 shapes, dropout 0.1
@@ -302,6 +337,68 @@ def check_paged(dtype, **shape) -> float:
     return err
 
 
+def paged_inputs_q8(dtype, **shape):
+    """`paged_inputs` with the pools quantized by `quantize_kv`: q in
+    ``dtype``, int8 pages and their f32 scales."""
+    q, pk, pv, tables, pos = paged_inputs(torch.float32, **shape)
+    pk8, sk = quantize_kv(pk)
+    pv8, sv = quantize_kv(pv)
+    return q.to(dtype), pk8, pv8, sk, sv, tables, pos
+
+
+def check_paged_q8(dtype, **shape) -> float:
+    """The int8-page kernel against its plain version; masked slots
+    filled with random int8 values and NaN / 1e30 scales give the bits
+    of zeros there; each lane alone gives its co-batched row; two
+    launches give the same bits."""
+    q, pk8, pv8, sk, sv, tables, pos = paged_inputs_q8(dtype, **shape)
+    out = paged_attention_q8(q, pk8, pv8, sk, sv, tables, pos)
+    ref = paged_attention_dense(q, pk8, pv8, tables, pos, sk, sv)
+    torch.cuda.synchronize()
+    tag = f"paged q8 {dtype} {shape}"
+    assert out.dtype == q.dtype and out.shape == q.shape, tag
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], f"{tag}: max err {err}"
+    again = paged_attention_q8(q, pk8, pv8, sk, sv, tables, pos)
+    assert torch.equal(out, again), f"{tag}: two launches differ"
+    bs = pk8.shape[2]
+    slot = torch.arange(tables.shape[1] * bs, device=DEV)
+    masked = slot[None, :] > pos[:, None].long()          # (B, W)
+    blk = tables.long()[:, slot // bs][masked]
+    off = (slot % bs)[None, :].expand_as(masked)[masked]
+
+    def filled(page, s_k, s_v):
+        k8, v8, k_s, v_s = pk8.clone(), pv8.clone(), sk.clone(), sv.clone()
+        k8[blk, :, off] = page
+        v8[blk, :, off] = page
+        k_s[blk, :, off] = s_k
+        v_s[blk, :, off] = s_v
+        return paged_attention_q8(q, k8, v8, k_s, v_s, tables, pos)
+
+    noise = torch.randint(-127, 128, (int(masked.sum()), pk8.shape[1],
+                                      pk8.shape[3]), dtype=torch.int8,
+                          device=DEV)
+    zero = filled(0, 0.0, 0.0)
+    assert torch.equal(zero, out), f"{tag}: masked slots change the output"
+    assert torch.equal(filled(noise, float("nan"), 1e30), zero), \
+        f"{tag}: masked int8 slots or their scales leak"
+    assert torch.equal(filled(noise, 1e30, float("nan")), zero), \
+        f"{tag}: masked int8 slots or their scales leak"
+    for b in range(q.shape[0]):
+        solo = paged_attention_q8(q[b:b + 1].contiguous(), pk8, pv8, sk, sv,
+                                  tables[b:b + 1].contiguous(),
+                                  pos[b:b + 1].contiguous())
+        assert torch.equal(solo[0], out[b]), f"{tag}: lane {b} mixes"
+    # changing one lane's pages leaves every other lane's bits
+    if q.shape[0] > 1:
+        k8 = pk8.clone()
+        k8[tables[0].long()] = torch.randint_like(k8[tables[0].long()],
+                                                  -127, 128)
+        other = paged_attention_q8(q, k8, pv8, sk, sv, tables, pos)
+        assert torch.equal(other[1:], out[1:]), f"{tag}: lanes mix"
+    return err
+
+
 FLASH_CASES = (((8, 16, 128, 64), 128, True),
                ((2, 16, 1000, 64), 1000, True),
                ((2, 4, 37, 64), 300, True),
@@ -336,16 +433,20 @@ def check_flash(dtype, qshape, tk, causal) -> float:
     return err
 
 
+PAGED_SHAPES = ([dict()]
+                + [dict(B=3, H=2, D=D, bs=8, nbps=4) for D in (16, 32, 128)]
+                + [dict(B=3, H=2, D=64, bs=bs, nbps=5) for bs in (1, 2, 64)])
+
+
 def phase_kernels() -> dict:
-    errs = {"paged_attention": {}, "flash_attention": {}}
+    errs = {"paged_attention": {}, "paged_attention_q8": {},
+            "flash_attention": {}}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        e = [check_paged(dtype)]
-        for D in (16, 32, 128):
-            e.append(check_paged(dtype, B=3, H=2, D=D, bs=8, nbps=4))
-        for bs in (1, 2, 64):
-            e.append(check_paged(dtype, B=3, H=2, D=64, bs=bs, nbps=5))
-        errs["paged_attention"][name] = max(e)
+        errs["paged_attention"][name] = max(
+            check_paged(dtype, **shape) for shape in PAGED_SHAPES)
+        errs["paged_attention_q8"][name] = max(
+            check_paged_q8(dtype, **shape) for shape in PAGED_SHAPES)
         errs["flash_attention"][name] = max(
             check_flash(dtype, *case) for case in FLASH_CASES)
     line = {"kernels": [
@@ -500,8 +601,8 @@ def phase_main_path(smi: str) -> dict:
 
     eng_batch = 8
     # the counts start from 0 here and are read right after the phase
-    _pa_fn.launches = 0
-    _fa_fn.launches = 0
+    for name in SERVING_KERNELS:
+        KERNELS[name]["fn"].launches = 0
     with recording(gen_mod, "flash_attention", keep_flash), \
             recording(prog_mod, "paged_attention", keep_paged):
         # -- net.generate: B=8, P=128, N=32 (flash prefill + decode) --
@@ -540,8 +641,11 @@ def phase_main_path(smi: str) -> dict:
             dup_toks = dup.result(timeout=600)
             eng_s = time.perf_counter() - t0
             st = eng.stats()
+            kv = {"kv_bytes_per_token": eng.kv_bytes_per_token,
+                  "kv_pool_bytes": eng.kv_pool_bytes}
         finally:
             eng.close()
+        assert st["kv_dtype"] == "model" and st["path"] == "float", st
         for t in toks + [dup_toks]:
             assert len(t) == 32 and all(0 <= x < V for x in t)
         assert dup.cached_tokens > 0, "the second submission missed"
@@ -564,8 +668,10 @@ def phase_main_path(smi: str) -> dict:
     torch.cuda.synchronize()
     launches = {name: KERNELS[name]["fn"].launches
                 for name in SERVING_KERNELS}
-    for name, n in launches.items():
-        assert n > 0, f"{name} was never launched on the main path"
+    for name in FLOAT_SERVING:
+        assert launches[name] > 0, \
+            f"{name} was never launched on the main path"
+    assert launches["paged_attention_q8"] == 0, launches
 
     reqs_all = reqs + [dup]
     n_tok = sum(len(r.tokens) for r in reqs_all)
@@ -582,6 +688,11 @@ def phase_main_path(smi: str) -> dict:
         "busy": busy,
         "rec": rec,
         "pools": pools0[0],                 # layer 0's, kept for phase 6
+        "kv": kv,
+        "prompts": prompts,
+        "prompt": prompt,
+        "generate_out": out,
+        "net": net,                         # the quantized path reuses it
     }
     log(f"main path [{smi}]: generate B=8 P=128 N=32 {gen_s:.3f} s "
         f"({res['generate_tok_s']:.1f} tok/s); engine {n_tok} tokens over "
@@ -725,6 +836,334 @@ def time_flash(res) -> dict:
     (q, k, v), kw = res["rec"]["flash"]
     return time_flash_fwd(q, k, v, kw.get("causal", False),
                           1.0 / math.sqrt(q.shape[-1]), "generate prefill")
+
+
+# ---------------------------------------------------------------- phase 14
+def _dense_targets(net):
+    """The Dense layers `quantize_for_decode` quantizes by default."""
+    return [d for lyr in net._layers
+            for d in (lyr.attn.qkv, lyr.attn.proj, lyr.ffn.ffn_dense1,
+                      lyr.ffn.ffn_dense2)]
+
+
+def check_int8_dense(net) -> dict:
+    """The int8 decode matmuls on the card at the main path's widths
+    (layer 0's ffn_dense1, 1024 -> 4096, bf16 activations; 8 rows as a
+    decode step, 32 as a prefill chunk): the weight-only form against
+    f32 operands (the f32 accumulator JAX keeps) and, for scale, a bf16
+    ``F.linear`` against the same; the dynamic form's product, exact by
+    ``_int_mm`` (32 rows) or by f64 (8 rows), against int64 sums on the
+    host."""
+    w8 = net._decode_quant.packed(net._layers[0].ffn.ffn_dense1)["w8"]
+    g = torch.Generator().manual_seed(5)
+    out = {}
+    for rows in (8, 32):
+        x = torch.randn((rows, w8.shape[1]), generator=g).to(DEV,
+                                                             torch.bfloat16)
+        f32 = x.float() @ w8.float().t()
+        mag = f32.abs().max().item()
+        got = (gen_mod._f32_product(x, w8) - f32).abs().max().item()
+        bf16 = (F.linear(x, w8.to(torch.bfloat16)).float()
+                - f32).abs().max().item()
+        assert got <= 1e-5 * mag, f"weight-only int8 product: {got} of {mag}"
+        xq = torch.randint(-127, 128, (rows, w8.shape[1]), generator=g,
+                           dtype=torch.int8)
+        exact = (xq.long() @ w8.cpu().long().t()).float()
+        assert torch.equal(gen_mod._int_product(xq.to(DEV), w8).cpu(),
+                           exact), f"int8 x int8 product at {rows} rows"
+        out[rows] = {"max_abs_f32": mag, "out_dtype_vs_f32": got,
+                     "bf16_linear_vs_f32": bf16,
+                     "shape": f"({rows}, {w8.shape[1]}) x {tuple(w8.shape)}"}
+    return out
+
+
+def phase_quant_path(smi: str, res) -> dict:
+    """The quantized serving path at full width: the phase-4 net with
+    `quantize_for_decode` (int8 weights, ``act_quant`` auto = "none" on
+    CUDA), ``generate`` (B=8, P=128, N=32), then a ServingEngine with
+    int8 KV pages over phase 4's requests (one prefix-cache hit) and a
+    profiled solo request on a fresh one.  Every step and chunk of the
+    kv8 engines launches the int8-page kernel once a layer; the float
+    paged kernel never runs."""
+    net, prompt, prompts = res["net"], res["prompt"], res["prompts"]
+    V, L = MODEL["vocab"], MODEL["num_layers"]
+    float_bytes = sum(d.weight.numel() * d.weight.element_size()
+                      for d in _dense_targets(net))
+    t0 = time.perf_counter()
+    net.quantize_for_decode()
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    qc = net._decode_quant
+    assert qc.act_quant == "none", qc.act_quant      # "auto" on CUDA
+    dense = check_int8_dense(net)
+    eng_batch = 8
+    rec = {"step": [], "chunk": []}
+    pools = []          # each kv8 engine's layer-0 pools and scales
+    n_chunks = [0]
+
+    def keep(args, kw):
+        q, pk = args[0], args[1]
+        for i, pl in enumerate(pools):
+            if pk is pl[0]:
+                kind = "step" if q.shape[0] == eng_batch else "chunk"
+                n_chunks[0] += kind == "chunk"
+                if i == 0:
+                    rec[kind].append((q.clone(), args[3].clone(),
+                                      args[4].clone()))
+
+    def layer0(eng):
+        pg = eng._programs
+        return (pg.pool_k[0], pg.pool_v[0], pg.scale_k[0], pg.scale_v[0])
+
+    def kv8_engine():
+        return ServingEngine(net, max_batch=eng_batch, block_size=16,
+                             prefill_chunk=32, kv_dtype="int8")
+
+    # the counts start from 0 here and are read right after the phase
+    for name in SERVING_KERNELS:
+        KERNELS[name]["fn"].launches = 0
+    with recording(prog_mod, "paged_attention", keep):
+        net.generate(prompt[:, :8], 2)                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net.generate(prompt, 32)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        assert out.shape == (8, 160) and out.dtype == torch.int32
+        assert torch.equal(out[:, :128].long(), prompt)
+        assert int(out.min()) >= 0 and int(out.max()) < V
+        agree = (out[:, 128:] == res["generate_out"][:, 128:]).float().mean()
+
+        eng = kv8_engine()
+        pools.append(layer0(eng))
+        try:
+            assert eng.path == "int8" and eng.kv_dtype == "int8"
+            eng.submit(prompts[0][:40], 2).result(timeout=300)  # warm-up
+            t0 = time.perf_counter()
+            reqs = [eng.submit(p, 32) for p in prompts]
+            deadline = time.monotonic() + 300
+            while reqs[1].status != "running" and not reqs[1].finished:
+                assert time.monotonic() < deadline, "request 1 stalled"
+                time.sleep(0.001)
+            dup = eng.submit(prompts[1], 32)
+            toks = [r.result(timeout=600) for r in reqs]
+            dup_toks = dup.result(timeout=600)
+            eng_s = time.perf_counter() - t0
+            kv = {"kv_bytes_per_token": eng.kv_bytes_per_token,
+                  "kv_pool_bytes": eng.kv_pool_bytes}
+        finally:
+            eng.close()
+        st = eng.stats()                    # final: the thread is joined
+        assert st["kv_dtype"] == "int8" and st["path"] == "int8", st
+        for t in toks + [dup_toks]:
+            assert len(t) == 32 and all(0 <= x < V for x in t)
+        assert dup.cached_tokens > 0, "the second submission missed"
+        assert dup_toks == toks[1], "kv8 prefix-cache hit differs from cold"
+        solo_eng = kv8_engine()
+        pools.append(layer0(solo_eng))
+        try:
+            solo_eng.submit(prompts[0][:40], 2).result(timeout=300)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                solo = solo_eng.submit(prompts[5], 32).result(timeout=600)
+                torch.cuda.synchronize()
+                solo_s = time.perf_counter() - t0
+        finally:
+            solo_eng.close()
+        steps = st["steps"] + solo_eng.stats()["steps"]
+        assert solo == toks[5], "kv8 solo run differs from co-batched run"
+        busy = device_busy(prof, solo_s)
+    torch.cuda.synchronize()
+    launches = {name: KERNELS[name]["fn"].launches
+                for name in SERVING_KERNELS}
+    assert launches["paged_attention"] == 0, \
+        f"the float paged kernel ran on the kv8 path: {launches}"
+    assert launches["flash_attention"] > 0, launches
+    want = L * (steps + n_chunks[0])
+    assert launches["paged_attention_q8"] == want > 0, \
+        (f"paged_attention_q8 launched {launches['paged_attention_q8']} "
+         f"times over {steps} steps and {n_chunks[0]} chunks of {L} layers")
+
+    reqs_all = reqs + [dup]
+    n_tok = sum(len(r.tokens) for r in reqs_all)
+    ttft = sorted(r.ttft for r in reqs_all)
+    tpot = sorted(r.tpot for r in reqs_all if r.tpot is not None)
+    out = {
+        "generate_tok_s": 8 * 32 / gen_s,
+        "generate_agree": float(agree),
+        "engine_tok_s": n_tok / eng_s,
+        "ttft_p50_s": float(np.median(ttft)),
+        "tpot_p50_s": float(np.median(tpot)),
+        "steps": steps, "chunks": n_chunks[0],
+        "launches": launches, "busy": busy, "kv": kv,
+        "weight_bytes": {"int8": qc.weight_bytes(), "float": float_bytes},
+        "dense": dense, "rec": rec, "pools": pools[0],
+    }
+    fkv = res["kv"]
+    log(f"quantized path [{smi}]: quantize_for_decode {quant_s:.2f} s "
+        f"(act_quant {qc.act_quant}); generate B=8 P=128 N=32 on int8 "
+        f"weights {gen_s:.3f} s ({out['generate_tok_s']:.1f} tok/s, "
+        f"{out['generate_agree']:.3f} of tokens equal to bf16 weights'); "
+        f"kv8 engine {n_tok} tokens over {len(reqs_all)} requests in "
+        f"{eng_s:.3f} s ({out['engine_tok_s']:.1f} decoded tok/s, TTFT p50 "
+        f"{out['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+        f"{out['tpot_p50_s'] * 1e3:.2f} ms, {st['steps']} steps, "
+        f"{st['prefix_cache']['hits']} prefix hit(s)); launches {launches} "
+        f"= {L} x ({steps} steps + {n_chunks[0]} chunks) for the q8 kernel")
+    log(f"kv pool [{smi}]: int8 {kv['kv_bytes_per_token']} B/token, "
+        f"{kv['kv_pool_bytes']} B; bf16 {fkv['kv_bytes_per_token']} "
+        f"B/token, {fkv['kv_pool_bytes']} B; "
+        f"{fkv['kv_bytes_per_token'] / kv['kv_bytes_per_token']:.3f}x the "
+        f"resident sequences at equal bytes; decode weight bytes int8 "
+        f"{out['weight_bytes']['int8']} against bf16 "
+        f"{out['weight_bytes']['float']}")
+    log(f"int8 decode matmuls, bf16 activations [{smi}]: " +
+        "; ".join(f"{d['shape']}: |f32 sum| <= {d['max_abs_f32']:.3f}, "
+                  f"mm(out_dtype=f32) within {d['out_dtype_vs_f32']:.3g} "
+                  f"of f32 operands, a bf16 F.linear within "
+                  f"{d['bf16_linear_vs_f32']:.3g}, int8 x int8 exact"
+                  for r, d in dense.items()))
+    log(f"kv8 solo request ({len(prompts[5])}-token prompt, 32 tokens) "
+        f"under the profiler [{smi}]: {solo_s:.3f} s wall, card busy "
+        f"{busy['busy_s']:.4f} s = {busy['busy_share']:.3f} of the wall "
+        f"(idle {1 - busy['busy_share']:.3f}), {busy['kernels']} kernels; "
+        f"device ms by kernel: " + "; ".join(
+            f"{n} {ms:.3f}" for n, ms in busy["top"]))
+    net.dequantize_decode()
+    return out
+
+
+# ---------------------------------------------------------------- phase 15
+def _kv8_gap(net, seq) -> float:
+    """Top-2 gap of the kv8 engine's logits after ``seq``: its
+    token-forward over a fresh int8 pool, the whole sequence as one
+    chunk, through the plain versions."""
+    T, bs = len(seq), 16
+    nbps = -(-T // bs)
+    progs = PagedPrograms(net, max_batch=1, block_size=bs,
+                          blocks_per_seq=nbps, num_blocks=nbps + 1,
+                          temperature=0.0, top_k=0, prefill_chunk=T,
+                          kv_dtype="int8")
+    row = torch.arange(1, nbps + 1, dtype=torch.int32, device=DEV)
+    pos = torch.arange(T, dtype=torch.int32, device=DEV)
+    params = gen_mod._gather_params(net, progs._qc)
+    with plain_kernels():
+        h = prog_mod._token_forward(
+            params, progs._acts, progs._H, progs.pool_k, progs.pool_v,
+            progs.scale_k, progs.scale_v,
+            row[None, :].expand(T, nbps).contiguous(),
+            torch.as_tensor(np.asarray(seq), device=DEV), pos,
+            row.long()[pos.long() // bs], pos.long() % bs)
+    top2 = gen_mod._logits_of(params, h[-1:])[0].topk(2).values
+    return float(top2[0] - top2[1])
+
+
+def _parity(a, b) -> float:
+    """Fraction of greedy tokens two runs share, position by position."""
+    tot = sum(len(t) for t in a)
+    return sum(x == y for ta, tb in zip(a, b) for x, y in zip(ta, tb)) / tot
+
+
+def phase_quant_parity() -> dict:
+    """At full width, 2 layers, f32: the kv8 engine through the int8
+    kernel against the same engine on the plain versions (tokens equal,
+    or first different where the top-2 gap is below PARITY_GAP); the
+    kv8 engine against the float engine and quantized ``generate``
+    against float ``generate``, greedy parity >= 95% each (the JAX
+    package's quality contract)."""
+    net = _build_net(torch.float32, 2, seed=1)
+    rs = np.random.RandomState(2)
+    prompts = [rs.randint(0, MODEL["vocab"], (n,)).astype(np.int32)
+               for n in (40, 77, 130, 200)]
+    N = 16
+
+    def engine_run(**kw):
+        with ServingEngine(net, max_batch=4, block_size=16,
+                           prefill_chunk=32, **kw) as eng:
+            reqs = [eng.submit(p, N) for p in prompts]
+            return [r.result(timeout=600) for r in reqs]
+
+    n0 = paged_attention_q8.launches
+    got_k = engine_run(kv_dtype="int8")
+    n1 = paged_attention_q8.launches
+    with plain_kernels():
+        got_p = engine_run(kv_dtype="int8")
+    assert n1 > n0 and paged_attention_q8.launches == n1, (n0, n1)
+    n_equal = 0
+    for p, k, q in zip(prompts, got_k, got_p):
+        if k == q:
+            n_equal += 1
+            continue
+        i = next(j for j in range(N) if k[j] != q[j])
+        gap = _kv8_gap(net, np.concatenate([p, k[:i]]))
+        assert gap < PARITY_GAP, (
+            f"kv8 kernel and plain engines differ at token {i} of a "
+            f"{len(p)}-token prompt where the top-2 gap is {gap}")
+        log(f"quantized parity: prompt {len(p)} first differs at token {i},"
+            f" top-2 gap {gap:.2e} < {PARITY_GAP}")
+    got_f = engine_run()
+    kv8_vs_float = _parity(got_k, got_f)
+    assert kv8_vs_float >= 0.95, f"kv8 vs float engine: {kv8_vs_float}"
+    gen_f = [net.generate(p[None, :], N)[0, len(p):].tolist()
+             for p in prompts]
+    net.quantize_for_decode()
+    gen_q = [net.generate(p[None, :], N)[0, len(p):].tolist()
+             for p in prompts]
+    net.dequantize_decode()
+    int8_vs_float = _parity(gen_q, gen_f)
+    assert int8_vs_float >= 0.95, f"int8 vs float generate: {int8_vs_float}"
+    log(f"quantized parity (f32, 2 layers, width {MODEL['units']}): kv8 "
+        f"engine kernel vs plain {n_equal}/{len(prompts)} prompts "
+        f"token-equal over {N} tokens; greedy parity kv8 vs float engine "
+        f"{kv8_vs_float:.3f}, int8-weight vs float generate "
+        f"{int8_vs_float:.3f} (>= 0.95 each)")
+    return {"kernel_vs_plain": n_equal, "kv8_vs_float": kv8_vs_float,
+            "int8_vs_float": int8_vs_float}
+
+
+# ---------------------------------------------------------------- phase 16
+def time_paged_q8(qres) -> dict:
+    """The int8-page kernel at the kv8 engine's busiest recorded step and
+    chunk: held to its plain version there, timed beside it, beside the
+    float kernel on the same pages dequantized to q's dtype, and beside
+    the bound (the live int8 pages and 4 bytes of scale a slot, q read,
+    out written, over 3.35 TB/s)."""
+    pk8, pv8, sk, sv = qres["pools"]
+    bs, H, D = pk8.shape[2], pk8.shape[1], pk8.shape[3]
+    out = {}
+    for kind in ("step", "chunk"):
+        q, tables, pos = _busiest(qres["rec"][kind], bs)
+        args = (q, pk8, pv8, sk, sv, tables, pos)
+        ref = paged_attention_dense(q, pk8, pv8, tables, pos, sk, sv)
+        err = (paged_attention_q8(*args).float()
+               - ref.float()).abs().max().item()
+        assert err <= TOL[q.dtype], f"paged q8 at main-path inputs: err {err}"
+        pk_f = (pk8.float() * sk[..., None]).to(q.dtype)
+        pv_f = (pv8.float() * sv[..., None]).to(q.dtype)
+        f_err = (paged_attention(q, pk_f, pv_f, tables, pos).float()
+                 - ref.float()).abs().max().item()
+        live = _live_pages(tables, pos, bs)
+        page_bytes = H * bs * (D + 4)                 # int8 + f32 scale
+        nbytes = (2 * len(live) * page_bytes + 2 * q.numel() * q.element_size()
+                  + tables.numel() * 4 + pos.numel() * 4)
+        flops = 4 * int((pos.long() + 1).sum()) * H * D
+        bound, by = _bound(nbytes, flops, PEAK_FLOPS[q.dtype])
+        out[kind] = {
+            "shape": f"q {tuple(q.shape)} {q.dtype} pool {tuple(pk8.shape)} "
+                     f"int8 pos {pos.tolist()}",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: paged_attention_q8(*args)),
+            "plain_ms": time_ms(lambda: paged_attention_dense(
+                q, pk8, pv8, tables, pos, sk, sv)),
+            "float_kernel_ms": time_ms(lambda: paged_attention(
+                q, pk_f, pv_f, tables, pos)),
+            "float_kernel_err": f_err,
+            "bound_ms": bound, "bound_by": by,
+            "live_pages": len(live), "bytes": nbytes,
+        }
+    return out
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1011,21 +1450,26 @@ def phase_training(smi: str, B: int, T: int) -> dict:
 # ---------------------------------------------------------------- phase 9
 @contextlib.contextmanager
 def plain_kernels():
-    """Swap every training kernel's launcher for its plain version (the
-    parity harness's switch; the main path never enters it)."""
+    """Swap every kernel's launcher for its plain version (the parity
+    harness's switch; the main paths never enter it)."""
     saved = (dk_mod._mask_cuda, xk_mod._fwd_cuda, xk_mod._bwd_cuda,
-             fa_mod._flash_core, fa_mod._flash_bwd_core)
+             fa_mod._flash_core, fa_mod._flash_bwd_core, pa_mod._launch,
+             pa_mod._launch_q8)
     dk_mod._mask_cuda = lambda n, seed, rate, dev: mask_reference(
         n, seed, rate, device=dev)
     xk_mod._fwd_cuda = stats_reference
     xk_mod._bwd_cuda = dlogits_reference
     fa_mod._flash_core = _reference_attention_lse
     fa_mod._flash_bwd_core = flash_bwd_plain
+    pa_mod._launch = paged_attention_dense
+    pa_mod._launch_q8 = lambda q, pk, pv, sk, sv, tables, pos: \
+        paged_attention_dense(q, pk, pv, tables, pos, sk, sv)
     try:
         yield
     finally:
         (dk_mod._mask_cuda, xk_mod._fwd_cuda, xk_mod._bwd_cuda,
-         fa_mod._flash_core, fa_mod._flash_bwd_core) = saved
+         fa_mod._flash_core, fa_mod._flash_bwd_core, pa_mod._launch,
+         pa_mod._launch_q8) = saved
 
 
 def _one_step(cfg, B, T, plain: bool):
@@ -1204,6 +1648,12 @@ def main() -> int:
     serving_flash = timed("timing_flash", time_flash, res)
     timed("parity", phase_parity)
     del res["rec"], res["pools"]
+    # the quantized serving path: int8 weights and int8 KV pages
+    qres = timed("quant_path", phase_quant_path, smi, res)
+    del res["net"]
+    qtimes = timed("quant_timing", time_paged_q8, qres)
+    timed("quant_parity", phase_quant_parity)
+    del qres["rec"], qres["pools"]
     errs.update(timed("training_kernels", phase_training_kernels))
     tres = timed("training", phase_training, smi, *BERT_BATCH)
     timed("training_parity", phase_train_parity, 8, 128)
@@ -1221,6 +1671,14 @@ def main() -> int:
         log(f"paged_attention [{kind}] {r['shape']}: {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['live_pages']} live pages, {r['bytes']} B) [{smi}]")
+    for kind in ("step", "chunk"):
+        r = qtimes[kind]
+        log(f"paged_attention_q8 [{kind}] {r['shape']}: {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['live_pages']} live pages, {r['bytes']} "
+            f"B); the float kernel on the same pages dequantized to bf16 "
+            f"{r['float_kernel_ms']:.4f} ms (err {r['float_kernel_err']:.2e})"
+            f" [{smi}]")
     r = serving_flash
     log(f"flash_attention at the generate prefill {r['shape']}: "
         f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
@@ -1232,13 +1690,15 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
     times["paged_attention"] = times["step"]
+    times["paged_attention_q8"] = qtimes["step"]
     # each kernel's launches summed over the main paths that ran it
     launches = {}
-    for path in (res, tres, tres512):
+    for path in (res, qres, tres, tres512):
         for name, n in path["launches"].items():
             launches[name] = launches.get(name, 0) + n
     rows = []
-    for name in ("paged_attention",) + FLASH_KERNELS + TRAINING_KERNELS:
+    for name in ("paged_attention", "paged_attention_q8") + FLASH_KERNELS \
+            + TRAINING_KERNELS:
         k, t = KERNELS[name], times[name]
         rows.append({
             "name": name, "route": "cuda", "source": k["source"],

@@ -6,12 +6,12 @@ easy to find; it imports torch, numpy and the standard library, never
 JAX and nothing of the JAX package.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.
 """
-from . import (autograd, context, convert, gluon, initializer, models,
-               optimizer, ops, random, serving)
+from . import (autograd, context, contrib, convert, gluon, initializer,
+               models, optimizer, ops, random, serving)
 from . import ndarray as nd
 from .base import MXNetError
 from .context import cpu, gpu, num_gpus
 
-__all__ = ["MXNetError", "autograd", "context", "convert", "cpu", "gluon",
-           "gpu", "initializer", "models", "nd", "num_gpus", "ops",
+__all__ = ["MXNetError", "autograd", "context", "contrib", "convert", "cpu",
+           "gluon", "gpu", "initializer", "models", "nd", "num_gpus", "ops",
            "optimizer", "random", "serving"]

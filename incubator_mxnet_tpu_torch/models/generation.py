@@ -1,6 +1,6 @@
 """Autoregressive KV-cache generation for `models.TransformerLM`
-(PyTorch/CUDA port of `incubator_mxnet_tpu/models/generation.py`, the
-float path).
+(PyTorch/CUDA port of `incubator_mxnet_tpu/models/generation.py`: the
+float path, the int8 weight path and `lm_score`).
 
 The JAX package compiles prefill plus the whole token loop into one XLA
 program; PyTorch runs eagerly, so here the prefill is one pass over the
@@ -17,6 +17,31 @@ math is the JAX package's, helper for helper:
   stream seeded by ``(seed, t)`` alone (`random.counter_seed`), so a
   seeded run reproduces exactly.  Torch's streams are not JAX's: the
   same seed samples different tokens in the two packages.
+
+The int8 weight path (`contrib.quantization.quantize_for_decode`):
+`_gather_params` hands `_dense` an ``{"w8", "s"}`` dict for each
+quantized layer, and `_dense` applies the per-channel scale to the
+(..., out) result, never to the weight.  These products are XLA in the
+JAX package, so here they are torch matmuls, in two forms:
+
+* weight-only (``act_quant="none"``): JAX's ``dot_general(x, w8,
+  preferred_element_type=f32)`` keeps an f32 accumulator before the
+  scale.  A bf16 ``F.linear`` would round the sum to bf16 first, so the
+  port keeps the f32 accumulator: on CUDA, for bf16/f16 activations,
+  ``torch.mm(x, w8.to(x.dtype).T, out_dtype=torch.float32)`` (int8 to
+  bf16 is exact, |w| <= 127); elsewhere f32 operands, which hold the
+  same products exactly.  Measured on an H100 80GB HBM3 at 700 W
+  (chip_smoke.py `check_int8_dense`, layer 0's 1024 -> 4096 FFN
+  weight, bf16 activations, 8 and 32 rows): the out_dtype form within
+  0.0027 and 0.0034 of the f32-operand form where the sums reach 5164
+  and 6743 (f32 summation order, ~5e-7 relative), a bf16 ``F.linear``
+  within 15.9 and 16.0 (~3e-3 relative, a bf16 rounding of the sum).
+* dynamic (``act_quant="dynamic"``): per-row int8 activations and an
+  exact INT8xINT8->INT32 product, then ``* (sx * s)``.  The product is
+  ``torch._int_mm`` on the CPU, and on CUDA where its shape limits hold
+  (more than 16 rows, both widths multiples of 8); elsewhere it is an
+  f64 matmul, exact because every partial sum is an integer below
+  2^53 (|sum| <= 127 * 127 * in_features).
 """
 from __future__ import annotations
 
@@ -30,13 +55,51 @@ from ..gluon.nn.basic_layers import layer_norm as _ln
 from ..ops.flash_attention import flash_attention
 from ..random import counter_seed
 
-__all__ = ["lm_generate"]
+__all__ = ["lm_generate", "lm_score"]
 
 _F32_MIN = torch.finfo(torch.float32).min
 
 
+def _f32_product(x, w8):
+    """x (..., in) times the int8 weight (out, in), transposed, with an
+    f32 accumulator (the weight-only form; see the module docstring)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cuda" and x.dtype in (torch.bfloat16, torch.float16):
+        acc = torch.mm(x2, w8.to(x.dtype).t(), out_dtype=torch.float32)
+    else:
+        acc = x2.float() @ w8.float().t()
+    return acc.reshape(*x.shape[:-1], w8.shape[0])
+
+
+def _int_product(xq, w8):
+    """Exact int8 (M, in) x int8 (out, in) transposed, as f32 (M, out)."""
+    M, K = xq.shape
+    N = w8.shape[0]
+    if xq.device.type == "cpu" or (M > 16 and K % 8 == 0 and N % 8 == 0):
+        return torch._int_mm(xq, w8.t()).float()
+    return (xq.double() @ w8.double().t()).float()
+
+
 def _dense(x, w, b, out_dtype=None):
-    """nn.Dense math on raw tensors: x @ W.T + b (weight is (out, in))."""
+    """nn.Dense math on raw tensors: x @ W.T + b (weight is (out, in)).
+
+    ``w`` is a float weight or a quantized-weight dict from
+    `_gather_params` for a `quantize_for_decode`-marked net: ``{"w8":
+    int8 (out, in), "s": f32 (out,)}`` (plus a ``"dyn"`` marker for
+    dynamic activation quantization).  The quantized path applies the
+    per-channel scale and the bias in f32 to the result, then casts."""
+    if isinstance(w, dict):
+        if "dyn" in w:
+            xf = x.float()
+            sx = xf.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8) / 127.0
+            xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+            acc = _int_product(xq.reshape(-1, x.shape[-1]), w["w8"])
+            y = acc.reshape(*x.shape[:-1], -1) * (sx * w["s"])
+        else:
+            y = _f32_product(x, w["w8"]) * w["s"]
+        if b is not None:
+            y = y + b.float()
+        return y.to(x.dtype if out_dtype is None else out_dtype)
     y = F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
     return y if out_dtype is None else y.to(out_dtype)
 
@@ -56,9 +119,34 @@ def _activation(h, act):
     return F.relu(h)
 
 
-def _gather_params(net):
-    """The live parameter tensors in the JAX package's pytree layout."""
+def _quant_config(net, quantized):
+    """The decode-quantization state a call uses: ``quantized=None``
+    takes whatever `quantize_for_decode` attached (the float path if
+    nothing), True requires it, False forces the float path."""
+    qc = getattr(net, "_decode_quant", None)
+    if quantized is False:
+        return None
+    if quantized and qc is None:
+        raise ValueError(
+            "quantized=True but the net has no decode-quantization state: "
+            "run contrib.quantization.quantize_for_decode(net) first")
+    return qc
+
+
+def _decode_path(qc) -> str:
+    """Which weight path a call runs: "int8" or "float"."""
+    return "int8" if qc is not None else "float"
+
+
+def _gather_params(net, qc=None):
+    """The live parameter tensors in the JAX package's pytree layout;
+    with a `DecodeQuantConfig` ``qc``, its target layers' weights come
+    out as int8 + scale dicts (re-quantized here if they changed)."""
     def wb(layer):
+        if qc is not None:
+            packed = qc.packed(layer)
+            if packed is not None:
+                return packed, layer.bias
         return layer.weight, layer.bias
 
     layers = [{"ln1": (lyr.ln1.gamma, lyr.ln1.beta),
@@ -89,10 +177,11 @@ def _logits_of(params, h_last):
                   out_dtype=torch.float32)
 
 
-def _prefill(params, prompt, acts, H, pad_to):
+def _prefill(params, prompt, acts, H, pad_to, return_h=False):
     """Run the prompt with the training path's causal attention; returns
     (h_last (B, C) at the final prompt position, per-layer K/V caches
-    (B, H, pad_to, D))."""
+    (B, H, pad_to, D)).  ``return_h`` returns the whole (B, P, C) hidden
+    states and no caches instead (`lm_score`'s teacher-forced pass)."""
     B, P = prompt.shape
     emb = params["embed"]
     C = emb.shape[1]
@@ -107,12 +196,16 @@ def _prefill(params, prompt, acts, H, pad_to):
                             causal=True).transpose(1, 2)
         h = h + _dense(a.reshape(B, P, C), *lp["proj"])
         h = h + _ffn_fwd(_ln(h, *lp["ln2"]), lp, act)
+        if return_h:
+            continue
         kc = kt.new_zeros((B, H, pad_to, kt.shape[-1]))
         vc = vt.new_zeros((B, H, pad_to, vt.shape[-1]))
         kc[:, :, :P] = kt
         vc[:, :, :P] = vt
         kcs.append(kc)
         vcs.append(vc)
+    if return_h:
+        return h, None, None
     return h[:, -1], kcs, vcs
 
 
@@ -204,7 +297,7 @@ def _as_tokens(prompt, device):
 @torch.no_grad()
 def lm_generate(net, prompt, max_new_tokens: int, *, temperature: float = 0.0,
                 top_k: int = 0, eos_id: int = -1, seed: int = 0,
-                pad_to_bucket: bool = False):
+                quantized=None, pad_to_bucket: bool = False):
     """Generate ``max_new_tokens`` continuations of ``prompt`` with the
     `models.TransformerLM` ``net`` on the net's device.
 
@@ -213,6 +306,10 @@ def lm_generate(net, prompt, max_new_tokens: int, *, temperature: float = 0.0,
     counter-based streams of ``seed``.  eos_id >= 0 freezes a sequence
     at eos (further positions emit eos_id).  Returns an int32 (B, P+N)
     tensor — the prompt followed by the generated tokens.
+
+    ``quantized``: None (default) takes the int8 weight path iff
+    `contrib.quantization.quantize_for_decode(net)` was applied; True
+    requires it; False forces the float path.
 
     ``pad_to_bucket`` is accepted for the JAX signature: the JAX
     package pads to bound its compiled-program cache, and its output is
@@ -228,7 +325,7 @@ def lm_generate(net, prompt, max_new_tokens: int, *, temperature: float = 0.0,
             f"prompt+new = {P + N} exceeds max_len {net._max_len}")
     H = net._layers[0].attn._num_heads
     acts = tuple(lyr.ffn._act for lyr in net._layers)
-    params = _gather_params(net)
+    params = _gather_params(net, _quant_config(net, quantized))
     pick = _make_pick(float(temperature), int(top_k))
     h_last, kcs, vcs = _prefill(params, prompt, acts, H, P + N)
 
@@ -238,3 +335,26 @@ def lm_generate(net, prompt, max_new_tokens: int, *, temperature: float = 0.0,
     gen = _greedy_loop(_logits_of(params, h_last), step_fn, pick, int(seed),
                        P, N, int(eos_id))
     return torch.cat([prompt, gen], dim=1).to(torch.int32)
+
+
+@torch.no_grad()
+def lm_score(net, tokens, *, quantized=None):
+    """Teacher-forced log-probabilities of ``tokens`` (B, T) under the
+    decode stack's numerics (the int8 weight path as ``quantized``
+    selects, as in `lm_generate`): f32 (B, T-1), the log-probability of
+    ``tokens[:, 1:]`` given each prefix.  The perplexity oracle of the
+    quantization quality contract (``exp(-mean(lm_score(...)))``)."""
+    tokens = _as_tokens(tokens, net.embed.weight.device)
+    B, T = tokens.shape
+    if T < 2:
+        raise ValueError(f"need >= 2 tokens to score, got {T}")
+    if T > net._max_len:
+        raise ValueError(f"sequence {T} exceeds max_len {net._max_len}")
+    H = net._layers[0].attn._num_heads
+    acts = tuple(lyr.ffn._act for lyr in net._layers)
+    params = _gather_params(net, _quant_config(net, quantized))
+    h, _, _ = _prefill(params, tokens, acts, H, T, return_h=True)
+    logits = _dense(_ln(h, *params["ln"]), *params["head"],
+                    out_dtype=torch.float32)
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    return logp.gather(2, tokens[:, 1:, None])[..., 0]

@@ -100,6 +100,8 @@ class TransformerLM(HybridBlock):
                                                         device=dev),
                              persistent=False)
         self._init_weights(seed)
+        # the int8 weight state of `quantize_for_decode` (None: float)
+        self._decode_quant = None
         # serving only until the flash backward is ported
         self.collect_params().setattr("grad_req", "null")
         self.eval()
@@ -134,14 +136,38 @@ class TransformerLM(HybridBlock):
     def generate(self, prompt, max_new_tokens, **kw):
         """KV-cache autoregressive decode; see
         `models.generation.lm_generate` (temperature / top_k / eos_id /
-        seed)."""
+        seed / quantized)."""
         from .generation import lm_generate
 
         return lm_generate(self, prompt, max_new_tokens, **kw)
 
+    def score(self, tokens, **kw):
+        """Teacher-forced per-token log-probabilities through the decode
+        stack's numerics; see `models.generation.lm_score`."""
+        from .generation import lm_score
+
+        return lm_score(self, tokens, **kw)
+
     def serve(self, **kw):
         """This net's shared continuous-batching serving engine, built on
-        first use and reused after; see `serving.ServingEngine`."""
+        first use and reused after; see `serving.ServingEngine` (its
+        ``quantized`` and ``kv_dtype`` pick the int8 weight path and the
+        int8 KV pool)."""
         from ..serving import default_engine
 
         return default_engine(self, **kw)
+
+    def quantize_for_decode(self, **kw):
+        """Weight-quantize this net's transformer matmuls for decode
+        (per-channel int8 + f32 scales, the scale in the matmul
+        epilogue); see `contrib.quantization.quantize_for_decode`."""
+        from ..contrib.quantization import quantize_for_decode
+
+        return quantize_for_decode(self, **kw)
+
+    def dequantize_decode(self):
+        """Drop the decode-quantization marking: decode goes back to the
+        float path."""
+        from ..contrib.quantization import dequantize_decode
+
+        return dequantize_decode(self)

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine with overload safety (PyTorch/CUDA
 port of the scheduler core of `incubator_mxnet_tpu/serving/engine.py`,
-float KV path).
+float and int8 KV pools, float and int8 weights).
 
 `ServingEngine` runs an iteration-level (Orca-style) scheduler on a
 background thread: each iteration retires finished sequences, evicts
@@ -44,8 +44,8 @@ step is stage (locked) → device call (unlocked) → commit (re-locked,
 with a slot-identity check).
 
 The JAX engine's telemetry, SLO tracker, HTTP endpoints, flight
-recorder and stall profiler are not part of this port yet, nor are
-speculative decoding, int8 KV pages and int8 weights.
+recorder and stall profiler are not part of this port yet, nor is
+speculative decoding.
 """
 from __future__ import annotations
 
@@ -270,6 +270,15 @@ class ServingEngine:
     prefill_chunk   prefill-chunk width in tokens (default 32, clamped
                     to ``max_seq_len``): each scheduler iteration runs
                     at most ONE chunk before the next decode step.
+    quantized       weight path, as in `lm_generate`: None follows
+                    `quantize_for_decode` (int8 weights iff the net
+                    carries its state), True requires it, False forces
+                    float weights.
+    kv_dtype        None (pages in the model dtype) or "int8": int8
+                    pages with an f32 scale per (block, head, slot),
+                    quantized at page-write time and dequantized inside
+                    the paged-attention kernel (1.88x the sequences per
+                    pool byte at bf16, D=64).
     poll_interval   scheduler idle/wait tick (default 2 ms).
     fault_hook      callable(phase: str) invoked before each
                     "prefill"/"step" device call — the fault-injection
@@ -285,6 +294,7 @@ class ServingEngine:
                  eos_id: int = -1, ttft_budget: Optional[float] = None,
                  default_deadline: Optional[float] = None,
                  prefill_chunk: Optional[int] = None,
+                 quantized=None, kv_dtype: Optional[str] = None,
                  poll_interval: Optional[float] = None, fault_hook=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -323,7 +333,8 @@ class ServingEngine:
             net, max_batch=self._B, block_size=self._bs,
             blocks_per_seq=self._nbps, num_blocks=self._num_blocks,
             temperature=temperature, top_k=top_k,
-            prefill_chunk=self._chunk)
+            prefill_chunk=self._chunk, quantized=quantized,
+            kv_dtype=kv_dtype)
         self._pool = BlockPool(self._num_blocks, self._bs)
 
         # per-lane step inputs (scheduler thread only; snapshots are
@@ -367,9 +378,31 @@ class ServingEngine:
         return self._msl
 
     @property
+    def kv_dtype(self) -> Optional[str]:
+        """None (model dtype) or "int8"."""
+        return self._programs.kv_dtype
+
+    @property
+    def path(self) -> str:
+        """The weight path: "float" or "int8"."""
+        return self._programs.path
+
+    @property
     def kv_pool_bytes(self) -> int:
-        """Device bytes of the whole KV pool (K and V, all layers)."""
+        """Device bytes of the whole KV pool (pages and int8 scales, all
+        layers)."""
         return self._programs.kv_pool_bytes
+
+    @property
+    def kv_block_bytes(self) -> int:
+        """Pool bytes one block costs across all layers (K + V +
+        scales); ``kv_pool_bytes == num_blocks * kv_block_bytes``."""
+        return self.kv_pool_bytes // self._num_blocks
+
+    @property
+    def kv_bytes_per_token(self) -> int:
+        """Pool bytes one token position costs across all layers."""
+        return self.kv_block_bytes // self._bs
 
     def set_fault_hook(self, hook) -> None:
         with self._lock:
@@ -494,6 +527,8 @@ class ServingEngine:
                     "chunk": self._chunk,
                     "jobs": len(self._prefill_jobs),
                     "pending_chunks": self._pending_chunks_locked()},
+                "path": self.path,
+                "kv_dtype": self.kv_dtype or "model",
             }
 
     # ------------------------------------------------------------------ #

@@ -7,6 +7,9 @@
   without a GPU they raise `MXNetError` instead of carrying on there.
 * Importing the package, and running its CPU path, builds nothing:
   neither ``nvcc`` nor a ``ctypes`` load is touched.
+* Every kernel wrapper raises on a failed build or launch and counts
+  nothing then; chip_smoke.py's kernel table names, for each kernel,
+  the JAX package line that launches its ``pl.pallas_call``.
 """
 import ast
 import os
@@ -189,11 +192,24 @@ def _launchers():
 
     fa = importlib.import_module("incubator_mxnet_tpu_torch.ops."
                                  "flash_attention")
+    pa = importlib.import_module("incubator_mxnet_tpu_torch.ops."
+                                 "paged_attention")
     x = torch.zeros((4, 600))
     q = torch.zeros((1, 2, 8, 16))
     rows = torch.zeros((1, 2, 8))
     bwd = (q, q, q, q, rows, rows, False, 0.25)
+    pq = torch.zeros((1, 2, 16))
+    pool = torch.zeros((3, 2, 8, 16))
+    pool8 = torch.zeros((3, 2, 8, 16), dtype=torch.int8)
+    scale = torch.ones((3, 2, 8))
+    table = torch.ones((1, 2), dtype=torch.int32)
+    pos = torch.full((1,), 9, dtype=torch.int32)
     return {
+        "paged": (lambda: pa._launch(pq, pool, pool, table, pos),
+                  pa.paged_attention),
+        "paged_q8": (lambda: pa._launch_q8(pq, pool8, pool8, scale, scale,
+                                           table, pos),
+                     pa.paged_attention_q8),
         "flash_forward": (lambda: fa._flash_core(q, q, q, False, 0.25),
                           fa.flash_attention),
         "flash_dkdv": (lambda: fa._dkdv_cuda(*bwd), fa.flash_bwd_dkdv),
@@ -208,7 +224,7 @@ def _launchers():
 
 
 KERNELS = ["dropout", "xent_forward", "xent_backward", "flash_forward",
-           "flash_dkdv", "flash_dq"]
+           "flash_dkdv", "flash_dq", "paged", "paged_q8"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -266,6 +282,99 @@ def test_flash_training_cpu_path_never_builds_or_loads_kernels():
         "assert not _build._libs\n"
         "assert fa.flash_attention.launches == 0\n"
         "assert fa.flash_bwd_dkdv.launches == fa.flash_bwd_dq.launches == 0\n"
+        "print('ok')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+# ---- the quantized serving slice: int8 KV pages and int8 weights ----
+SLICE4_MODULES = ["contrib", "contrib.quantization", "ops.paged_attention",
+                  "models.generation", "serving.programs", "serving.engine"]
+
+
+@pytest.mark.parametrize("mod", SLICE4_MODULES)
+def test_quantized_serving_modules_import_with_jax_blocked(mod):
+    res = _run("import sys\n"
+               "sys.modules['jax'] = None\n"
+               "sys.modules['incubator_mxnet_tpu'] = None\n"
+               f"import incubator_mxnet_tpu_torch.{mod}\n"
+               "print(sorted(n for n, m in sys.modules.items()\n"
+               "             if m is not None and n.split('.')[0] in\n"
+               "             ('jax', 'jaxlib', 'incubator_mxnet_tpu')))\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def _chip_smoke_kernels():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_rules", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)              # defines; runs no phase
+    return mod
+
+
+def test_chip_smoke_names_the_int8_paged_kernel():
+    cs = _chip_smoke_kernels()
+    row = cs.KERNELS["paged_attention_q8"]
+    assert row["replaces"] == "incubator_mxnet_tpu/ops/paged_attention.py:201"
+    assert row["source"] == \
+        "incubator_mxnet_tpu_torch/csrc/paged_attention.cu"
+    assert row["fn"] is mxt.ops.paged_attention_q8
+    assert "paged_attention_q8" in cs.SERVING_KERNELS
+
+
+@pytest.mark.parametrize("name", ["paged_attention", "paged_attention_q8",
+                                  "flash_attention", "flash_bwd_dkdv",
+                                  "flash_bwd_dq", "dropout_mask",
+                                  "xent_forward", "xent_backward"])
+def test_chip_smoke_rows_point_at_pallas_calls(name):
+    """Each kernel row's ``replaces`` names a line of the JAX package
+    that launches ``pl.pallas_call``, and its source exists."""
+    row = _chip_smoke_kernels().KERNELS[name]
+    path, line = row["replaces"].rsplit(":", 1)
+    with open(os.path.join(ROOT, path)) as f:
+        text = f.read().splitlines()[int(line) - 1]
+    assert "pl.pallas_call(" in text, (name, text)
+    assert os.path.exists(os.path.join(ROOT, row["source"]))
+
+
+def test_kv8_engine_defaults_to_cuda(monkeypatch):
+    from incubator_mxnet_tpu_torch.serving import ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError):
+        ServingEngine(TransformerLM(**SMALL), kv_dtype="int8")
+    with ServingEngine(TransformerLM(**SMALL, device="cpu"), max_batch=1,
+                       block_size=8, kv_dtype="int8") as eng:
+        assert eng._programs.pool_k[0].dtype == torch.int8
+        assert eng._programs.pool_k[0].device.type == "cpu"
+
+
+def test_quantized_cpu_path_never_builds_or_loads_kernels():
+    """The int8 weights and the int8 KV pool on CPU tensors take the
+    plain versions: nothing is built, loaded or launched."""
+    res = _run(
+        "import ctypes, subprocess, torch\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('kernel build or load attempted')\n"
+        "subprocess.Popen = refuse\n"
+        "ctypes.CDLL = refuse\n"
+        "import incubator_mxnet_tpu_torch as m\n"
+        "from incubator_mxnet_tpu_torch import _build\n"
+        "from incubator_mxnet_tpu_torch.models import TransformerLM\n"
+        "net = TransformerLM(vocab=11, units=16, hidden_size=32,\n"
+        "                    num_layers=1, num_heads=2, max_len=32,\n"
+        "                    device='cpu')\n"
+        "net.quantize_for_decode()\n"
+        "out = net.generate([[1, 2, 3]], 4)\n"
+        "with net.serve(max_batch=1, block_size=8, kv_dtype='int8') as e:\n"
+        "    toks = e.submit([1, 2, 3], 4).result(timeout=60)\n"
+        "assert len(toks) == 4 and e.path == 'int8'\n"
+        "assert not _build._libs\n"
+        "assert m.ops.paged_attention_q8.launches == 0\n"
+        "assert m.ops.paged_attention.launches == 0\n"
         "print('ok')\n")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"

@@ -15,6 +15,12 @@ The load-bearing contracts, as in the JAX package:
   requests, deadlines evict mid-batch, abandoned streams release their
   blocks, close() joins the scheduler thread, and scheduler errors are
   parked and re-raised.
+* **int8 KV pages** (``kv_dtype="int8"``) — the port's kv8 engine gives
+  the JAX kv8 engine's tokens on the same weights (both take their
+  dense attention on the CPU), keeps >= 95% greedy parity with the
+  float engine, holds >= 1.8x the sequences per pool byte at bf16 and
+  D=64, and a prefix-cache hit stays bit-identical; the int8 weight
+  path (``quantize_for_decode``) follows the net into the engine.
 
 Tiny nets (V=61, C=16, one layer), 1 ms polls, one shared engine.
 """
@@ -30,6 +36,7 @@ import incubator_mxnet_tpu as mx
 from incubator_mxnet_tpu.models.generation import lm_generate as jax_generate
 from incubator_mxnet_tpu.models.transformer import TransformerLM as JaxLM
 from incubator_mxnet_tpu.ndarray.ndarray import NDArray
+from incubator_mxnet_tpu.serving import ServingEngine as JaxEngine
 from incubator_mxnet_tpu_torch.convert import load_jax_params
 from incubator_mxnet_tpu_torch.models import TransformerLM, lm_generate
 from incubator_mxnet_tpu_torch.serving import (BlockPool, RequestCancelled,
@@ -251,6 +258,8 @@ def test_mid_batch_eviction_leaves_survivor_bit_identical(clean_engine):
 def test_evict_while_shared_decrefs_exactly(nets, clean_engine):
     eng = clean_engine
     ref_b = _ref(nets, PB, 10)
+    # register PREF's 2 blocks here, so the test needs no earlier one
+    assert eng.submit(PA, 1).result(timeout=60) == _ref(nets, PA, 1)
     eng.set_fault_hook(_slow("step", 0.02))
     ra = eng.submit(PA, 20)                # both bind PREF's 2 blocks
     rb = eng.submit(PB, 10)
@@ -487,3 +496,121 @@ def test_serve_caches_the_engine(nets):
         assert eng.submit(torch.from_numpy(P2), 6).result(timeout=60) == ref
         assert net.serve() is eng
     assert eng.closed
+
+
+# --------------------------------------------------------------------- #
+# int8 KV pages and int8 weights
+# --------------------------------------------------------------------- #
+KV8_PROMPTS = (P1, P2, PA, PLONG)
+
+
+def _kv8_engine(net, **kw):
+    return ServingEngine(net, max_batch=2, block_size=8, prefill_chunk=4,
+                         kv_dtype="int8", poll_interval=_POLL, **kw)
+
+
+def test_kv8_engine_tokens_equal_jax_kv8_engine(nets):
+    jeng = JaxEngine(nets[0], max_batch=2, block_size=8, prefill_chunk=4,
+                     kv_dtype="int8", poll_interval=_POLL)
+    try:
+        want = [jeng.submit(p, 8).result(timeout=120) for p in KV8_PROMPTS]
+    finally:
+        jeng.close()
+    with _kv8_engine(nets[1]) as eng:
+        assert eng.kv_dtype == "int8" and eng.path == "float"
+        st = eng.stats()
+        assert st["kv_dtype"] == "int8" and st["path"] == "float"
+        alone = [eng.submit(p, 8).result(timeout=60) for p in KV8_PROMPTS]
+        reqs = [eng.submit(p, 8) for p in KV8_PROMPTS]
+        cobatched = [r.result(timeout=60) for r in reqs]
+    assert alone == want
+    assert cobatched == want
+
+
+def test_kv8_engine_greedy_parity_vs_float(nets, clean_engine):
+    base = [clean_engine.submit(p, 12).result(timeout=60)
+            for p in KV8_PROMPTS]
+    with _kv8_engine(nets[1]) as eng:
+        got = [eng.submit(p, 12).result(timeout=60) for p in KV8_PROMPTS]
+    tot = sum(len(t) for t in base)
+    hits = sum(a == b for ta, tb in zip(base, got) for a, b in zip(ta, tb))
+    assert hits / tot >= 0.95, f"int8-KV greedy parity {hits}/{tot}"
+    st = clean_engine.stats()
+    assert st["kv_dtype"] == "model" and clean_engine.kv_dtype is None
+
+
+def test_kv8_prefix_cache_hit_bit_identical(nets):
+    """A kv8 request that binds cached int8 blocks (its own prompt's, or
+    another prompt's shared prefix) decodes the bits of a cold one."""
+    with _kv8_engine(nets[1]) as fresh:
+        cold_b = fresh.submit(PB, 8).result(timeout=60)
+    with _kv8_engine(nets[1]) as eng:
+        cold = eng.submit(PA, 8).result(timeout=60)
+        hit = eng.submit(PA, 8)
+        assert hit.result(timeout=60) == cold
+        assert hit.cached_tokens == 16
+        shared = eng.submit(PB, 8)              # binds PA's PREF blocks
+        assert shared.result(timeout=60) == cold_b
+        assert shared.cached_tokens == 16
+        st = eng.stats()
+        assert st["prefix_cache"]["hits"] == 2
+        assert st["blocks_free"] == st["blocks_total"]
+
+
+def test_kv8_capacity_vs_bf16_at_equal_bytes():
+    """At equal pool bytes the int8 pool holds >= 1.8x the resident
+    sequences of the bf16 pool (D=64: 128 B against 64 + 4 B per head
+    and token)."""
+    net = TransformerLM(vocab=31, units=128, hidden_size=64, num_layers=1,
+                        num_heads=2, max_len=64, dropout=0.0, device="cpu")
+    net.cast("bfloat16")
+    bf = ServingEngine(net, max_batch=1, block_size=8)
+    q8 = ServingEngine(net, max_batch=1, block_size=8, kv_dtype="int8")
+    try:
+        assert bf.kv_bytes_per_token == 1 * 2 * 2 * 64 * 2
+        assert q8.kv_bytes_per_token == 1 * 2 * 2 * (64 + 4)
+        assert q8.kv_pool_bytes == q8.kv_block_bytes * (q8.max_seq_len // 8
+                                                        + 1)
+        budget = bf.kv_pool_bytes
+        nbps = bf.max_seq_len // 8
+        res_bf = bf.stats()["blocks_total"] // nbps
+        res_q8 = (budget // q8.kv_block_bytes) // nbps
+        assert res_q8 / res_bf >= 1.8
+        assert bf.kv_bytes_per_token / q8.kv_bytes_per_token >= 1.8
+    finally:
+        bf.close()
+        q8.close()
+
+
+def test_kv_dtype_validation(net):
+    for bad in ("fp8", "int4", "bfloat16"):
+        with pytest.raises(ValueError):
+            ServingEngine(net, max_batch=1, block_size=8, kv_dtype=bad)
+
+
+def test_quantized_engine_follows_the_pass():
+    """With ``quantize_for_decode`` applied (``quantized=None``), the
+    engine runs the int8 weights: its greedy tokens are the quantized
+    `generate`'s, with float or int8 KV pages; ``quantized=False``
+    forces float weights, and ``quantized=True`` needs the pass."""
+    qnet = TransformerLM(vocab=V, units=C, hidden_size=DFF, num_layers=L,
+                         num_heads=H, max_len=MAXLEN, dropout=0.0,
+                         device="cpu", seed=3)
+    with pytest.raises(ValueError):
+        ServingEngine(qnet, max_batch=1, block_size=8, quantized=True)
+    float_want = lm_generate(qnet, P1[None, :], 8)[0, len(P1):].tolist()
+    qnet.quantize_for_decode(act_quant="dynamic")
+    want = lm_generate(qnet, P1[None, :], 8)[0, len(P1):].tolist()
+    with ServingEngine(qnet, max_batch=2, block_size=8, prefill_chunk=4,
+                       poll_interval=_POLL) as eng:
+        assert eng.path == "int8" and eng.stats()["path"] == "int8"
+        assert eng.submit(P1, 8).result(timeout=60) == want
+    with ServingEngine(qnet, max_batch=2, block_size=8, prefill_chunk=4,
+                       poll_interval=_POLL, quantized=False) as eng:
+        assert eng.path == "float"
+        assert eng.submit(P1, 8).result(timeout=60) == float_want
+    with qnet.serve(max_batch=2, block_size=8, prefill_chunk=4,
+                    poll_interval=_POLL, kv_dtype="int8") as eng:
+        assert eng.path == "int8" and eng.kv_dtype == "int8"
+        got = eng.submit(P1, 8).result(timeout=60)
+    assert sum(a == b for a, b in zip(got, want)) / len(want) >= 0.95
