@@ -7,7 +7,10 @@ Phases (any failure ends the run with a non-zero exit code):
 1. device  — print the card's name and power limit (nvidia-smi) and
    require CUDA;
 2. build   — compile every CUDA source of the port with nvcc, all at
-   once, into incubator_mxnet_tpu_torch/_build/;
+   once, into incubator_mxnet_tpu_torch/_build/, and print ptxas's
+   registers and spills per kernel and, for the bf16 flash backward
+   kernels, registers at launch, spill bytes, dynamic shared memory
+   and resident blocks an SM;
 3. kernels — hold each kernel against its plain PyTorch version on the
    card (f32 atol 2e-5, bf16 atol 2e-2), plus the paged kernel's
    masked-slot and lane bit-exactness (for the int8-page kernel on
@@ -78,7 +81,16 @@ Phases (any failure ends the run with a non-zero exit code):
    to the plain versions there, beside them, SDPA's forward or backward (timed
    alone, never a route of the port) and the bound (for the backward,
    8 (dK/dV) or 6 (dQ) x B·H·D flops per live (query, key) pair over
-   989 TFLOP/s, against the bytes read and written over 3.35 TB/s).
+   989 TFLOP/s, against the bytes read and written over 3.35 TB/s);
+   then both backward kernels at the long-context causal shape
+   (1, 16, 2048, 64) bf16, held to the plain version and timed beside
+   SDPA ``is_causal=True``'s backward and the causal bound (live pairs
+   only); then the causal caller through the model: a trainable 2-layer
+   TransformerLM at generate_bench width (units 1024, 16 heads) in bf16,
+   one (1, 2048) sequence, ``loss.backward()`` through the kernels (2
+   launches of each flash kernel), each layer's backward call held to
+   the plain version at its inputs and every parameter gradient to the
+   same step with the plain backward (5e-2 of each tensor's max).
 14. quantized main path (runs right after phase 5) — phase 4's net with
    ``quantize_for_decode`` (int8 weights, the scale in the epilogue):
    the int8 matmuls checked on the card, ``generate`` (B=8, P=128,
@@ -100,7 +112,7 @@ Phases (any failure ends the run with a non-zero exit code):
 
 The line before the last is a JSON object with every kernel's launches
 (summed over the main paths that ran it), error, time, plain-version
-time, bound and library time (the flash forward's at the T=512 inputs;
+time, bound and library time (the flash kernels' at the T=512 inputs;
 its time at the generate prefill is printed above; the paged kernels'
 at their busiest decode step); the line
 before it is the nvidia-smi name and power limit; the last line is
@@ -729,7 +741,8 @@ def device_busy(prof, wall_s: float) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"busy_s": busy_us * 1e-6, "busy_share": busy_us * 1e-6 / wall_s,
             "kernels": len(kern),
-            "top": [(n[:60], us * 1e-3) for n, us in top]}
+            "top": [(n[:60], us * 1e-3) for n, us in top],
+            "by_name": {n: us * 1e-3 for n, us in by_name.items()}}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1438,9 +1451,15 @@ def phase_training(smi: str, B: int, T: int) -> dict:
         + f" ({flops_per_token} flop/token), peak memory "
         f"{peak_bytes / 2**30:.2f} GiB, losses "
         f"{[round(v, 4) for v in loss_vals.tolist()]}; launches {launches}")
+    # the flash backward kernels' device time in the step (both dtypes'
+    # instantiations: names carry the kernel's function name)
+    bwd_ms = sum(ms for n, ms in busy["by_name"].items()
+                 if "dkdv_kernel" in n or "dq_kernel" in n)
     log(f"one profiled training step [{smi}]: {prof_s * 1e3:.1f} ms wall, "
         f"card busy {busy['busy_s'] * 1e3:.1f} ms = {busy['busy_share']:.3f} "
         f"(idle {1 - busy['busy_share']:.3f}), {busy['kernels']} kernels; "
+        f"flash backward kernels {bwd_ms:.3f} ms = "
+        f"{bwd_ms / (busy['busy_s'] * 1e3):.3f} of the card time; "
         f"device ms by kernel: " + "; ".join(
             f"{n} {ms:.3f}" for n, ms in busy["top"]))
     return {"launches": launches, "rec": rec, "step_s": dt, "tok_s": tok_s,
@@ -1588,20 +1607,18 @@ def _live_pairs(Tq, Tk, causal) -> int:
     return int(np.clip(np.arange(Tq) + (Tk - Tq) + 1, 0, Tk).sum())
 
 
-def time_flash_training(tres) -> dict:
-    """The flash kernels at the inputs the T=512 main path gave them
-    (the first backward call of step 1: the last layer's): held to the
-    plain versions there and timed beside them, SDPA (timed alone, a
-    yardstick the port never calls) and the bound."""
-    q, k, v, do, lse, delta, causal, scale = tres["rec"]["flash_bwd"]
-    q, k, v = (t.detach() for t in (q, k, v))
+def time_flash_bwd(q, k, v, do, lse, delta, causal, scale, tag) -> dict:
+    """The dK/dV and dQ kernels at one backward call's inputs: held to
+    the plain version there (`BWD_TOL`), timed beside it, SDPA's
+    backward (timed alone, a yardstick the port never calls) and the
+    bound: 8 (dK/dV) or 6 (dQ) flops x B·H·D per live (query, key) pair
+    over 989 TFLOP/s, against reading q, k, v, dO, lse, Δ and writing
+    dk, dv or dq once over 3.35 TB/s."""
     B, H, Tq, D = q.shape
-    out = {"flash_attention": time_flash_fwd(q, k, v, causal, scale,
-                                             "T=512 main-path")}
-    # backward: read q, k, v, dO, lse, Δ; write dk, dv (dK/dV) or dq
+    assert Tq == k.shape[2] or not causal   # SDPA's causal mask is top-left
     args = (q, k, v, do, lse, delta, causal, scale)
     got = (flash_bwd_dq(*args),) + tuple(flash_bwd_dkdv(*args))
-    err = check_bwd_grads(got, *args, "flash bwd at T=512 main-path inputs")
+    err = check_bwd_grads(got, *args, f"flash bwd at {tag} inputs")
     el = q.element_size()
     in_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * el \
         + 2 * B * H * Tq * 4
@@ -1610,6 +1627,7 @@ def time_flash_training(tres) -> dict:
     so = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
                                         scale=scale)
     plain_ms = time_ms(lambda: flash_bwd_plain(*args))
+    out = {}
     for name, fn, outs, n_flops, wrt in (
             ("flash_bwd_dkdv", flash_bwd_dkdv, (k, v), 8, (kr, vr)),
             ("flash_bwd_dq", flash_bwd_dq, (q,), 6, (qr,))):
@@ -1627,6 +1645,124 @@ def time_flash_training(tres) -> dict:
     return out
 
 
+def time_flash_training(tres) -> dict:
+    """The flash kernels at the inputs the T=512 main path gave them
+    (the first backward call of step 1: the last layer's)."""
+    q, k, v, do, lse, delta, causal, scale = tres["rec"]["flash_bwd"]
+    q, k, v = (t.detach() for t in (q, k, v))
+    out = {"flash_attention": time_flash_fwd(q, k, v, causal, scale,
+                                             "T=512 main-path")}
+    out.update(time_flash_bwd(q, k, v, do, lse, delta, causal, scale,
+                              "T=512 main-path"))
+    return out
+
+
+# long-context causal attention (benchmark/longctx_bench.py's T >= 2048
+# at generate_bench's 16 heads of 64)
+LONGCTX_SHAPE = (1, 16, 2048, 64)
+# TransformerLM at generate_bench width, cut to 2 layers, for the causal
+# backward through the model
+LM_CAUSAL = dict(vocab=32000, units=1024, hidden_size=4096, num_layers=2,
+                 num_heads=16, max_len=2048)
+# parameter gradients through the flash backward kernels against the
+# same step with the plain backward (same forward kernels): each
+# tensor's max difference over its max magnitude.  The two differ by the
+# bf16 rounding of dq, dk, dv (a few 2^-8 relative) carried back
+# through one bf16 layer
+LM_GRAD_TOL = 5e-2
+
+
+def time_flash_longctx() -> dict:
+    """Both backward kernels at the long-context causal shape, bf16:
+    held to the plain version and timed beside SDPA ``is_causal=True``
+    and the causal bound (live pairs only)."""
+    g = torch.Generator().manual_seed(4)
+    q, k, v, do = (torch.randn(LONGCTX_SHAPE, generator=g).to(
+        DEV, torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(LONGCTX_SHAPE[3])
+    out, lse = _reference_attention_lse(q, k, v, True, scale)
+    delta = (do.float() * out.float()).sum(-1)
+    return time_flash_bwd(q, k, v, do, lse, delta, True, scale,
+                          "long-context causal")
+
+
+def phase_lm_causal(smi: str) -> dict:
+    """The causal caller of the flash backward: a trainable 2-layer
+    TransformerLM at generate_bench width (D=64) in bf16 from seed 0,
+    one (1, 2048) sequence, next-token cross-entropy, ``loss.backward()``
+    through the flash kernels.  Each layer's backward call is held to
+    the plain version at its inputs (`BWD_TOL`), and every parameter
+    gradient to the same step with the plain backward (`LM_GRAD_TOL`)."""
+    net = TransformerLM(**LM_CAUSAL, dropout=0.0, device=DEV, seed=0)
+    net.cast(torch.bfloat16)
+    T = LM_CAUSAL["max_len"]
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, LM_CAUSAL["vocab"], (1, T), generator=g).to(DEV)
+
+    def run():
+        with autograd.record():
+            logits = net(toks)
+            loss = F.cross_entropy(logits[0, :-1].float(), toks[0, 1:])
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().clone()
+                             for n, p in net.named_parameters()}
+
+    calls = []
+    # the counts start from 0 here and are read right after the step
+    for name in FLASH_KERNELS:
+        KERNELS[name]["fn"].launches = 0
+    with recording(fa_mod, "_flash_bwd_core",
+                   lambda args, kw: calls.append(args)):
+        loss_k, grads_k = run()
+    torch.cuda.synchronize()
+    launches = {n: KERNELS[n]["fn"].launches for n in FLASH_KERNELS}
+    L = LM_CAUSAL["num_layers"]
+    assert launches == {n: L for n in FLASH_KERNELS}, launches
+    assert len(calls) == L and all(a[6] for a in calls)      # causal
+    err = max(check_bwd_grads(
+        (flash_bwd_dq(*a),) + tuple(flash_bwd_dkdv(*a)), *a,
+        f"TransformerLM causal layer call {i}") for i, a in enumerate(calls))
+    saved = fa_mod._flash_bwd_core
+    fa_mod._flash_bwd_core = flash_bwd_plain
+    try:
+        loss_p, grads_p = run()
+    finally:
+        fa_mod._flash_bwd_core = saved
+    assert loss_k == loss_p, (loss_k, loss_p)
+    rel = max(((grads_k[n].float() - grads_p[n].float()).abs().max()
+               / grads_p[n].float().abs().max().clamp(min=1e-30)).item()
+              for n in grads_p)
+    assert math.isfinite(loss_k) and rel <= LM_GRAD_TOL, (loss_k, rel)
+    log(f"TransformerLM causal backward [{smi}]: {LM_CAUSAL} bf16, (1, {T}) "
+        f"tokens, loss {loss_k:.4f}; {L} layer calls within BWD_TOL of the "
+        f"plain version (max err {err:.3g}); parameter grads within "
+        f"{rel:.3g} of the plain-backward step (tolerance {LM_GRAD_TOL} of "
+        f"each tensor's max) over {len(grads_p)} tensors")
+    return {"err": err, "grad_rel": rel, "loss": loss_k,
+            "launches": launches}
+
+
+def bwd_kernel_info() -> dict:
+    """Registers, spill bytes, dynamic shared memory and blocks an SM of
+    the bf16 backward kernels, per instantiation (D = 64, 128)."""
+    import ctypes
+
+    fn = _build.load("flash_attention_bwd").mx_flash_attention_bwd_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] \
+        + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    info = {}
+    for name, dq in (("dkdv", 0), ("dq", 1)):
+        for D in (64, 128):
+            vals = [ctypes.c_int() for _ in range(4)]
+            err = fn(dq, D, *(ctypes.byref(x) for x in vals))
+            assert err == 0, f"kernel info {name} D={D}: CUDA error {err}"
+            info[f"{name}_D{D}"] = dict(zip(
+                ("regs", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                (x.value for x in vals)))
+    return info
+
+
 def main() -> int:
     t_start = time.perf_counter()
     took = {}
@@ -1639,6 +1775,10 @@ def main() -> int:
 
     smi = timed("device", phase_device)
     timed("build", phase_build)
+    info = bwd_kernel_info()
+    log("flash backward bf16 kernels (registers a thread at launch, "
+        "spill bytes, dynamic shared memory, blocks an SM): "
+        + json.dumps(info))
     # the serving phases run first, as before the training slice, so
     # their host-bound numbers compare with earlier runs of the script
     errs = timed("kernels", phase_kernels)
@@ -1664,6 +1804,9 @@ def main() -> int:
     timed("training_parity_512", phase_train_parity, 2, 512)
     times.update(timed("training_timing_512", time_flash_training, tres512))
     del tres512["rec"]
+    # the causal callers: long-context shapes and a trainable TransformerLM
+    longctx = timed("flash_longctx_timing", time_flash_longctx)
+    lres = timed("lm_causal", phase_lm_causal, smi)
     log(f"phases took {time.perf_counter() - t_start:.1f} s: "
         + json.dumps(took))
     for kind in ("step", "chunk"):
@@ -1689,11 +1832,16 @@ def main() -> int:
         log(f"{name} {r['shape']}: {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
+    for name, r in longctx.items():
+        log(f"{name} long-context {r['shape']}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, sdpa is_causal backward "
+            f"{r['library_ms']:.4f} ms, causal bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) [{smi}]")
     times["paged_attention"] = times["step"]
     times["paged_attention_q8"] = qtimes["step"]
     # each kernel's launches summed over the main paths that ran it
     launches = {}
-    for path in (res, qres, tres, tres512):
+    for path in (res, qres, tres, tres512, lres):
         for name, n in path["launches"].items():
             launches[name] = launches.get(name, 0) + n
     rows = []

@@ -51,11 +51,15 @@ def quantize_kv(x):
 
 def _weight_key(w) -> tuple:
     """What changes when a weight does: PyTorch updates parameters in
-    place (optimizer steps, ``copy_``, `convert.load_jax_params`) and
-    ``cast()`` swaps the storage of the same Parameter object, so the
-    key is the storage address, the in-place version counter, and the
-    dtype, shape and device — never the object's identity alone."""
-    return (w.data_ptr(), w._version, w.dtype, tuple(w.shape), w.device)
+    place (optimizer steps, ``copy_``, ``set_data``, ``initialize``,
+    `convert.load_jax_params`) and ``cast()`` swaps the storage of the
+    same Parameter object, so the key is the storage address, the
+    in-place version counter, ``Block.cast``'s count of casts (a round
+    trip may reuse the old address), and the dtype, shape and device —
+    never the object's identity alone.  A write through ``w.data``
+    bumps none of these: see `quantize_for_decode`."""
+    return (w.data_ptr(), w._version, getattr(w, "_casts", 0), w.dtype,
+            tuple(w.shape), w.device)
 
 
 class DecodeQuantConfig:
@@ -164,6 +168,16 @@ def quantize_for_decode(net, *, act_quant: str = "auto",
     values, and an update to them is re-quantized lazily.  Use
     `dequantize_decode` (or ``quantized=False`` on the entry points) for
     the float path.  Returns ``net``.
+
+    "An update" is any write the port's surface makes: ``Trainer.step``,
+    ``Parameter.set_data``, ``initialize(force_reinit=True)``,
+    `convert.load_jax_params`, ``cast()``, and in-place torch ops on a
+    parameter under ``torch.no_grad()``.  The cache keys on each
+    weight's storage, version counter and casts (`_weight_key`), which
+    a write through ``param.data`` (``param.data.copy_(...)``) leaves
+    unchanged; such a write keeps serving the old int8 copies until
+    ``quantize_for_decode`` runs again.  A check of the contents on
+    every decode step would add kernels to a host-bound path.
     """
     targets = _decode_target_denses(net, quantize_head)
     cfg = DecodeQuantConfig(act_quant, quantize_head,

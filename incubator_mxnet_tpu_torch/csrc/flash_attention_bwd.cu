@@ -3,42 +3,97 @@
 // Replaces the Pallas TPU kernels `_fa_dkdv_kernel` and `_fa_dq_kernel`
 // launched by `_flash_bwd_core` (incubator_mxnet_tpu/ops/flash_attention.py).
 // Both recompute the probabilities from the forward's saved row logsumexp
-// and never hold a (Tq, Tk) matrix: for a 64x64 (query, key) tile they form
-// S = Q K^T * scale, P = exp(S - lse), dP = dO V^T and
+// and never hold a (Tq, Tk) matrix: for a (query tile, key tile) pair they
+// form S = Q K^T * scale, P = exp(S - lse), dP = dO V^T and
 // dS = P * (dP - delta) * scale, with delta = rowsum(dO * O) (minus the lse
 // cotangent in the (out, lse) variant), as `_bwd_block_terms` does.
 //
-// * dK/dV kernel: one thread block per (batch*head, 64-row key tile).  Its K
-//   and V tiles stay in shared memory and its dK, dV sums in registers while
-//   it walks the query tiles (Q, dO, lse, delta); per tile it adds P^T dO to
-//   dV and dS^T Q to dK.
-// * dQ kernel: one thread block per (batch*head, 64-row query tile).  Q, dO
-//   and the row statistics stay; it walks the key tiles and adds dS K to dQ.
+// * dK/dV kernel: one block per (batch*head, key tile).  Its K and V tiles
+//   stay in shared memory and its dK, dV sums in registers while it walks
+//   the query tiles (Q, dO, lse, delta); per tile it adds P^T dO to dV and
+//   dS^T Q to dK.
+// * dQ kernel: one block per (batch*head, query tile).  Q, dO and the row
+//   statistics stay; it walks the key tiles and adds dS K to dQ.
 //
 // On the TPU the output block was revisited along the grid's inner axis; here
 // the walk is a loop inside the block, so each block owns its output tile:
-// no atomics, and two launches on the same inputs give the same bits.
+// no atomics, and two launches on the same inputs give the same bits.  That
+// is why dQ keeps a kernel of its own: a fused backward (FlashAttention-2/3)
+// adds each key tile's dS K into dQ with atomics.  The pair recomputes S and
+// dP in both kernels, 14*D flops a (query, key) pair against the 10*D of a
+// fused backward.
 //
 // Masking follows the TPU kernels: causal is bottom-right aligned (key j is
-// visible to query i iff j - (Tk - Tq) <= i), a (query tile, key tile) pair
-// with kb*64 > (qb+1)*64 - 1 + (Tk - Tq) is never visited, ragged Tq / Tk
-// tails are masked, and a row whose lse is -inf (it sees no key) contributes
-// exactly 0: P uses exp(S - (isfinite(lse) ? lse : 0)) only on valid entries.
+// visible to query i iff j - (Tk - Tq) <= i), a 64x64 (query, key) tile pair
+// wholly past the diagonal is never computed, ragged Tq / Tk tails are
+// masked, and a row whose lse is -inf (it sees no key) contributes exactly 0:
+// P uses exp(S - lse) only on valid entries.
 //
-// Bound on the H100: operations.  A (query, key) pair costs 8*D flops in the
-// dK/dV kernel and 6*D in the dQ kernel against O(D) bytes per 64-row tile.
-// This first design runs the products on the CUDA cores in f32 (256 threads,
-// a 4x4 sub-tile of S and dP and a 4 x D/16 sub-tile of the accumulators per
-// thread, operands from shared memory), so it is held to the f32 SIMT rate
-// and to shared-memory bandwidth, not to the tensor-core rate; bf16 inputs
-// are widened to f32 on load.  At D = 128 the dK/dV kernel stages four f32
-// 64x129 tiles and two 64x65 tiles (162 KB of dynamic shared memory), so one
-// block fits an SM there and two at D = 64.  wgmma, TMA and warp
-// specialisation are later work.
+// Bound on the H100: operations, 8*D flops a live pair in the dK/dV kernel
+// and 6*D in the dQ kernel against O(D) bytes a 64-row tile (at
+// (8, 16, 512, 64): 0.0174 and 0.0130 ms at 989 TFLOP/s against 0.003 ms
+// of bytes).  The bfloat16 kernels are built for the tensor cores:
+//
+// * every product is `wgmma.mma_async` m64n64k16 bf16 -> f32.  dK/dV:
+//   S^T = K Q^T and dP^T = V dO^T (M = 64 keys a warpgroup, N = 64
+//   queries), then dV += P^T dO and dK += dS^T Q (N = 64 head columns).
+//   dQ: S = Q K^T and dP = dO V^T (M = 64 queries, N = 64 keys), then
+//   dQ += dS K;
+// * P and dS never reach shared memory: they are formed in f32 from the
+//   accumulators with the validity guard of `_bwd_block_terms` and fed
+//   back in bf16 as the register A operand of the second products, whose
+//   fragment layout is the first products' accumulator layout.  P is
+//   rounded once (the pass the TPU's default-precision dot takes).  dS
+//   goes as a pair hi = bf16(dS), lo = bf16(dS - hi) through two
+//   products: each row of dS sums to 0, so dQ = dS K cancels the keys'
+//   common part (a projection's bias, say) and dK does the same with the
+//   queries', and one rounding of dS leaves 2^-9 of that part in the
+//   result, which at BERT's T=512 activations exceeds the bf16 gradient
+//   tolerance.  The pair costs one more m64n64 product a tile (10*D
+//   flops a pair in the dK/dV kernel, 8*D in dQ; the bounds count the
+//   algorithm's 8*D and 6*D);
+// * operand tiles sit in shared memory in bf16 in the 128-byte-swizzled
+//   layout the wgmma descriptors read, in panels of 64 head columns: K, V
+//   resident and Q, dO streamed (dK/dV), Q, dO resident and K, V streamed
+//   (dQ).  Each tile is staged once and read K-major by the first products
+//   and MN-major (the transpose bit) by the second;
+// * TMA loads them through 3-D tensor maps over (B*H, T, D) built on the
+//   host, into a two-stage ring with mbarrier completion, so the next
+//   tile's copy overlaps the current tile's products.  TMA's zero fill past
+//   the tensor's extent covers the ragged T tails and pads D up to the
+//   instantiated width (64 for D <= 64, 128 above).  lse and delta rows
+//   are plain loads (the producer stages them for dK/dV; the dQ consumers
+//   keep their rows in registers);
+// * warp specialisation: a block is two consumer warpgroups, each owning
+//   64 rows of the 128-row resident tile, and one producer warpgroup whose
+//   first warp issues the loads; `setmaxnreg` moves the producer's
+//   registers to the consumers (24 / 240).  384 threads at the launch's
+//   168 registers fill the register file, so one block runs on an SM.  A
+//   consumer holds one 64-column panel of its outputs (at D = 128 each
+//   grid gets a third axis over the two panels, and each block recomputes
+//   S and dP): S, dP and the outputs then fit without spilling;
+// * the entries' math is a few instructions: P = exp2(S * scale * log2(e)
+//   - lse2) on the SFU with lse2 = lse * log2(e) staged once a row (+inf
+//   for a row without keys or past T, so its P is 0 with no test), the
+//   mask only on tiles that cross the diagonal or a ragged edge, and
+//   dS / scale = P (dP - delta), the scale applied to dK and dQ once in
+//   the epilogue.  The dQ kernel commits S and dP as two groups, so P's
+//   exponentials overlap the dP product, and starts the query tiles that
+//   walk the most key tiles under causal first.
+//
+// The float32 kernels keep the first design, products on the CUDA cores
+// (256 threads, a 4x4 sub-tile of S and dP per thread, operands widened in
+// shared memory): a tensor-core f32 product would be TF32, which does not
+// meet the float32 gradient tolerance, and no main path runs the backward in
+// float32.
 #include <cfloat>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -49,16 +104,9 @@ constexpr int kCols = kMaxD / 16;   // accumulator columns per thread at D=128
 constexpr int kLdT = kB + 1;        // leading dimension of a 64x64 f32 tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 // lse is finite or -inf; this also rejects +inf and NaN
@@ -414,12 +462,809 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ------------------------------------------------------------ bfloat16 path
+namespace tc {
+
+constexpr int kRows = 64;         // rows of a streamed tile and of a warpgroup
+constexpr int kBlockRows = 128;   // rows of the resident tile (2 warpgroups)
+constexpr int kStages = 2;        // ring of streamed tiles
+constexpr int kConsumers = 256;   // threads of the two consumer warpgroups
+constexpr int kThreads = 384;     // + one producer warpgroup
+constexpr int kRowBytes = 128;    // 64 bf16 of a panel row, one swizzle span
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the phase of parity ``parity`` has completed.  A wait
+// that outlasts ~10 s of SM clock traps, so a broken pipeline ends the
+// launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+// One box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on ``bar``.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled bf16 operand whose
+// 8-row groups are 1024 bytes apart.  K-major operands read 16 columns at
+// ``addr`` (advanced 32 bytes a k step inside the swizzle span; ``lbo``
+// unused); MN-major ones read 16 rows of 64 columns (advanced 2048 bytes a
+// k step), one swizzle atom wide, so the leading offset (the next 64
+// columns) is never taken and is given as 1024 as well.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the fence / wait that bracket it.
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i]) :: "memory");
+}
+
+// d (+)= A B, m64n64k16, A and B K-major in shared memory at descriptors
+// ``a`` and ``b`` advanced by OA and OB 16-byte units.  The offsets are
+// added inside the asm so that the compiler keeps one base descriptor per
+// operand live instead of hoisting every k step's.
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 da, db;\n"
+      "add.s64 da, %32, %35;\n"
+      "add.s64 db, %33, %36;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "da, db, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(OA), "n"(OB));
+}
+
+// d += A B, m64n64k16, A in registers (four bf16x2 in the accumulator
+// layout), B MN-major in shared memory at descriptor ``b`` advanced by OB
+// 16-byte units.
+template <int OB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 db;\n"
+      "add.s64 db, %36, %38;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, db, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(OB));
+}
+
+// f(std::integral_constant<int, i>) for i = 0 .. N-1, unrolled.
+template <typename F, int... I>
+__device__ __forceinline__ void static_for_impl(
+    F&& f, std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+
+template <int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_impl(f, std::make_integer_sequence<int, N>{});
+}
+
+// d = A B^T over DP head columns: A (64 rows) and B (64 rows) K-major at
+// descriptors ``a`` and ``b``, in panels of 64 columns PA and PB bytes
+// apart.
+template <int DP, int PA, int PB>
+__device__ __forceinline__ void product_ss(float (&d)[32], uint64_t a,
+                                           uint64_t b) {
+  static_for<DP / 16>([&](auto kk) {
+    constexpr int k = decltype(kk)::value;
+    wgmma_ss<((k / 4) * PA + (k % 4) * 32) / 16,
+             ((k / 4) * PB + (k % 4) * 32) / 16>(d, a, b, k > 0);
+  });
+}
+
+// d += A B: A the 16 bf16x2 fragments of a 64 x 64 accumulator, B 64 rows
+// of one 64-column panel, MN-major, at descriptor ``b``.
+__device__ __forceinline__ void product_rs(float (&d)[32],
+                                           const uint32_t (&a)[16],
+                                           uint64_t b) {
+  static_for<4>([&](auto kk) {
+    constexpr int k = decltype(kk)::value;
+    wgmma_rs<k * 2048 / 16>(d, a + 4 * k, b);
+  });
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragments of a 64 x 64 f32 accumulator x (pairs of columns
+// packed to bf16): hi = bf16(x) and, when lo is given, lo = bf16(x - hi),
+// so that hi + lo carries x to ~2^-17 relative.
+__device__ __forceinline__ void fragments(const float (&x)[32],
+                                          uint32_t (&hi)[16],
+                                          uint32_t (*lo)[16] = nullptr) {
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * m], x[2 * m + 1]);
+    hi[m] = *reinterpret_cast<uint32_t*>(&h);
+    if (lo != nullptr) {
+      const float2 hf = __bfloat1622float2(h);
+      (*lo)[m] = pack_bf16(x[2 * m] - hf.x, x[2 * m + 1] - hf.y);
+    }
+  }
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// Shared memory of the dK/dV kernel: K and V (128 rows), a ring of Q and
+// dO tiles (64 rows) with their lse and delta rows, the barriers.  Tiles
+// are panels of 64 head columns, each 1024-byte aligned.
+template <int DP>
+struct DkdvSmem {
+  static constexpr int kPanels = DP / 64;
+  static constexpr int kTileBig = kPanels * kBlockRows * kRowBytes;
+  static constexpr int kTile = kPanels * kRows * kRowBytes;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kTileBig;
+  static constexpr int kQ = kV + kTileBig;
+  static constexpr int kDO = kQ + kStages * kTile;
+  static constexpr int kLse = kDO + kStages * kTile;
+  static constexpr int kDelta = kLse + kStages * kRows * 4;
+  static constexpr int kBar = kDelta + kStages * kRows * 4;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+};
+
+// Shared memory of the dQ kernel: Q and dO (128 rows), a ring of K and V
+// tiles (64 rows), the barriers.
+template <int DP>
+struct DqSmem {
+  static constexpr int kPanels = DP / 64;
+  static constexpr int kTileBig = kPanels * kBlockRows * kRowBytes;
+  static constexpr int kTile = kPanels * kRows * kRowBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + kTileBig;
+  static constexpr int kK = kDO + kTileBig;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A row's lse in base 2, as the terms below take it: lse * log2(e), or
+// +inf when the row sees no key (lse -inf, or not finite) or lies past
+// T, so that its P is exp2(-inf) = 0 with no test an entry.
+__device__ __forceinline__ float lse_base2(float lse, bool in) {
+  return in && is_finite(lse) ? lse * kLog2e
+                              : __int_as_float(0x7f800000);
+}
+
+// The tile's P, in place of S (st), as `_bwd_block_terms`:
+// p = exp2(s * scale * log2(e) - lse2), zero where the entry is masked.
+// The entry e = 4j + 2i + c of a thread sits in accumulator row i and
+// column 8j + c (plus the thread's offsets); ``terms(j, i, c)`` gives its
+// (lse2, delta), ``visible(j, i, c)`` whether it is in range.  Interior
+// tiles (every entry in range) skip the mask.
+template <bool kInterior, typename Terms, typename Visible>
+__device__ __forceinline__ void tile_p(float (&st)[32], float c1, Terms terms,
+                                       Visible visible) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * i + c;
+        const float p = ex2(fmaf(st[e], c1, -terms(j, i, c).x));
+        st[e] = kInterior || visible(j, i, c) ? p : 0.f;
+      }
+}
+
+// dS / scale = p * (dp - delta) of the tile's entries, in place of dP.
+template <typename Terms>
+__device__ __forceinline__ void tile_ds(const float (&p)[32],
+                                        float (&dpt)[32], Terms terms) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * i + c;
+        dpt[e] = p[e] * (dpt[e] - terms(j, i, c).y);
+      }
+}
+
+// Stores rows row0 + 16*warp + lane/4 (+ 8) of a warpgroup's 64 x 64 f32
+// accumulator times ``mul`` as bf16 into columns col0 .. col0 + 63 of a
+// (rows, D) matrix, skipping rows >= rows and columns >= D.
+__device__ __forceinline__ void store_rows(const float (&acc)[32], float mul,
+                                           __nv_bfloat16* __restrict__ out,
+                                           int row0, int rows, int col0,
+                                           int D, int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 16 * warp + lane / 4 + 8 * i;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = col0 + 8 * j + 2 * (lane % 4);
+      if (col < D)
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * D +
+                                     col) =
+            pack_bf16(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
+    }
+  }
+}
+
+// The dK/dV kernel.  Block (bh, kt, pn) owns keys [128*kt, 128*kt + 128)
+// of one (batch, head) and head columns [64*pn, 64*pn + 64) of their dK
+// and dV; consumer warpgroup wg owns 64 of the keys.  At DP = 128 the two
+// column panels are two blocks, which recompute S and dP: one panel of
+// dK and dV (64 registers a thread) beside S and dP keeps a consumer
+// within 168 registers without spilling.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+            const __grid_constant__ CUtensorMap tm_k,
+            const __grid_constant__ CUtensorMap tm_v,
+            const __grid_constant__ CUtensorMap tm_do,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+            int Tq, int Tk, int D, int causal, float scale) {
+  using L = DkdvSmem<DP>;
+  constexpr int kPanels = L::kPanels;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* full = kv_full + 1;        // Q, dO, lse, delta of a stage landed
+  uint64_t* empty = full + kStages;    // both warpgroups are done with it
+  float* lse_s = reinterpret_cast<float*>(sm + L::kLse);
+  float* delta_s = reinterpret_cast<float*>(sm + L::kDelta);
+
+  const int bh = blockIdx.x;
+  const int col0 = blockIdx.y * kBlockRows;
+  const int pn = blockIdx.z;            // the output's column panel
+  const int shift = Tk - Tq;
+  // causal: query tiles whose last row's diagonal lies before the block's
+  // first key see none of it -- start the walk after them
+  int qb0 = 0;
+  if (causal) {
+    const int x = col0 - shift;
+    qb0 = x > 0 ? x / kRows : 0;
+  }
+  const int nt = max((Tq + kRows - 1) / kRows - qb0, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    if (warp != 0) return;
+    const float* lse_bh = lse + static_cast<size_t>(bh) * Tq;
+    const float* delta_bh = delta + static_cast<size_t>(bh) * Tq;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * L::kTileBig);
+      for (int c = 0; c < kPanels; ++c) {
+        const int off = c * kBlockRows * kRowBytes;
+        tma_load(sm + L::kK + off, &tm_k, kv_full, 64 * c, col0, bh);
+        tma_load(sm + L::kV + off, &tm_v, kv_full, 64 * c, col0, bh);
+      }
+    }
+    for (int t = 0; t < nt; ++t) {
+      const int s = t % kStages;
+      mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+      const int row0 = (qb0 + t) * kRows;
+      for (int r = lane; r < kRows; r += 32) {
+        const bool in = row0 + r < Tq;
+        lse_s[s * kRows + r] = lse_base2(in ? lse_bh[row0 + r] : 0.f, in);
+        delta_s[s * kRows + r] = in ? delta_bh[row0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * L::kTile);
+        for (int c = 0; c < kPanels; ++c) {
+          const int off = s * L::kTile + c * kRows * kRowBytes;
+          tma_load(sm + L::kQ + off, &tm_q, &full[s], 64 * c, row0, bh);
+          tma_load(sm + L::kDO + off, &tm_do, &full[s], 64 * c, row0, bh);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kConsumerRegs));
+    const int key0 = col0 + kRows * wg;     // the warpgroup's first key
+    const int krow = 16 * warp + lane / 4;  // its row of S^T (and + 8)
+    const int qcol = 2 * (lane % 4);        // its column in 8 (and + 1)
+    const uint32_t base = smem_u32(sm);
+    const uint64_t k_desc = desc(base + L::kK + kRows * kRowBytes * wg, 16);
+    const uint64_t v_desc = desc(base + L::kV + kRows * kRowBytes * wg, 16);
+    const float c1 = scale * kLog2e;
+    float acc_dk[32], acc_dv[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc_dk[e] = acc_dv[e] = 0.f;
+    const bool has_keys = key0 < Tk;
+    mbar_wait(kv_full, 0);
+    for (int t = 0; t < nt; ++t) {
+      const int s = t % kStages;
+      mbar_wait(&full[s], (t / kStages) & 1);
+      const int row0 = (qb0 + t) * kRows;
+      if (has_keys && (!causal || key0 <= row0 + kRows - 1 + shift)) {
+        const uint32_t q_s = base + L::kQ + s * L::kTile;
+        const uint32_t do_s = base + L::kDO + s * L::kTile;
+        float st[kRows / 2], dpt[kRows / 2];
+        wgmma_fence();
+        product_ss<DP, kBlockRows * kRowBytes, kRows * kRowBytes>(
+            st, k_desc, desc(q_s, 16));
+        product_ss<DP, kBlockRows * kRowBytes, kRows * kRowBytes>(
+            dpt, v_desc, desc(do_s, 16));
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(st);
+        hold(dpt);
+        // P^T and dS^T / scale in f32, in place of S^T and dP^T; the
+        // entries' lse2 and delta are their query columns'.  (Unlike the
+        // dQ kernel, this one takes S^T and dP^T as one group: holding
+        // P^T's fragments beside dP^T while the dV product runs costs it
+        // more registers than the overlap gains.)
+        const float* lse_t = lse_s + s * kRows;
+        const float* delta_t = delta_s + s * kRows;
+        auto col_terms = [&](int j, int, int c) {
+          return make_float2(lse_t[8 * j + qcol + c],
+                             delta_t[8 * j + qcol + c]);
+        };
+        auto visible = [&](int j, int i, int c) {
+          const int q = row0 + 8 * j + qcol + c;
+          const int key = key0 + krow + 8 * i;
+          return q < Tq && key < Tk && (!causal || key <= q + shift);
+        };
+        if (row0 + kRows <= Tq && key0 + kRows <= Tk &&
+            (!causal || key0 + kRows - 1 <= row0 + shift))
+          tile_p<true>(st, c1, col_terms, visible);
+        else
+          tile_p<false>(st, c1, col_terms, visible);
+        tile_ds(st, dpt, col_terms);
+        // dV += P^T dO with P^T in bf16; dK += dS^T Q / scale with dS^T
+        // as a bf16 pair (hi + lo): the rows of dS sum to 0, so one bf16
+        // rounding of dS would leave errors of 2^-9 |dS| |Q| against sums
+        // that cancel
+        const uint32_t ob = pn * kRows * kRowBytes;
+        uint32_t pf[16], dsh[16], dsl[16];
+        fragments(st, pf);
+        wgmma_fence();
+        product_rs(acc_dv, pf, desc(do_s + ob, 1024));
+        fragments(dpt, dsh, &dsl);
+        wgmma_fence();
+        product_rs(acc_dk, dsh, desc(q_s + ob, 1024));
+        product_rs(acc_dk, dsl, desc(q_s + ob, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(acc_dk);
+        hold(acc_dv);
+        hold(pf);
+        hold(dsh);
+        hold(dsl);
+      }
+      mbar_arrive(&empty[s]);
+    }
+    if (!has_keys) return;
+    const size_t kbase = static_cast<size_t>(bh) * Tk * D;
+    store_rows(acc_dk, scale, dk + kbase, key0, Tk, 64 * pn, D, warp, lane);
+    store_rows(acc_dv, 1.f, dv + kbase, key0, Tk, 64 * pn, D, warp, lane);
+  }
+}
+
+// The dQ kernel.  Block (bh, qt, pn) owns queries [128*qt, 128*qt + 128)
+// of one (batch, head) and head columns [64*pn, 64*pn + 64) of their dQ;
+// consumer warpgroup wg owns 64 of the queries.  As in the dK/dV kernel,
+// the two panels at DP = 128 are two blocks.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+          const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v,
+          const __grid_constant__ CUtensorMap tm_do,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          __nv_bfloat16* __restrict__ dq, int Tq, int Tk, int D, int causal,
+          float scale) {
+  using L = DqSmem<DP>;
+  constexpr int kPanels = L::kPanels;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* full = qdo_full + 1;       // K, V of a stage landed
+  uint64_t* empty = full + kStages;    // both warpgroups are done with it
+
+  const int bh = blockIdx.x;
+  // the last query tiles walk the most key tiles under causal: they go
+  // first, so the short ones fill the tail of the launch
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;
+  const int pn = blockIdx.z;            // the output's column panel
+  const int shift = Tk - Tq;
+  // causal: key tiles whose first key is past the block's last row's
+  // diagonal are fully masked -- stop the walk before them
+  int nk = (Tk + kRows - 1) / kRows;
+  if (causal) {
+    const int lim = row0 + kBlockRows - 1 + shift;
+    nk = lim < 0 ? 0 : min(nk, lim / kRows + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    if (warp != 0 || lane != 0) return;
+    mbar_expect_tx(qdo_full, 2 * L::kTileBig);
+    for (int c = 0; c < kPanels; ++c) {
+      const int off = c * kBlockRows * kRowBytes;
+      tma_load(sm + L::kQ + off, &tm_q, qdo_full, 64 * c, row0, bh);
+      tma_load(sm + L::kDO + off, &tm_do, qdo_full, 64 * c, row0, bh);
+    }
+    for (int t = 0; t < nk; ++t) {
+      const int s = t % kStages;
+      mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+      mbar_expect_tx(&full[s], 2 * L::kTile);
+      for (int c = 0; c < kPanels; ++c) {
+        const int off = s * L::kTile + c * kRows * kRowBytes;
+        tma_load(sm + L::kK + off, &tm_k, &full[s], 64 * c, t * kRows, bh);
+        tma_load(sm + L::kV + off, &tm_v, &full[s], 64 * c, t * kRows, bh);
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kConsumerRegs));
+    const int q0 = row0 + kRows * wg;       // the warpgroup's first query
+    const int qcol = 2 * (lane % 4);        // its column in 8 (and + 1)
+    const uint32_t base = smem_u32(sm);
+    const uint64_t q_desc = desc(base + L::kQ + kRows * kRowBytes * wg, 16);
+    const uint64_t do_desc = desc(base + L::kDO + kRows * kRowBytes * wg, 16);
+    int rows[2];
+    float lse_r[2], delta_r[2];
+    const size_t rbase = static_cast<size_t>(bh) * Tq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rows[i] = q0 + 16 * warp + lane / 4 + 8 * i;
+      const bool in = rows[i] < Tq;
+      lse_r[i] = lse_base2(in ? lse[rbase + rows[i]] : 0.f, in);
+      delta_r[i] = in ? delta[rbase + rows[i]] : 0.f;
+    }
+    const float c1 = scale * kLog2e;
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    const bool has_rows = q0 < Tq;
+    mbar_wait(qdo_full, 0);
+    for (int t = 0; t < nk; ++t) {
+      const int s = t % kStages;
+      mbar_wait(&full[s], (t / kStages) & 1);
+      const int col0 = t * kRows;
+      if (has_rows && (!causal || col0 <= q0 + kRows - 1 + shift)) {
+        const uint32_t k_s = base + L::kK + s * L::kTile;
+        const uint32_t v_s = base + L::kV + s * L::kTile;
+        float st[32], dpt[32];
+        // S and dP as two groups: P's exponentials run while the tensor
+        // cores compute dP
+        wgmma_fence();
+        product_ss<DP, kBlockRows * kRowBytes, kRows * kRowBytes>(
+            st, q_desc, desc(k_s, 16));
+        wgmma_commit();
+        product_ss<DP, kBlockRows * kRowBytes, kRows * kRowBytes>(
+            dpt, do_desc, desc(v_s, 16));
+        wgmma_commit();
+        // P and dS / scale in f32, in place of S and dP; the entries'
+        // lse2 and delta are their query rows'
+        auto row_terms = [&](int, int i, int) {
+          return make_float2(lse_r[i], delta_r[i]);
+        };
+        auto visible = [&](int j, int i, int c) {
+          const int key = col0 + 8 * j + qcol + c;
+          return rows[i] < Tq && key < Tk &&
+                 (!causal || key <= rows[i] + shift);
+        };
+        wgmma_wait<1>();
+        hold(st);
+        if (q0 + kRows <= Tq && col0 + kRows <= Tk &&
+            (!causal || col0 + kRows - 1 <= q0 + shift))
+          tile_p<true>(st, c1, row_terms, visible);
+        else
+          tile_p<false>(st, c1, row_terms, visible);
+        wgmma_wait<0>();
+        hold(dpt);
+        tile_ds(st, dpt, row_terms);
+        // dQ += dS K / scale with dS as a bf16 pair (hi + lo): the rows
+        // of dS sum to 0, so dQ cancels the keys' common part, which one
+        // bf16 rounding of dS would leave in it at 2^-9
+        uint32_t dsh[16], dsl[16];
+        fragments(dpt, dsh, &dsl);
+        wgmma_fence();
+        const uint64_t k_panel = desc(k_s + pn * kRows * kRowBytes, 1024);
+        product_rs(acc, dsh, k_panel);
+        product_rs(acc, dsl, k_panel);
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(acc);
+        hold(dsh);
+        hold(dsl);
+      }
+      mbar_arrive(&empty[s]);
+    }
+    if (!has_rows) return;
+    store_rows(acc, scale, dq + static_cast<size_t>(bh) * Tq * D, q0, Tq,
+               64 * pn, D, warp, lane);
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime, so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (BH, T, D) bf16 tensor as boxes of 64 head columns x ``box_rows`` rows
+// of one (batch, head), 128-byte swizzled; reads past T or D give zeros.
+int tensor_map(CUtensorMap* map, const void* ptr, int BH, int T, int D,
+               int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(T) * D * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DP>
+int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
+                const void* lse, const void* delta, void* dk, void* dv,
+                int BH, int Tq, int Tk, int D, int causal, float scale,
+                cudaStream_t stream) {
+  const size_t out_bytes = static_cast<size_t>(BH) * Tk * D * 2;
+  if (Tq == 0) {  // no query: both gradients are 0
+    cudaError_t err = cudaMemsetAsync(dk, 0, out_bytes, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, out_bytes, stream);
+    return static_cast<int>(err);
+  }
+  CUtensorMap mq, mk, mv, mdo;
+  int err = tensor_map(&mq, q, BH, Tq, D, kRows);
+  if (!err) err = tensor_map(&mk, k, BH, Tk, D, kBlockRows);
+  if (!err) err = tensor_map(&mv, v, BH, Tk, D, kBlockRows);
+  if (!err) err = tensor_map(&mdo, dout, BH, Tq, D, kRows);
+  if (err) return err;
+  const int smem = DkdvSmem<DP>::kBytes + 1024;
+  const cudaError_t e = cudaFuncSetAttribute(
+      dkdv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(BH, (Tk + kBlockRows - 1) / kBlockRows, DP / 64);
+  dkdv_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), Tq, Tk, D, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int BH, int Tq,
+              int Tk, int D, int causal, float scale, cudaStream_t stream) {
+  if (Tk == 0)  // no key: dq is 0
+    return static_cast<int>(cudaMemsetAsync(
+        dq, 0, static_cast<size_t>(BH) * Tq * D * 2, stream));
+  CUtensorMap mq, mk, mv, mdo;
+  int err = tensor_map(&mq, q, BH, Tq, D, kBlockRows);
+  if (!err) err = tensor_map(&mk, k, BH, Tk, D, kRows);
+  if (!err) err = tensor_map(&mv, v, BH, Tk, D, kRows);
+  if (!err) err = tensor_map(&mdo, dout, BH, Tq, D, kBlockRows);
+  if (err) return err;
+  const int smem = DqSmem<DP>::kBytes + 1024;
+  const cudaError_t e = cudaFuncSetAttribute(
+      dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(BH, (Tq + kBlockRows - 1) / kBlockRows, DP / 64);
+  dq_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), Tq,
+      Tk, D, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers (at launch), local memory, dynamic shared memory and resident
+// blocks an SM of one bf16 kernel: dq selects the dQ kernel.
+template <int DP>
+int kernel_info(int dq, int* regs, int* local_bytes, int* smem,
+                int* blocks_per_sm) {
+  const void* fn = dq ? reinterpret_cast<const void*>(dq_kernel<DP>)
+                      : reinterpret_cast<const void*>(dkdv_kernel<DP>);
+  *smem = (dq ? DqSmem<DP>::kBytes : DkdvSmem<DP>::kBytes) + 1024;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           *smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                      kThreads, *smem);
+  return static_cast<int>(e);
+}
+
+}  // namespace tc
 }  // namespace
+
+// What the bf16 kernel (dq = 0: dK/dV, 1: dQ) instantiated for head dim D
+// uses: registers a thread at launch, local (spill) bytes, dynamic shared
+// memory bytes, and how many of its blocks an SM holds.
+extern "C" int mx_flash_attention_bwd_info(int dq, int D, int* regs,
+                                           int* local_bytes, int* smem,
+                                           int* blocks_per_sm) {
+  if (D > kMaxD || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return D <= 64 ? tc::kernel_info<64>(dq, regs, local_bytes, smem,
+                                       blocks_per_sm)
+                 : tc::kernel_info<128>(dq, regs, local_bytes, smem,
+                                        blocks_per_sm);
+}
 
 // dtype: 0 = float32, 1 = bfloat16.  q, dout (BH, Tq, D) and k, v, dk, dv
 // (BH, Tk, D) in that dtype; lse, delta (BH, Tq) float32; all contiguous on
-// one device.  D <= 128 and a multiple of 8; BH, Tk >= 1 (the wrapper
-// checks).  Returns cudaGetLastError() after the launch.
+// one device, bfloat16 ones 16-byte aligned.  D <= 128 and a multiple of 8;
+// BH, Tk >= 1 (the wrapper checks).  Returns cudaGetLastError() after the
+// launch.
 extern "C" int mx_flash_attention_dkdv(int dtype, const void* q,
                                        const void* k, const void* v,
                                        const void* dout, const void* lse,
@@ -433,8 +1278,10 @@ extern "C" int mx_flash_attention_dkdv(int dtype, const void* q,
     return launch_dkdv<float>(q, k, v, dout, lse, delta, dk, dv, BH, Tq, Tk,
                               D, causal, scale, s);
   if (dtype == 1)
-    return launch_dkdv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, BH,
-                                      Tq, Tk, D, causal, scale, s);
+    return D <= 64 ? tc::launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv,
+                                         BH, Tq, Tk, D, causal, scale, s)
+                   : tc::launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv,
+                                          BH, Tq, Tk, D, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -450,7 +1297,9 @@ extern "C" int mx_flash_attention_dq(int dtype, const void* q, const void* k,
     return launch_dq<float>(q, k, v, dout, lse, delta, dq, BH, Tq, Tk, D,
                             causal, scale, s);
   if (dtype == 1)
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, BH, Tq, Tk,
-                                    D, causal, scale, s);
+    return D <= 64 ? tc::launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, Tq,
+                                       Tk, D, causal, scale, s)
+                   : tc::launch_dq<128>(q, k, v, dout, lse, delta, dq, BH,
+                                        Tq, Tk, D, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

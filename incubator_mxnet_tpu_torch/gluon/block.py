@@ -57,9 +57,14 @@ class Block(nn.Module):
         """Cast every parameter (and its gradient) and buffer
         (``"bfloat16"`` or a torch dtype), as Gluon's ``Block.cast``; the
         parameters stay the same objects, so a `Trainer` built before
-        keeps them."""
-        return self.to(dtype=getattr(torch, dtype)
-                       if isinstance(dtype, str) else dtype)
+        keeps them.  Each parameter's ``_casts`` counts the casts, so a
+        cache keyed on it (the int8 decode copies) sees a round trip
+        whose new storage reuses the old address."""
+        self.to(dtype=getattr(torch, dtype)
+                if isinstance(dtype, str) else dtype)
+        for p in self.parameters():
+            p._casts = getattr(p, "_casts", 0) + 1
+        return self
 
     def hybridize(self, active: bool = True, **kwargs) -> "Block":
         """Accepted for API parity and does nothing: the port runs

@@ -57,6 +57,19 @@ class Parameter(nn.Parameter):
         p.requires_grad_(grad_req != "null")
         return p
 
+    def set_data(self, data) -> None:
+        """Write ``data`` (a tensor or array of this shape) into the
+        parameter in place, in its dtype and on its device, as Gluon's
+        ``Parameter.set_data``: the same object and storage, one more
+        in-place version (what the int8 decode copies are keyed on)."""
+        src = torch.as_tensor(data)
+        if tuple(src.shape) != tuple(self.shape):
+            raise MXNetError(f"set_data: shape {tuple(src.shape)} does not "
+                             f"match the parameter's {tuple(self.shape)}")
+        with torch.no_grad():
+            self.copy_(src.to(device=self.device, dtype=self.dtype))
+        self._initialized = True
+
     @property
     def grad_req(self) -> str:
         return self._req if self.requires_grad else "null"

@@ -77,8 +77,10 @@ class TransformerLM(HybridBlock):
     ``device="cpu"``); weights are drawn from ``seed`` on the CPU, so a
     seed gives the same model on every device: normal(0, 0.02) matrices
     and embeddings, zero biases, unit LayerNorm gains.  Its parameters
-    are built with ``grad_req="null"``: training it needs the flash
-    backward, which is not ported yet.
+    are trainable (``grad_req="write"``), as the JAX package's: the
+    causal attention's backward is the flash backward kernels on the
+    card.  Decoding (`generate`, `score`, the serving engine) runs under
+    ``torch.no_grad()`` and records no graph.
     """
 
     def __init__(self, vocab=32000, units=512, hidden_size=2048,
@@ -102,8 +104,6 @@ class TransformerLM(HybridBlock):
         self._init_weights(seed)
         # the int8 weight state of `quantize_for_decode` (None: float)
         self._decode_quant = None
-        # serving only until the flash backward is ported
-        self.collect_params().setattr("grad_req", "null")
         self.eval()
 
     @property

@@ -19,10 +19,12 @@ versions of each half:
   `_fa_kernel_resident` and `_fa_kernel_streamed` (launched by
   `_flash_core`); ``csrc/flash_attention_bwd.cu`` replaces
   `_fa_dkdv_kernel` and `_fa_dq_kernel` (launched by
-  `_flash_bwd_core`).  Each kernel's block owns one 64-row tile and
-  walks the other operand's tiles through shared memory with f32
-  products, skipping tiles past the causal diagonal; the sources say
-  what bounds them on the H100.
+  `_flash_bwd_core`).  Each kernel's block owns its output tile and
+  walks the other operand's tiles, skipping tiles past the causal
+  diagonal: the forward and the f32 backward with f32 products on the
+  CUDA cores, the bf16 backward with `wgmma` products on tiles that TMA
+  streams into shared memory.  The sources say what bounds them on the
+  H100.
 
 `flash_attention` / `flash_attention_with_lse` run the kernels on CUDA
 tensors (or raise) and the plain versions on CPU tensors.  When an
@@ -240,10 +242,17 @@ def _check_rows(q, lse, delta):
                              f"contiguous f32 {want} tensor on {q.device}")
 
 
+def _aligned(t):
+    """``t``, or a copy of it if its data is not 16-byte aligned (the
+    bf16 kernels load their tiles with TMA, which needs that)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _bwd_launch(entry, q, k, v, do, lse, delta, outs, causal, scale):
     """Launch ``entry`` of csrc/flash_attention_bwd.cu into ``outs``."""
     _check(q, k, v, do)
     _check_rows(q, lse, delta)
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     import ctypes
 
     fn = getattr(_build.load("flash_attention_bwd"), entry)

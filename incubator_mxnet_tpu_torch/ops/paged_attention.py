@@ -46,12 +46,26 @@ from .. import _build
 from ..base import MXNetError
 
 __all__ = ["paged_attention", "paged_attention_dense",
-           "paged_attention_q8"]
+           "paged_attention_q8", "kernel_shape_problem"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_BLOCK = 64
 _IMPLS = (None, "kernel", "dense")
+
+
+def kernel_shape_problem(head_dim: int, block_size: int) -> Optional[str]:
+    """Why the CUDA kernels refuse pages of this head dim and block
+    size, or None when they take them (head dims in `_HEAD_DIMS`, block
+    sizes a power of two <= `_MAX_BLOCK`).  The plain version takes
+    any."""
+    if head_dim not in _HEAD_DIMS:
+        return f"head dim {head_dim} not in {_HEAD_DIMS}"
+    if block_size < 1 or block_size > _MAX_BLOCK \
+            or block_size & (block_size - 1):
+        return (f"block size {block_size} must be a power of two <= "
+                f"{_MAX_BLOCK}")
+    return None
 
 
 def _dequant(pages, scales):
@@ -99,11 +113,9 @@ def _check(q, pool_k, pool_v, tables, pos, scale_k=None, scale_v=None):
             f"paged_attention: shapes disagree: q {tuple(q.shape)}, pools "
             f"{tuple(pool_k.shape)}/{tuple(pool_v.shape)}, tables "
             f"{tuple(tables.shape)}, pos {tuple(pos.shape)}")
-    if D not in _HEAD_DIMS:
-        raise MXNetError(f"paged_attention: head dim {D} not in {_HEAD_DIMS}")
-    if bs > _MAX_BLOCK or bs & (bs - 1):
-        raise MXNetError(f"paged_attention: block size {bs} must be a "
-                         f"power of two <= {_MAX_BLOCK}")
+    problem = kernel_shape_problem(D, bs)
+    if problem is not None:
+        raise MXNetError(f"paged_attention: {problem}")
     page_dtype = torch.int8 if quant else q.dtype
     if q.dtype not in _DTYPES or pool_k.dtype != page_dtype \
             or pool_v.dtype != page_dtype:

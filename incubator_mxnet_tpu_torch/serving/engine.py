@@ -58,6 +58,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.paged_attention import kernel_shape_problem
 from .kv_pool import SCRATCH_BLOCK, BlockPool
 from .programs import PagedPrograms
 
@@ -250,6 +251,21 @@ class _PrefillJob:
         self.t_work = 0.0                   # seconds spent so far
 
 
+def _check_kernel_shapes(net, block_size: int) -> None:
+    """Raise ValueError when ``net`` lives on CUDA and the paged-attention
+    kernel refuses its head dim or ``block_size``: an engine that would
+    fail at its first scheduler step is refused when it is built.  The
+    CPU path (the plain version) serves any shape."""
+    if net.embed.weight.device.type != "cuda":
+        return
+    head_dim = net._units // net._layers[0].attn._num_heads
+    problem = kernel_shape_problem(head_dim, block_size)
+    if problem is not None:
+        raise ValueError(f"ServingEngine on CUDA: the paged-attention "
+                         f"kernel refuses this net and block size: "
+                         f"{problem}")
+
+
 class ServingEngine:
     """Continuous-batching decode over a `models.TransformerLM`, on the
     net's device.
@@ -257,7 +273,10 @@ class ServingEngine:
     Parameters (all static — changing them means a new engine):
 
     max_batch       decode lanes run per step (batch width).
-    block_size      KV block width in positions (power of two <= 64).
+    block_size      KV block width in positions (a power of two; on
+                    CUDA also <= 64, and the net's head dim one of
+                    16, 32, 64, 128: the paged-attention kernel's
+                    shapes, checked here).
     max_seq_len     cap on prompt+generated per request; defaults to
                     ``net._max_len`` rounded down to a block multiple.
     num_blocks      pool size; default fits ``max_batch`` full-length
@@ -301,6 +320,7 @@ class ServingEngine:
         if block_size < 1 or (block_size & (block_size - 1)):
             raise ValueError(
                 f"block_size must be a power of two, got {block_size}")
+        _check_kernel_shapes(net, block_size)
         msl = int(max_seq_len if max_seq_len is not None else net._max_len)
         msl = (msl // block_size) * block_size
         if msl < block_size:

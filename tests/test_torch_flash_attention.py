@@ -300,3 +300,50 @@ def test_noncontiguous_cotangent():
     g = torch.from_numpy(do).transpose(1, 2).contiguous()
     grads = torch.autograd.grad(out, (tq_, tk_, tv_), g)
     _close(grads, _torch_grads(q, k, v, do, False), rtol=0, atol=1e-7)
+
+
+def test_bwd_launch_hands_the_kernels_16_byte_aligned_tiles(monkeypatch):
+    """The bf16 backward kernels load their tiles with TMA, which needs
+    16-byte aligned data: the wrapper hands them an aligned copy of a
+    misaligned input (a view at an odd offset) and the input itself
+    otherwise."""
+    from incubator_mxnet_tpu_torch import _build
+
+    seen = {}
+
+    class Lib:
+        def __getattr__(self, name):
+            def launch(dtype, q, k, v, do, lse, delta, *rest):
+                seen.update(q=q, k=k, v=v, do=do)
+                return 0
+            return launch
+
+    monkeypatch.setattr(_build, "load", lambda name: Lib())
+    monkeypatch.setattr(_build, "stream", lambda device: 0)
+    g = torch.Generator().manual_seed(0)
+    B, H, T, D = 1, 2, 8, 16
+    flat = torch.randn(B * H * T * D + 1, generator=g).to(torch.bfloat16)
+    q = flat[1:].view(B, H, T, D)              # 2-byte offset: misaligned
+    k, v, do = (torch.randn((B, H, T, D), generator=g).to(torch.bfloat16)
+                for _ in range(3))
+    lse = torch.zeros((B, H, T))
+    delta = torch.zeros((B, H, T))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    tfa._dq_cuda(q, k, v, do, lse, delta, False, 0.25)
+    assert seen["q"] % 16 == 0 and seen["q"] != q.data_ptr()
+    assert seen["k"] == k.data_ptr() and seen["do"] == do.data_ptr()
+
+
+def test_bwd_source_keeps_the_no_atomics_contract():
+    """Each block of the backward kernels owns its output tile: the CUDA
+    source issues no atomic or reduction to memory (CUDA atomics, PTX
+    ``red``/``atom``, bulk reduce copies)."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(tfa.__file__), os.pardir,
+                            "csrc", "flash_attention_bwd.cu")).read()
+    code = re.sub(r"//[^\n]*", "", src)          # comments may name them
+    for pattern in (r"\batomic\w*\s*\(", r"\bred\.", r"\batom\.",
+                    r"cp\.reduce"):
+        assert not re.search(pattern, code), pattern

@@ -163,9 +163,11 @@ def test_int_product_is_exact():
     assert int(want[0, 0]) == 127 * 127 * 1024
 
 
+@torch.no_grad()
 def _quantized_gaps(tnet, seq, P):
     """Top-2 logit gap at every generated position, teacher-forced
-    through the quantized decode numerics (`lm_score`'s pass)."""
+    through the quantized decode numerics (`lm_score`'s pass, which
+    runs under no_grad like every decode entry point)."""
     toks = torch.from_numpy(onp.array(seq)).long()
     params = TG._gather_params(tnet, TG._quant_config(tnet, True))
     H = CFG["num_heads"]
@@ -346,3 +348,99 @@ def test_cast_requantizes_lazily():
             assert torch.equal(net._decode_quant.packed(d)["w8"],
                                twin._decode_quant.packed(td)["w8"])
     assert torch.equal(out, twin.generate(prompt, 4))
+
+
+# every weight write the port's surface offers reaches the int8 copies:
+# after it, `generate` equals a net given the same write before its
+# `quantize_for_decode`, and the copies changed
+def _set_data(net):
+    w = net._layers[0].attn.qkv.weight
+    rs = onp.random.RandomState(21)
+    w.set_data(rs.standard_normal(tuple(w.shape)).astype(onp.float32) * 0.3)
+
+
+def _force_reinit(net):
+    from incubator_mxnet_tpu_torch import random as mx_random
+
+    mx_random.seed(22, device="cpu")
+    net.initialize(force_reinit=True)
+
+
+_OTHER = {}
+
+
+def _load_other(net):
+    if "arrays" not in _OTHER:
+        jnet, _ = _pair(1)
+        _OTHER["arrays"] = {k: p.data().asnumpy() for k, p in
+                            jnet._collect_params_with_prefix().items()}
+    load_jax_params(net, _OTHER["arrays"])
+
+
+def _trainer_step(net):
+    from incubator_mxnet_tpu_torch import autograd
+    from incubator_mxnet_tpu_torch.gluon import Trainer
+
+    toks = torch.from_numpy(_tokens(23, (2, 6)).astype(onp.int64))
+    trainer = Trainer(net.collect_params(), "sgd", {"learning_rate": 5.0})
+    with autograd.record():
+        logits = net(toks)
+        loss = torch.nn.functional.cross_entropy(
+            logits[:, :-1].reshape(-1, CFG["vocab"]), toks[:, 1:].reshape(-1))
+    loss.backward()
+    trainer.step(1)
+
+
+def _cast_round_trip(net):
+    net.cast("bfloat16")
+    net.cast("float32")
+
+
+@pytest.mark.parametrize("update", [_set_data, _force_reinit, _load_other,
+                                    _trainer_step, _cast_round_trip],
+                         ids=["set_data", "initialize_force_reinit",
+                              "load_jax_params", "trainer_step",
+                              "cast_round_trip"])
+def test_every_weight_write_requantizes(update):
+    _, net = _pair(0)
+    prompt = _tokens(24, (2, 5))
+    net.quantize_for_decode(act_quant="none")
+    targets = tq._decode_target_denses(net, False)
+    before = [net._decode_quant.packed(d)["w8"].clone() for d in targets]
+    net.generate(prompt, 4)
+    update(net)
+    out = net.generate(prompt, 4)
+    twin = _twin_after(update)
+    moved = 0
+    for d, td, old in zip(targets, tq._decode_target_denses(twin, False),
+                          before):
+        got, want = net._decode_quant.packed(d), twin._decode_quant.packed(td)
+        assert torch.equal(got["w8"], want["w8"])
+        assert torch.equal(got["s"], want["s"])
+        moved += not torch.equal(got["w8"], old)
+    assert moved > 0, "the write changed no int8 weight"
+    assert torch.equal(out, twin.generate(prompt, 4))
+
+
+def test_write_through_data_serves_after_requantizing():
+    """A write through ``param.data`` bumps neither the version counter
+    nor the storage: the cheap key cannot see it (the documented limit
+    of `quantize_for_decode`), and calling `quantize_for_decode` again
+    serves the new weights."""
+    def write(n):
+        for lyr in n._layers:
+            w = lyr.ffn.ffn_dense1.weight
+            w.data.copy_(w.data * -2.0)
+
+    _, net = _pair(0)
+    prompt = _tokens(25, (2, 5))
+    net.quantize_for_decode(act_quant="none")
+    net.generate(prompt, 4)
+    write(net)
+    net.quantize_for_decode(act_quant="none")
+    twin = _twin_after(write)
+    dense = net._layers[1].ffn.ffn_dense1
+    assert torch.equal(net._decode_quant.packed(dense)["w8"],
+                       twin._decode_quant.packed(
+                           twin._layers[1].ffn.ffn_dense1)["w8"])
+    assert torch.equal(net.generate(prompt, 4), twin.generate(prompt, 4))

@@ -614,3 +614,69 @@ def test_quantized_engine_follows_the_pass():
         assert eng.path == "int8" and eng.kv_dtype == "int8"
         got = eng.submit(P1, 8).result(timeout=60)
     assert sum(a == b for a, b in zip(got, want)) / len(want) >= 0.95
+
+
+# --------------------------------------------------------------------- #
+# CUDA engines refuse, at construction, shapes the paged kernel refuses
+# --------------------------------------------------------------------- #
+def _net_on(device, units, heads):
+    """The attributes the engine's shape check reads, on ``device`` (a
+    CPU-only build of torch cannot build a CUDA net)."""
+    from types import SimpleNamespace as NS
+    return NS(embed=NS(weight=NS(device=torch.device(device))),
+              _units=units, _max_len=MAXLEN,
+              _layers=[NS(attn=NS(_num_heads=heads))])
+
+
+@pytest.mark.parametrize("block_size, units, heads", [
+    (128, 128, 2),          # block 128 > the kernel's 64, D = 64
+    (16, 160, 2),           # D = 80
+    (16, 192, 2),           # D = 96
+    (8, 16, 2),             # D = 8
+])
+def test_cuda_engine_refuses_paged_kernel_shapes_at_construction(
+        block_size, units, heads):
+    with pytest.raises(ValueError, match="paged-attention kernel"):
+        ServingEngine(_net_on("cuda", units, heads), max_batch=1,
+                      block_size=block_size)
+
+
+def test_engine_shape_check_reads_the_kernel_sets(monkeypatch):
+    """Every head dim and block size the kernel takes passes on CUDA;
+    the CPU (the plain version) takes any; and the sets are the paged
+    attention module's own, not a copy."""
+    import importlib
+
+    from incubator_mxnet_tpu_torch.serving import engine as eng_mod
+    pa = importlib.import_module("incubator_mxnet_tpu_torch.ops."
+                                 "paged_attention")
+
+    for D in pa._HEAD_DIMS:
+        bs = 1
+        while bs <= pa._MAX_BLOCK:
+            eng_mod._check_kernel_shapes(_net_on("cuda", 2 * D, 2), bs)
+            bs *= 2
+    eng_mod._check_kernel_shapes(_net_on("cpu", 160, 2), 128)
+    with pytest.raises(ValueError):
+        eng_mod._check_kernel_shapes(_net_on("cuda", 128, 2), 128)
+    monkeypatch.setattr(pa, "_MAX_BLOCK", 128)
+    monkeypatch.setattr(pa, "_HEAD_DIMS", pa._HEAD_DIMS + (80,))
+    eng_mod._check_kernel_shapes(_net_on("cuda", 128, 2), 128)
+    eng_mod._check_kernel_shapes(_net_on("cuda", 160, 2), 16)
+
+
+def test_engine_and_generate_record_no_graph(net):
+    """The net's parameters are trainable, yet decoding records no
+    autograd graph: `generate` and the engine run under no_grad."""
+    assert all(p.requires_grad for p in net.parameters())
+    out = net.generate(P1[None, :], 3)
+    assert out.grad_fn is None and not out.requires_grad
+    eng = ServingEngine(net, max_batch=1, block_size=8, poll_interval=_POLL)
+    try:
+        toks = eng.submit(P1, max_new_tokens=3).result(timeout=60)
+        pools = eng._programs.pool_k + eng._programs.pool_v
+        assert pools and all(t.grad_fn is None and not t.requires_grad
+                             for t in pools)
+    finally:
+        eng.close()
+    assert toks == out[0, len(P1):].tolist()
