@@ -9,16 +9,20 @@ Phases (any failure ends the run with a non-zero exit code):
 2. build   — compile every CUDA source of the port with nvcc, all at
    once, into incubator_mxnet_tpu_torch/_build/, and print ptxas's
    registers and spills per kernel and, for the bf16 flash backward
-   kernels, registers at launch, spill bytes, dynamic shared memory
-   and resident blocks an SM;
+   and forward kernels and the paged kernel, registers at launch, spill
+   bytes, shared memory and resident blocks an SM;
 3. kernels — hold each kernel against its plain PyTorch version on the
    card (f32 atol 2e-5, bf16 atol 2e-2), plus the paged kernel's
    masked-slot and lane bit-exactness (for the int8-page kernel on
    `quantize_kv` pools: masked slots filled with random int8 values and
    NaN / 1e30 scales give the bits of zeros there, one lane's pages
-   changed leave every other lane's bits, two launches agree) and the
-   flash kernel's
-   logsumexp and fully-masked rows; then the flash backward kernels
+   changed leave every other lane's bits, two launches agree), also at
+   shapes of the kernel's split of a lane's pages over 8 warps (a lane
+   at pos 2047 with bs 16, lanes at pos -1 -- exactly 0 -- 0, bs - 1
+   and bs, fewer pages than warps, bs 1 and 64), and the flash
+   kernel's logsumexp (within 1e-4) and fully-masked rows, two launches
+   bit-identical, a zeroed output and an lse shifted by 1e-3 shown to
+   fail those bounds; then the flash backward kernels
    (dK/dV, dQ) against ``flash_bwd_plain`` over the same shapes, f32
    and bf16, directly and through the ``(out, lse)`` autograd Function
    with both cotangents: each gradient within rtol·|ref| +
@@ -73,7 +77,8 @@ Phases (any failure ends the run with a non-zero exit code):
    T=512 (the same 4,096 tokens a step): attention takes the flash
    kernels, and each step launches the flash forward, the dK/dV and
    the dQ kernel 24 times each, the dropout kernel 49 times and each
-   cross-entropy kernel once;
+   cross-entropy kernel once; the profiled step prints the flash
+   forward's and backward's shares of the card time;
 12. T=512 parity — phase 9 at B=2, T=512, where the plain versions also
    stand in for the flash forward and backward;
 13. T=512 timing — the flash forward, dK/dV and dQ kernels at the
@@ -82,10 +87,11 @@ Phases (any failure ends the run with a non-zero exit code):
    alone, never a route of the port) and the bound (for the backward,
    8 (dK/dV) or 6 (dQ) x B·H·D flops per live (query, key) pair over
    989 TFLOP/s, against the bytes read and written over 3.35 TB/s);
-   then both backward kernels at the long-context causal shape
-   (1, 16, 2048, 64) bf16, held to the plain version and timed beside
-   SDPA ``is_causal=True``'s backward and the causal bound (live pairs
-   only); then the causal caller through the model: a trainable 2-layer
+   then the forward and both backward kernels at the long-context
+   causal shape (1, 16, 2048, 64) bf16, held to the plain versions and
+   timed beside SDPA ``is_causal=True``'s forward or backward and the
+   causal bound (live pairs only); then the causal caller through the
+   model: a trainable 2-layer
    TransformerLM at generate_bench width (units 1024, 16 heads) in bf16,
    one (1, 2048) sequence, ``loss.backward()`` through the kernels (2
    launches of each flash kernel), each layer's backward call held to
@@ -305,20 +311,35 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
 
 
 # ---------------------------------------------------------------- phase 3
-def paged_inputs(dtype, B=8, H=16, D=64, bs=16, nbps=32, seed=0):
+def paged_inputs(dtype, B=8, H=16, D=64, bs=16, nbps=32, seed=0,
+                 pos=None):
     """Random pool, permuted tables, ragged positions (0, a full lane,
-    the rest random), all on the card."""
+    the rest random; or the lanes' ``pos`` as given), all on the card."""
     g = torch.Generator().manual_seed(seed)
+    if pos is not None:
+        B = len(pos)
     nblocks = B * nbps + 1
     pool_k = torch.randn((nblocks, H, bs, D), generator=g)
     pool_v = torch.randn((nblocks, H, bs, D), generator=g)
     q = torch.randn((B, H, D), generator=g)
     tables = (torch.randperm(B * nbps, generator=g) + 1).reshape(B, nbps)
-    pos = torch.randint(0, nbps * bs, (B,), generator=g)
-    pos[0] = 0
-    pos[1] = nbps * bs - 1
+    if pos is None:
+        pos = torch.randint(0, nbps * bs, (B,), generator=g)
+        pos[0] = 0
+        pos[1] = nbps * bs - 1
+    else:
+        pos = torch.tensor(pos)
     return (q.to(DEV, dtype), pool_k.to(DEV, dtype), pool_v.to(DEV, dtype),
             tables.to(DEV, torch.int32), pos.to(DEV, torch.int32))
+
+
+def _lane_err(out, ref, pos, tag) -> float:
+    """Max error over the lanes with a position; a lane at pos < 0 sees
+    no slot and must give exactly 0 (the plain version, whose mask is
+    finfo.min rather than -inf, averages every slot there)."""
+    live = pos >= 0
+    assert torch.all(out[~live] == 0), f"{tag}: a lane at pos < 0 is not 0"
+    return (out.float() - ref.float())[live].abs().max().item()
 
 
 def check_paged(dtype, **shape) -> float:
@@ -327,7 +348,7 @@ def check_paged(dtype, **shape) -> float:
     ref = paged_attention_dense(q, pk, pv, tables, pos)
     torch.cuda.synchronize()
     assert out.dtype == q.dtype and out.shape == q.shape
-    err = (out.float() - ref.float()).abs().max().item()
+    err = _lane_err(out, ref, pos, f"paged {dtype} {shape}")
     assert err <= TOL[dtype], f"paged {dtype} {shape}: max err {err}"
     # masked-slot exactness: finite garbage in every slot past pos
     bs = pk.shape[2]
@@ -369,7 +390,7 @@ def check_paged_q8(dtype, **shape) -> float:
     torch.cuda.synchronize()
     tag = f"paged q8 {dtype} {shape}"
     assert out.dtype == q.dtype and out.shape == q.shape, tag
-    err = (out.float() - ref.float()).abs().max().item()
+    err = _lane_err(out, ref, pos, tag)
     assert err <= TOL[dtype], f"{tag}: max err {err}"
     again = paged_attention_q8(q, pk8, pv8, sk, sv, tables, pos)
     assert torch.equal(out, again), f"{tag}: two launches differ"
@@ -442,12 +463,30 @@ def check_flash(dtype, qshape, tk, causal) -> float:
         assert torch.all(out[dead] == 0), f"{tag}: masked rows not 0"
     lse_err = (lse[~dead] - ref_lse[~dead]).abs().max().item()
     assert lse_err <= 1e-4, f"{tag}: lse err {lse_err}"
+    again = flash_attention_with_lse(q, k, v, causal, scale)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse), \
+        f"{tag}: two launches differ"
+    # the bounds can tell a wrong kernel: a zeroed output and an lse
+    # shifted by ten times its bound fail them on the same inputs
+    zeroed = (torch.zeros_like(out).float() - ref.float()).abs().max().item()
+    assert zeroed > TOL[dtype], f"{tag}: a zeroed output would pass the bound"
+    shifted = (lse[~dead] + 1e-3 - ref_lse[~dead]).abs().max().item()
+    assert shifted > 1e-4, f"{tag}: a shifted lse would pass the bound"
     return err
 
 
 PAGED_SHAPES = ([dict()]
                 + [dict(B=3, H=2, D=D, bs=8, nbps=4) for D in (16, 32, 128)]
-                + [dict(B=3, H=2, D=64, bs=bs, nbps=5) for bs in (1, 2, 64)])
+                + [dict(B=3, H=2, D=64, bs=bs, nbps=5) for bs in (1, 2, 64)]
+                # the kernel's split of a lane's pages over 8 warps: a lane
+                # at pos 2047 with bs 16 (128 pages, 16 a warp) beside short
+                # ones; lanes at pos -1, 0, bs - 1 and bs; a lane with fewer
+                # pages than warps; bs 1 and 64
+                + [dict(H=4, D=64, bs=16, nbps=128, pos=[2047, 5, 700]),
+                   dict(H=4, D=64, bs=16, nbps=4, pos=[-1, 0, 15, 16]),
+                   dict(H=4, D=128, bs=16, nbps=8, pos=[47, 100]),
+                   dict(H=4, D=32, bs=1, nbps=40, pos=[-1, 0, 3, 39]),
+                   dict(H=4, D=64, bs=64, nbps=4, pos=[0, 63, 64, 255])])
 
 
 def phase_kernels() -> dict:
@@ -717,9 +756,16 @@ def phase_main_path(smi: str) -> dict:
         f"the profiler [{smi}]: {solo_s:.3f} s wall, card busy "
         f"{busy['busy_s']:.4f} s = {busy['busy_share']:.3f} of the wall "
         f"(idle {1 - busy['busy_share']:.3f}), {busy['kernels']} kernels; "
+        f"paged kernel {_paged_ms(busy):.3f} ms; "
         f"device ms by kernel: " + "; ".join(
             f"{n} {ms:.3f}" for n, ms in busy["top"]))
     return res
+
+
+def _paged_ms(busy) -> float:
+    """Device ms of the paged kernel (both page types) in a profile."""
+    return sum(ms for n, ms in busy["by_name"].items()
+               if "paged_attention_kernel" in n)
 
 
 def device_busy(prof, wall_s: float) -> dict:
@@ -1042,6 +1088,7 @@ def phase_quant_path(smi: str, res) -> dict:
         f"under the profiler [{smi}]: {solo_s:.3f} s wall, card busy "
         f"{busy['busy_s']:.4f} s = {busy['busy_share']:.3f} of the wall "
         f"(idle {1 - busy['busy_share']:.3f}), {busy['kernels']} kernels; "
+        f"paged kernel {_paged_ms(busy):.3f} ms; "
         f"device ms by kernel: " + "; ".join(
             f"{n} {ms:.3f}" for n, ms in busy["top"]))
     net.dequantize_decode()
@@ -1455,11 +1502,15 @@ def phase_training(smi: str, B: int, T: int) -> dict:
     # instantiations: names carry the kernel's function name)
     bwd_ms = sum(ms for n, ms in busy["by_name"].items()
                  if "dkdv_kernel" in n or "dq_kernel" in n)
+    fwd_ms = sum(ms for n, ms in busy["by_name"].items()
+                 if "tc::fwd_kernel" in n or "flash_fwd_kernel" in n)
+    card_ms = busy["busy_s"] * 1e3
     log(f"one profiled training step [{smi}]: {prof_s * 1e3:.1f} ms wall, "
-        f"card busy {busy['busy_s'] * 1e3:.1f} ms = {busy['busy_share']:.3f} "
+        f"card busy {card_ms:.1f} ms = {busy['busy_share']:.3f} "
         f"(idle {1 - busy['busy_share']:.3f}), {busy['kernels']} kernels; "
+        f"flash forward kernel {fwd_ms:.3f} ms = {fwd_ms / card_ms:.3f} and "
         f"flash backward kernels {bwd_ms:.3f} ms = "
-        f"{bwd_ms / (busy['busy_s'] * 1e3):.3f} of the card time; "
+        f"{bwd_ms / card_ms:.3f} of the card time; "
         f"device ms by kernel: " + "; ".join(
             f"{n} {ms:.3f}" for n, ms in busy["top"]))
     return {"launches": launches, "rec": rec, "step_s": dt, "tok_s": tok_s,
@@ -1673,17 +1724,26 @@ LM_GRAD_TOL = 5e-2
 
 
 def time_flash_longctx() -> dict:
-    """Both backward kernels at the long-context causal shape, bf16:
-    held to the plain version and timed beside SDPA ``is_causal=True``
-    and the causal bound (live pairs only)."""
+    """The forward and both backward kernels at the long-context causal
+    shape, bf16: held to the plain versions (the forward's out within
+    TOL, its lse within 1e-4) and timed beside SDPA ``is_causal=True``'s
+    forward or backward and the causal bound (live pairs only)."""
     g = torch.Generator().manual_seed(4)
     q, k, v, do = (torch.randn(LONGCTX_SHAPE, generator=g).to(
         DEV, torch.bfloat16) for _ in range(4))
     scale = 1.0 / math.sqrt(LONGCTX_SHAPE[3])
     out, lse = _reference_attention_lse(q, k, v, True, scale)
+    # the forward: out within TOL (in time_flash_fwd), lse within 1e-4
+    fwd_lse = flash_attention_with_lse(q, k, v, True, scale)[1]
+    lse_err = (fwd_lse - lse).abs().max().item()
+    assert lse_err <= 1e-4, f"flash at long-context causal: lse err {lse_err}"
+    res = {"flash_attention": dict(
+        time_flash_fwd(q, k, v, True, scale, "long-context causal"),
+        lse_err=lse_err)}
     delta = (do.float() * out.float()).sum(-1)
-    return time_flash_bwd(q, k, v, do, lse, delta, True, scale,
-                          "long-context causal")
+    res.update(time_flash_bwd(q, k, v, do, lse, delta, True, scale,
+                              "long-context causal"))
+    return res
 
 
 def phase_lm_causal(smi: str) -> dict:
@@ -1742,6 +1802,46 @@ def phase_lm_causal(smi: str) -> dict:
             "launches": launches}
 
 
+def _info(fn, *args, n=4) -> list:
+    """The ``n`` ints a ``mx_*_info`` entry point writes after ``args``."""
+    import ctypes
+
+    vals = [ctypes.c_int() for _ in range(n)]
+    err = fn(*args, *(ctypes.byref(x) for x in vals))
+    assert err == 0, f"kernel info {args}: CUDA error {err}"
+    return [x.value for x in vals]
+
+
+def fwd_kernel_info() -> dict:
+    """Registers, spill bytes, dynamic shared memory, blocks an SM and
+    query rows a block of the bf16 forward kernel, per instantiation
+    (D = 64, 128)."""
+    import ctypes
+
+    fn = _build.load("flash_attention").mx_flash_attention_fwd_info
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 5
+    fn.restype = ctypes.c_int
+    return {f"fwd_D{D}": dict(zip(
+        ("regs", "local_bytes", "smem_bytes", "blocks_per_sm",
+         "rows_per_block"), _info(fn, D, n=5))) for D in (64, 128)}
+
+
+def paged_kernel_info() -> dict:
+    """Registers, spill bytes, static shared memory and blocks an SM of
+    the paged kernel at the serving path's instantiations: bf16 q with
+    bf16 or int8 pages, f32 q with f32 pages, D = 64."""
+    import ctypes
+
+    fn = _build.load("paged_attention").mx_paged_attention_info
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    return {f"paged_{name}_D64": dict(zip(
+        ("regs", "local_bytes", "smem_bytes", "blocks_per_sm"),
+        _info(fn, dtype, quant, 64)))
+        for name, dtype, quant in (("bf16", 1, 0), ("int8", 1, 1),
+                                   ("f32", 0, 0))}
+
+
 def bwd_kernel_info() -> dict:
     """Registers, spill bytes, dynamic shared memory and blocks an SM of
     the bf16 backward kernels, per instantiation (D = 64, 128)."""
@@ -1751,16 +1851,10 @@ def bwd_kernel_info() -> dict:
     fn.argtypes = [ctypes.c_int, ctypes.c_int] \
         + [ctypes.POINTER(ctypes.c_int)] * 4
     fn.restype = ctypes.c_int
-    info = {}
-    for name, dq in (("dkdv", 0), ("dq", 1)):
-        for D in (64, 128):
-            vals = [ctypes.c_int() for _ in range(4)]
-            err = fn(dq, D, *(ctypes.byref(x) for x in vals))
-            assert err == 0, f"kernel info {name} D={D}: CUDA error {err}"
-            info[f"{name}_D{D}"] = dict(zip(
-                ("regs", "local_bytes", "smem_bytes", "blocks_per_sm"),
-                (x.value for x in vals)))
-    return info
+    return {f"{name}_D{D}": dict(zip(
+        ("regs", "local_bytes", "smem_bytes", "blocks_per_sm"),
+        _info(fn, dq, D))) for name, dq in (("dkdv", 0), ("dq", 1))
+        for D in (64, 128)}
 
 
 def main() -> int:
@@ -1779,6 +1873,11 @@ def main() -> int:
     log("flash backward bf16 kernels (registers a thread at launch, "
         "spill bytes, dynamic shared memory, blocks an SM): "
         + json.dumps(info))
+    log("flash forward bf16 kernel (registers a thread at launch, spill "
+        "bytes, dynamic shared memory, blocks an SM, query rows a block): "
+        + json.dumps(fwd_kernel_info()))
+    log("paged attention kernel (registers a thread, spill bytes, static "
+        "shared memory, blocks an SM): " + json.dumps(paged_kernel_info()))
     # the serving phases run first, as before the training slice, so
     # their host-bound numbers compare with earlier runs of the script
     errs = timed("kernels", phase_kernels)
@@ -1833,8 +1932,9 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
     for name, r in longctx.items():
+        half = "forward" if name == "flash_attention" else "backward"
         log(f"{name} long-context {r['shape']}: {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, sdpa is_causal backward "
+            f"{r['plain_ms']:.4f} ms, sdpa is_causal {half} "
             f"{r['library_ms']:.4f} ms, causal bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) [{smi}]")
     times["paged_attention"] = times["step"]

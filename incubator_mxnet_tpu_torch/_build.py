@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface.  `load(name)`
 compiles it with ``nvcc`` for ``sm_90a`` into
 ``incubator_mxnet_tpu_torch/_build/`` (a directory git ignores) and
-opens it with `ctypes`; the file name carries a hash of the source and
-the flags, so an edited source is rebuilt and never served stale.
+opens it with `ctypes`; the file name carries a hash of the source,
+of every header ``csrc/*.cuh`` (sources share device code through them)
+and of the flags, so an edited source or header is rebuilt and never
+served stale.
 `build_all` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import time: only a wrapper that was handed a CUDA
@@ -48,9 +50,17 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple:
+    """(source path, library path): the library's name hashes the
+    source, every ``csrc/*.cuh`` header (name and bytes) and the
+    flags."""
     src = os.path.join(_CSRC, name + ".cu")
+    digest = hashlib.sha1()
     with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_FLAGS).encode())
+        digest.update(f.read())
+    for header in sorted(h for h in os.listdir(_CSRC) if h.endswith(".cuh")):
+        with open(os.path.join(_CSRC, header), "rb") as f:
+            digest.update(b"\0" + header.encode() + b"\0" + f.read())
+    digest.update(" ".join(_FLAGS).encode())
     return src, os.path.join(_BUILD_DIR,
                              f"lib{name}-{digest.hexdigest()[:12]}.so")
 

@@ -21,10 +21,10 @@ versions of each half:
   `_fa_dkdv_kernel` and `_fa_dq_kernel` (launched by
   `_flash_bwd_core`).  Each kernel's block owns its output tile and
   walks the other operand's tiles, skipping tiles past the causal
-  diagonal: the forward and the f32 backward with f32 products on the
-  CUDA cores, the bf16 backward with `wgmma` products on tiles that TMA
-  streams into shared memory.  The sources say what bounds them on the
-  H100.
+  diagonal: in bf16 with `wgmma` products on tiles that TMA streams
+  into shared memory (the helpers shared through
+  ``csrc/hopper_tc.cuh``), in f32 with f32 products on the CUDA cores.
+  The sources say what bounds them on the H100.
 
 `flash_attention` / `flash_attention_with_lse` run the kernels on CUDA
 tensors (or raise) and the plain versions on CPU tensors.  When an
@@ -154,8 +154,12 @@ def _check(q, k, v, do=None):
 
 def _flash_core(q, k, v, causal, scale):
     """Launch the forward kernel: (out (B, H, Tq, D) in q.dtype,
-    lse (B, H, Tq) f32)."""
+    lse (B, H, Tq) f32).  The bf16 kernel folds the scale into its
+    exp2 and takes it >= 0: a negative one is carried by -q."""
     _check(q, k, v)
+    if q.dtype == torch.bfloat16 and scale < 0:
+        q, scale = -q, -scale
+    q, k, v = (_aligned(t) for t in (q, k, v))
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     out = torch.empty_like(q)
@@ -244,7 +248,8 @@ def _check_rows(q, lse, delta):
 
 def _aligned(t):
     """``t``, or a copy of it if its data is not 16-byte aligned (the
-    bf16 kernels load their tiles with TMA, which needs that)."""
+    bf16 kernels, forward and backward, load their tiles with TMA, which
+    needs that)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 

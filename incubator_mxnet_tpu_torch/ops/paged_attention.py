@@ -16,10 +16,13 @@ each window row as a lane.  Two versions of one function:
   ``mx_paged_attention`` for float pages (the TPU's `_paged_core`) and
   ``mx_paged_attention_q8`` for int8 pages with an f32 scale per
   (block, head, slot) (the TPU's `_paged_core_q8`), dequantized as
-  each page is staged.  One thread block per (lane, head) walks the
-  lane's pages through its block-table row with an f32 online softmax
-  and skips pages past ``pos // block_size``.  It is bound by the bytes
-  of the live pages; the source says what its design does about that.
+  each page is loaded.  One thread block per (lane, head) splits the
+  lane's pages (through its block-table row) over eight warps, each
+  with its own f32 online softmax, merges the warps' partials in a
+  fixed order, and skips pages past ``pos // block_size``.  It is bound
+  by the bytes of the live pages; the source says what its design does
+  about that.  The pools must be 16-byte aligned (the kernel loads
+  16-byte vectors of a slot row).
 
 `paged_attention` takes the plain version only for CPU tensors; for
 CUDA tensors it launches the kernel or raises.  With ``scale_k`` and

@@ -347,3 +347,245 @@ def test_bwd_source_keeps_the_no_atomics_contract():
     for pattern in (r"\batomic\w*\s*\(", r"\bred\.", r"\batom\.",
                     r"cp\.reduce"):
         assert not re.search(pattern, code), pattern
+
+
+# ---- the bf16 forward kernel's numerics, modelled on the CPU ------------
+# A torch model of the arithmetic of csrc/flash_attention.cu's bf16 kernel
+# (the kernel itself runs only on the card, where chip_smoke.py holds it
+# to the plain version): 64-row query slices (one consumer warpgroup
+# each) walk 64-key tiles, stopping before the first tile wholly past the
+# slice's last row's causal diagonal; the mask runs only on tiles that
+# cross the diagonal or the ragged Tk edge; the online softmax is in base
+# 2 with the scale folded into one multiply-add (p = exp2(s * c - m2),
+# c = scale * log2(e)); a row without a visible key keeps m2 = -inf and
+# its exponent base 0; P goes to P V as the kernel sends it (``p_mode``
+# "pair": the bf16 pair hi = bf16(p), lo = bf16(p - hi)), or rounded to
+# bf16 once ("bf16", the TPU's default-precision pass), or in f32; out =
+# O / l (0 where l = 0) and lse = m2 * ln(2) + log(l) (-inf there).
+LOG2E = math.log2(math.e)
+LN2 = math.log(2.0)
+
+
+def _p_for_pv(p, p_mode):
+    if p_mode == "f32":
+        return p
+    hi = p.to(torch.bfloat16).float()
+    if p_mode == "bf16":
+        return hi
+    return hi + (p - hi).to(torch.bfloat16).float()
+
+
+def _fwd_tile_model(q, k, v, causal, scale, p_mode, rows=64, keys=64):
+    """(out, lse, tiles): the kernel's outputs and, per 64-row slice,
+    the key tiles it walked."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    qf, kf, vf = (t.float().reshape(B * H, -1, D) for t in (q, k, v))
+    c = scale * LOG2E
+    shift = Tk - Tq
+    out = torch.zeros((B * H, Tq, D))
+    lse = torch.full((B * H, Tq), float("-inf"))
+    ninf = torch.tensor(float("-inf"))
+    tiles = {}
+    for r0 in range(0, Tq, rows):
+        r1 = min(r0 + rows, Tq)
+        nk = -(-Tk // keys)
+        if causal:
+            lim = r1 - 1 + shift
+            nk = 0 if lim < 0 else min(nk, lim // keys + 1)
+        tiles[r0] = list(range(nk))
+        m2 = torch.full((B * H, r1 - r0), float("-inf"))
+        l = torch.zeros((B * H, r1 - r0))
+        o = torch.zeros((B * H, r1 - r0, D))
+        row = torch.arange(r0, r1)[:, None]
+        for t in range(nk):
+            c0, c1 = t * keys, min((t + 1) * keys, Tk)
+            s = qf[:, r0:r1] @ kf[:, c0:c1].transpose(1, 2)
+            key = torch.arange(c0, c1)[None, :]
+            interior = c0 + keys <= Tk and \
+                (not causal or c0 + keys - 1 <= r0 + shift)
+            live = torch.ones_like(s, dtype=torch.bool) if interior else \
+                (key <= row + shift).expand_as(s) if causal else \
+                torch.ones_like(s, dtype=torch.bool)
+            s = torch.where(live, s, ninf)
+            m_new = torch.maximum(m2, s.amax(-1) * c)
+            m_use = torch.where(m_new == ninf, torch.zeros_like(m_new), m_new)
+            alpha = torch.exp2(m2 - m_use)
+            p = torch.where(live, torch.exp2(s * c - m_use[..., None]),
+                            torch.zeros_like(s))
+            l = alpha * l + p.sum(-1)
+            o = o * alpha[..., None] + _p_for_pv(p, p_mode) @ vf[:, c0:c1]
+            m2 = m_new
+        inv = torch.where(l > 0, 1.0 / l.clamp(min=1e-30), torch.zeros_like(l))
+        out[:, r0:r1] = o * inv[..., None]
+        lse[:, r0:r1] = torch.where(l > 0, m2 * LN2 + torch.log(
+            l.clamp(min=1e-30)), ninf)
+    return (out.reshape(B, H, Tq, D).to(q.dtype), lse.reshape(B, H, Tq),
+            tiles)
+
+
+# chip_smoke.py's FLASH_CASES, cut to CPU size (batch and heads; the
+# lengths and head dims kept, so every ragged edge, empty walk and panel
+# width the card sees is modelled): (qshape, tk, causal)
+FWD_MODEL_CASES = [((1, 2, 128, 64), 128, True),
+                   ((1, 1, 200, 64), 200, True),
+                   ((1, 2, 37, 64), 300, True),
+                   ((1, 2, 256, 64), 256, False),
+                   ((1, 2, 300, 32), 37, True),     # 263 rows see no key
+                   ((1, 2, 70, 128), 70, True),
+                   ((1, 2, 33, 8), 90, False)]
+
+
+def _case_id(case):
+    (B, H, tq, D), tk, causal = case
+    return f"q{tq}-k{tk}-d{D}-{'causal' if causal else 'full'}"
+
+
+# P V's tolerance per P mode, in units of max|v| (f32: absolute 1e-5):
+# one bf16 rounding of each weight is 2^-9 relative, over a convex
+# combination of V's rows; the pair carries P to ~2^-17
+P_MODE_ATOL = {"f32": None, "pair": 2.0 ** -16, "bf16": 2.0 ** -8}
+
+
+@pytest.mark.parametrize("p_mode", list(P_MODE_ATOL))
+@pytest.mark.parametrize("case", FWD_MODEL_CASES, ids=_case_id)
+def test_fwd_tile_model_matches_jax_kernel_and_reference(case, p_mode):
+    """The model against the JAX `_flash_core` (interpret mode, 64 x 64
+    blocks) and the port's `_reference_attention_lse`: with P in f32
+    within 1e-5; with P as the kernel's bf16 pair within 2^-16 of
+    max|v|; with P rounded to bf16 once within 2^-8 of max|v|; lse within
+    1e-5 in every mode (it never sees P's rounding).  Rows that see no
+    key give exactly 0 and -inf."""
+    qshape, tk, causal = case
+    B, H, tq, D = qshape
+    q, k, v = _qkv(tq * 7 + tk + D, B, H, tq, tk, D)
+    scale = 1.0 / math.sqrt(D)
+    tq_, tk_, tv_ = map(torch.from_numpy, (q, k, v))
+    out, lse, _ = _fwd_tile_model(tq_, tk_, tv_, causal, scale, p_mode)
+    jout, jlse = jfa._flash_core(*map(jnp.asarray, (q, k, v)), causal,
+                                 scale, 64, 64, True)
+    ref, ref_lse = tfa._reference_attention_lse(tq_, tk_, tv_, causal, scale)
+    atol = 1e-5 if p_mode == "f32" else \
+        P_MODE_ATOL[p_mode] * float(onp.abs(v).max())
+    for want, want_lse in ((onp.asarray(jout), onp.asarray(jlse)),
+                           (ref.numpy(), ref_lse.numpy())):
+        onp.testing.assert_allclose(out.numpy(), want, rtol=0, atol=atol)
+        onp.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=1e-5)
+    dead = torch.isneginf(ref_lse)
+    assert torch.equal(torch.isneginf(lse), dead)
+    assert torch.all(out[dead] == 0)
+    if case == FWD_MODEL_CASES[4]:
+        assert int(dead.sum()) == B * H * 263
+
+
+@pytest.mark.parametrize("case", FWD_MODEL_CASES, ids=_case_id)
+def test_fwd_tile_model_walks_exactly_the_live_tiles(case):
+    """The walk of each 64-row slice visits every key tile that holds a
+    visible key of one of its rows and none wholly past its diagonal."""
+    qshape, tk, causal = case
+    tq = qshape[2]
+    z = torch.zeros((1, 1, tq, 8)), torch.zeros((1, 1, tk, 8))
+    _, _, tiles = _fwd_tile_model(z[0], z[1], z[1], causal, 1.0, "f32")
+    shift = tk - tq
+    for r0, walked in tiles.items():
+        r1 = min(r0 + 64, tq)
+        live = [t for t in range(-(-tk // 64))
+                if not causal or t * 64 <= r1 - 1 + shift]
+        assert walked == live, (r0, walked, live)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fwd_tile_model_bf16_inputs_match_plain_version(causal):
+    """bf16 inputs (as the kernel reads them, widened exactly), with a
+    common offset on V as a projection's bias gives BERT's values: the
+    model with the kernel's P pair, output rounded to bf16, against the
+    port's plain version on the same bf16 inputs within one bf16 ulp of
+    the output (the two f32 results differ by ~2^-16 of max|v|, so their
+    roundings differ by at most an ulp); with P rounded once the f32
+    results are further apart (2^-9 of a weight)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(41, 1, 2, 96, 160, 64))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v + 3.0))
+    ref, ref_lse = tfa._reference_attention_lse(q, k, v, causal, 0.125)
+    ref32 = tfa._reference_attention_lse(q.float(), k.float(), v.float(),
+                                         causal, 0.125)[0]
+    ulp = torch.pow(2.0, torch.floor(torch.log2(ref32.abs())) - 7)
+    errs = {}
+    for p_mode in ("pair", "bf16"):
+        out, lse, _ = _fwd_tile_model(q, k, v, causal, 0.125, p_mode)
+        assert out.dtype == torch.bfloat16
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5)
+        out32 = _fwd_tile_model(q.float(), k.float(), v.float(), causal,
+                                0.125, p_mode)[0]
+        errs[p_mode] = float((out32 - ref32).abs().max())
+        if p_mode == "pair":
+            assert torch.all((out.float() - ref.float()).abs() <= ulp)
+    assert errs["pair"] <= 2.0 ** -16 * float(v.float().abs().max())
+    assert errs["bf16"] > 8 * errs["pair"]
+
+
+def test_fwd_launch_hands_the_kernel_aligned_tiles_and_nonnegative_scale(
+        monkeypatch):
+    """The bf16 forward kernel loads its tiles with TMA (16-byte aligned
+    data) and folds the scale into exp2 (it takes scale >= 0): the
+    wrapper hands it an aligned copy of a misaligned input, and for a
+    negative scale -q with -scale, the same attention."""
+    from incubator_mxnet_tpu_torch import _build
+
+    seen = {}
+
+    class Lib:
+        def __getattr__(self, name):
+            def launch(dtype, q, k, v, out, lse, BH, Tq, Tk, D, causal,
+                       scale, stream):
+                seen.update(q=q, k=k, v=v, scale=scale)
+                return 0
+            return launch
+
+    monkeypatch.setattr(_build, "load", lambda name: Lib())
+    monkeypatch.setattr(_build, "stream", lambda device: 0)
+    g = torch.Generator().manual_seed(0)
+    B, H, T, D = 1, 2, 8, 16
+    flat = torch.randn(B * H * T * D + 1, generator=g).to(torch.bfloat16)
+    k = flat[1:].view(B, H, T, D)              # 2-byte offset: misaligned
+    q, v = (torch.randn((B, H, T, D), generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    assert k.is_contiguous() and k.data_ptr() % 16 != 0
+    tfa._flash_core(q, k, v, False, 0.25)
+    assert seen["k"] % 16 == 0 and seen["k"] != k.data_ptr()
+    assert seen["q"] == q.data_ptr() and seen["v"] == v.data_ptr()
+    assert seen["scale"] == 0.25
+    tfa._flash_core(q, k, v, False, -0.25)
+    assert seen["scale"] == 0.25 and seen["q"] != q.data_ptr()
+    # the plain version: softmax((-q) k^T * 0.25) = softmax(q k^T * -0.25)
+    neg = tfa._reference_attention_lse(-q, k, v, False, 0.25)
+    pos = tfa._reference_attention_lse(q, k, v, False, -0.25)
+    assert torch.equal(neg[0], pos[0])
+
+
+@pytest.mark.parametrize("source", ["flash_attention.cu", "hopper_tc.cuh",
+                                    "paged_attention.cu"])
+def test_sources_keep_the_no_atomics_contract(source):
+    """Each block of the forward and paged kernels owns its output: the
+    CUDA sources (and the shared header) issue no atomic or reduction to
+    memory."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(tfa.__file__), os.pardir,
+                            "csrc", source)).read()
+    code = re.sub(r"//[^\n]*", "", src)
+    for pattern in (r"\batomic\w*\s*\(", r"\bred\.", r"\batom\.",
+                    r"cp\.reduce"):
+        assert not re.search(pattern, code), pattern
+
+
+def test_fwd_source_runs_both_products_on_wgmma():
+    """The bf16 forward issues `wgmma.mma_async` (through the shared
+    header) for S = Q K^T and O += P V."""
+    import os
+
+    csrc = os.path.join(os.path.dirname(tfa.__file__), os.pardir, "csrc")
+    fwd = open(os.path.join(csrc, "flash_attention.cu")).read()
+    hdr = open(os.path.join(csrc, "hopper_tc.cuh")).read()
+    assert "wgmma.mma_async" in hdr
+    assert "product_ss<" in fwd and "product_rs(" in fwd

@@ -16,6 +16,7 @@ int8 slots with NaN scales contribute exactly 0.0.  The CUDA kernels
 themselves are held to the plain version on the card by chip_smoke.py.
 """
 import importlib
+import math
 
 import jax.numpy as jnp
 import numpy as onp
@@ -259,3 +260,176 @@ def test_int8_kernel_argument_checks(bad):
     with pytest.raises(MXNetError):
         tpa._check(q, *quantize_kv(pk)[:1], *quantize_kv(pv)[:1], tables,
                    pos)
+
+
+# ---- the CUDA kernel's numerics, modelled on the CPU ----------------------
+# A torch model of csrc/paged_attention.cu's arithmetic (the kernel runs
+# only on the card, where chip_smoke.py holds it to the plain version):
+# a block of W = 8 warps per (lane, head); warp w walks pages w, w + 8, ...
+# of the lane's pages 0 .. pos // bs, each in units of 4 passes of
+# 32 / (D / vec) slot rows (vec = 16 bytes of page elements), with its own
+# online softmax (m from finfo(f32).min, l, acc); masked slots (past pos)
+# are never read; the warps' partials merge in a fixed order, out = sum
+# exp(m_w - M) acc_w / sum exp(m_w - M) l_w, 0 where that sum is 0
+# (pos < 0).
+WARPS = 8
+FMIN = torch.finfo(torch.float32).min
+
+
+def _unit_rows(page_dtype, D):
+    vec = 16 // torch.empty((), dtype=page_dtype).element_size()
+    return 4 * (32 // (D // vec))
+
+
+def _paged_model(q, pool_k, pool_v, tables, pos, scale_k=None,
+                 scale_v=None):
+    """(out, pages): the kernel's output and, per (lane, warp), the
+    pages that warp walked."""
+    B, H, D = q.shape
+    bs, nbps = pool_k.shape[2], tables.shape[1]
+    unit = _unit_rows(pool_k.dtype, D)
+    out = torch.zeros((B, H, D), dtype=torch.float32)
+    walked = {}
+    for b in range(B):
+        t = int(pos[b])
+        npages = 0 if t < 0 else min(t // bs, nbps - 1) + 1
+        for h in range(H):
+            qv = q[b, h].float()
+            parts = []
+            for w in range(WARPS):
+                m = torch.tensor(FMIN)
+                l = torch.tensor(0.0)
+                acc = torch.zeros(D)
+                pages = list(range(w, npages, WARPS))
+                walked[(b, w)] = pages
+                for j in pages:
+                    blk = int(tables[b, j])
+                    live = min(bs, t - j * bs + 1)
+                    for u in range(0, live, unit):
+                        rows = slice(u, min(u + unit, live))
+                        k = pool_k[blk, h, rows].float()
+                        v = pool_v[blk, h, rows].float()
+                        if scale_k is not None:     # dequantize first
+                            k = k * scale_k[blk, h, rows][:, None]
+                            v = v * scale_v[blk, h, rows][:, None]
+                        s = (k @ qv) / math.sqrt(D)
+                        m_new = torch.maximum(m, s.max())
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(s - m_new)
+                        l = l * alpha + p.sum()
+                        acc = acc * alpha + p @ v
+                        m = m_new
+                parts.append((m, l, acc))
+            mm = max(pm for pm, _, _ in parts)
+            ll, o = torch.tensor(0.0), torch.zeros(D)
+            for pm, pl, pa in parts:             # warp 0, 1, ... in order
+                a = torch.exp(pm - mm)
+                ll = ll + a * pl
+                o = o + a * pa
+            out[b, h] = o / ll if ll > 0 else 0.0
+    return out.to(q.dtype), walked
+
+
+def _edge_case(seed, bs, positions, nbps, D=16, H=2):
+    """A pool and block tables for lanes at ``positions`` (numpy f32 /
+    int32); spare blocks hold garbage no walk reads."""
+    rs = onp.random.RandomState(seed)
+    B = len(positions)
+    nblocks = B * nbps + 2
+    pool_k = rs.randn(nblocks, H, bs, D).astype(onp.float32)
+    pool_v = rs.randn(nblocks, H, bs, D).astype(onp.float32)
+    q = rs.randn(B, H, D).astype(onp.float32)
+    tables = rs.permutation(B * nbps).astype(onp.int32).reshape(B, nbps)
+    return q, pool_k, pool_v, tables, onp.asarray(positions, onp.int32)
+
+
+# (bs, lane positions, nbps): a lane at pos 2047 with bs 16 (128 pages,
+# 16 a warp); lanes at pos 0, bs - 1 and bs; a lane with fewer pages than
+# warps (3 pages); bs 1 (every slot a page) and 64 (one page spans the
+# warps' units)
+PAGED_EDGE_CASES = [(16, [2047], 128),
+                    (16, [0, 15, 16], 4),
+                    (16, [47], 8),
+                    (1, [0, 5, 11], 12),
+                    (64, [0, 63, 64, 200], 4)]
+
+
+def _edge_id(case):
+    bs, positions, nbps = case
+    return f"bs{bs}-pos{'_'.join(map(str, positions))}"
+
+
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", PAGED_EDGE_CASES, ids=_edge_id)
+def test_kernel_model_matches_jax_kernel_and_dense(case, pages):
+    """The W-way page partition and its fixed-order merge against the
+    JAX `_paged_core` / `_paged_core_q8` in interpret mode and the port's
+    `paged_attention_dense`: f32 within 2e-5 (bf16 pages are exact in
+    f32; the sums run in another order), and each warp walks exactly
+    pages w, w + 8, ... up to pos // bs."""
+    bs, positions, nbps = case
+    q, pk, pv, tables, pos = _edge_case(bs * 13 + len(positions), bs,
+                                        positions, nbps)
+    tq, tpk, tpv, ttab, tpos = (torch.from_numpy(a)
+                                for a in (q, pk, pv, tables, pos))
+    jq, jtab, jpos = jnp.asarray(q), jnp.asarray(tables), jnp.asarray(pos)
+    if pages == "int8":
+        tpk, sk = quantize_kv(tpk)
+        tpv, sv = quantize_kv(tpv)
+        jk8, jsk = jax_qkv(jnp.asarray(pk))
+        jv8, jsv = jax_qkv(jnp.asarray(pv))
+        got, walked = _paged_model(tq, tpk, tpv, ttab, tpos, sk, sv)
+        ref = tpa.paged_attention_dense(tq, tpk, tpv, ttab, tpos, sk, sv)
+        jref = jpa._paged_core_q8(jq, jk8, jv8, jsk, jsv, jtab, jpos, True)
+    else:
+        dt = getattr(torch, pages)
+        tpk, tpv = tpk.to(dt).float(), tpv.to(dt).float()
+        got, walked = _paged_model(tq, tpk, tpv, ttab, tpos)
+        ref = tpa.paged_attention_dense(tq, tpk, tpv, ttab, tpos)
+        jref = jpa._paged_core(jq, jnp.asarray(tpk.numpy()),
+                               jnp.asarray(tpv.numpy()), jtab, jpos, True)
+    onp.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=2e-5)
+    onp.testing.assert_allclose(got.numpy(), onp.asarray(jref), rtol=0,
+                                atol=2e-5)
+    for b, t in enumerate(positions):
+        npages = min(t // bs, nbps - 1) + 1
+        for w in range(WARPS):
+            assert walked[(b, w)] == list(range(w, npages, WARPS))
+
+
+def test_kernel_model_negative_pos_gives_zero():
+    """pos < 0: no warp has a page, every one merges as a no-op (m =
+    finfo.min, l = 0), and the lane's output is exactly 0."""
+    q, pk, pv, tables, pos = (torch.from_numpy(a) for a in _edge_case(
+        3, 16, [-1, 20], 4))
+    got, walked = _paged_model(q, pk, pv, tables, pos)
+    assert torch.all(got[0] == 0)
+    assert all(walked[(0, w)] == [] for w in range(WARPS))
+    torch.testing.assert_close(
+        got[1], tpa.paged_attention_dense(q, pk, pv, tables, pos)[1],
+        rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("change", ["pos", "pages"])
+def test_kernel_model_lane_bits_ignore_other_lanes(change):
+    """A lane's output bits do not move when another lane's pos or pages
+    do: which warp takes which page, and every sum's order, depend only
+    on the lane's own pos.  The same holds for the port's plain
+    version."""
+    q, pk, pv, tables, pos = (torch.from_numpy(a) for a in _edge_case(
+        4, 16, [100, 37, 200], 16))
+    base, _ = _paged_model(q, pk, pv, tables, pos)
+    dense = tpa.paged_attention_dense(q, pk, pv, tables, pos)
+    pk2, pv2, pos2 = pk.clone(), pv.clone(), pos.clone()
+    if change == "pos":
+        pos2[1] = 255
+    else:
+        blocks = tables[1].long()
+        pk2[blocks] = torch.randn_like(pk2[blocks]) * 100
+        pv2[blocks] = -pv2[blocks]
+    moved, _ = _paged_model(q, pk2, pv2, tables, pos2)
+    moved_dense = tpa.paged_attention_dense(q, pk2, pv2, tables, pos2)
+    for b in (0, 2):
+        assert torch.equal(moved[b], base[b])
+        assert torch.equal(moved_dense[b], dense[b])
+    assert not torch.equal(moved[1], base[1])

@@ -378,3 +378,40 @@ def test_quantized_cpu_path_never_builds_or_loads_kernels():
         "print('ok')\n")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_edited_header_gives_a_new_library_name(monkeypatch, tmp_path):
+    """A library's name hashes its source and every ``csrc/*.cuh``: an
+    edit to a shared header alone (the bf16 flash forward and backward
+    share one) gives a new name, so the build never serves a library
+    compiled against the old header.  No nvcc is needed."""
+    from incubator_mxnet_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
+    (tmp_path / "kern.cu").write_text('#include "tiles.cuh"\nint f();\n')
+    (tmp_path / "tiles.cuh").write_text("constexpr int kTile = 64;\n")
+    src, first = _build._target("kern")
+    assert src == str(tmp_path / "kern.cu")
+    assert _build._target("kern")[1] == first            # stable
+    (tmp_path / "tiles.cuh").write_text("constexpr int kTile = 128;\n")
+    second = _build._target("kern")[1]
+    assert second != first
+    (tmp_path / "more.cuh").write_text("// a second header\n")
+    assert _build._target("kern")[1] not in (first, second)
+    (tmp_path / "more.cuh").unlink()
+    assert _build._target("kern")[1] == second
+    (tmp_path / "kern.cu").write_text('#include "tiles.cuh"\nint g();\n')
+    assert _build._target("kern")[1] != second
+
+
+def test_the_port_sources_share_one_header():
+    """The bf16 flash forward and backward include the shared Hopper
+    header, and `_build` folds it into both libraries' names."""
+    from incubator_mxnet_tpu_torch import _build
+
+    csrc = os.path.join(PKG, "csrc")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        with open(os.path.join(csrc, name + ".cu")) as f:
+            assert '#include "hopper_tc.cuh"' in f.read(), name
+    assert os.path.exists(os.path.join(csrc, "hopper_tc.cuh"))
+    assert all(os.path.exists(_build._target(n)[0]) for n in _build.SOURCES)
