@@ -48,6 +48,14 @@ Phases (any failure ends the run with a non-zero exit code):
 7. training kernels — the dropout keep-mask kernel bit-identical to its
    plain Philox version at (4096, 1024) bf16/f32, rates 0.1 and 0.5, and
    at odd sizes, with the keep fraction within 4 sigma of 1 - rate; the
+   fused dropout forward (mask and ``[res +] where(keep, x * scale, 0)``)
+   and backward (``where(mask, dy, 0) * scale``) bit-identical to the
+   plain composition and its autograd gradients, with and without a
+   residual, directly and through ``fused_dropout(_add)``'s autograd
+   Function, f32 and bf16, at (4096, 1024) rates 0.1 and 0.5, at the odd
+   sizes, on views one element into larger buffers (the kernel's scalar
+   path) and with NaN / +-Inf in x and -0.0 in the residual on dropped
+   elements (y there exactly +0.0); degenerate rates launch nothing; the
    cross-entropy forward (lse, row sum) and backward (dlogits) kernels
    against their plain versions at (4096, 30522) bf16, at small and odd
    vocabularies and at logits of +-1e4, eps 0 and 0.1 (lse within 1e-4
@@ -62,21 +70,30 @@ Phases (any failure ends the run with a non-zero exit code):
    (keep_grads=False), B=32 T=128 on a fixed batch from seed 0: 2
    warm-up and 5 timed steps; the loss is finite every step, every
    trainable parameter the forward reaches changes in step 1, and each
-   step launches the dropout kernel 49 times and each cross-entropy
+   step launches the fused dropout forward and backward kernels 49 times
+   each (the mask-only kernel never) and each cross-entropy
    kernel once while no flash kernel is launched; step time, tokens/s, MFU
    (bench.py's FLOP count over 989 TFLOP/s bf16 on an H100 SXM), peak
-   memory and the card's busy share over one profiled step;
+   memory and the card's busy share, kernel count and the dropout
+   kernels' device time over one profiled step;
 9. training parity — the same width at 2 layers in f32, dropout 0.1, one
    step from one seed, once through the kernels and once with every
    kernel call swapped for its plain version: the same loss (rtol 1e-5),
    grads and updated weights (atol 1e-4 of each tensor's max);
 10. training timing — each training kernel at the inputs the main path
    gave it, beside its plain version, its one-call PyTorch yardstick
-   and its byte bound;
+   and its bound: bytes, or for the dropout mask the larger of its bytes
+   and its integer multiplies (38 per 4 elements at 64 a clock an SM at
+   nvidia-smi's clocks.max.sm); the fused dropout entries also beside
+   the old site (the mask kernel, then the torch apply and add, and
+   autograd's backward of them), with ``F.dropout(x, p) + res`` and
+   ``native_dropout_backward`` as the yardsticks; and one one-element
+   launch, the floor of every time here;
 11. T=512 main path — phase 8 at BERT's phase-2 sequence length, B=8
    T=512 (the same 4,096 tokens a step): attention takes the flash
    kernels, and each step launches the flash forward, the dK/dV and
-   the dQ kernel 24 times each, the dropout kernel 49 times and each
+   the dQ kernel 24 times each, the fused dropout forward and backward
+   49 times each and each
    cross-entropy kernel once; the profiled step prints the flash
    forward's and backward's shares of the card time;
 12. T=512 parity — phase 9 at B=2, T=512, where the plain versions also
@@ -153,8 +170,9 @@ from incubator_mxnet_tpu_torch.ops.flash_attention import (
     flash_bwd_dq, flash_bwd_plain)
 from incubator_mxnet_tpu_torch.ops import dropout_kernel as dk_mod
 from incubator_mxnet_tpu_torch.ops import xent_kernel as xk_mod
-from incubator_mxnet_tpu_torch.ops.dropout_kernel import (dropout_mask,
-                                                          mask_reference)
+from incubator_mxnet_tpu_torch.ops.dropout_kernel import (
+    dropout_bwd, dropout_bwd_reference, dropout_fwd, dropout_fwd_reference,
+    dropout_mask, mask_reference)
 from incubator_mxnet_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_dense, paged_attention_q8)
 from incubator_mxnet_tpu_torch.ops.xent_kernel import (
@@ -173,6 +191,12 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 PARITY_GAP = 1e-3                   # flash-vs-paged roundoff tie bound
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# 32-bit integer multiplies a clock an SM, compute capability 9.0 (the
+# CUDA C++ programming guide's arithmetic-instruction throughput table)
+INT_MULS_PER_CLOCK_SM = 64
+# Philox4x32-10's multiplies for 4 mask bytes: 40, less the two of the
+# first round, whose counter words are zero
+PHILOX_MULS = 38
 DEV = torch.device("cuda")
 MODEL = dict(vocab=32000, units=1024, hidden_size=4096, num_layers=12,
              num_heads=16, max_len=512)
@@ -198,6 +222,15 @@ KERNELS = {
     "dropout_mask": dict(
         fn=dropout_mask, source="incubator_mxnet_tpu_torch/csrc/dropout.cu",
         replaces="incubator_mxnet_tpu/ops/dropout_kernel.py:250"),
+    # the mask kernel with the apply (and the residual add) fused in, and
+    # the backward's apply of the saved mask: the port of the same TPU
+    # kernel together with the XLA fusions around it
+    "dropout_fwd": dict(
+        fn=dropout_fwd, source="incubator_mxnet_tpu_torch/csrc/dropout.cu",
+        replaces="incubator_mxnet_tpu/ops/dropout_kernel.py:250"),
+    "dropout_bwd": dict(
+        fn=dropout_bwd, source="incubator_mxnet_tpu_torch/csrc/dropout.cu",
+        replaces="incubator_mxnet_tpu/ops/dropout_kernel.py:250"),
     "xent_forward": dict(
         fn=xent_forward, source="incubator_mxnet_tpu_torch/csrc/xent.cu",
         replaces="incubator_mxnet_tpu/ops/xent_kernel.py:157"),
@@ -210,7 +243,8 @@ SERVING_KERNELS = ("paged_attention", "flash_attention", "paged_attention_q8")
 # (int8 weights, int8 KV pages)
 FLOAT_SERVING = ("paged_attention", "flash_attention")
 QUANT_SERVING = ("paged_attention_q8", "flash_attention")
-TRAINING_KERNELS = ("dropout_mask", "xent_forward", "xent_backward")
+TRAINING_KERNELS = ("dropout_mask", "dropout_fwd", "dropout_bwd",
+                    "xent_forward", "xent_backward")
 FLASH_KERNELS = ("flash_attention", "flash_bwd_dkdv", "flash_bwd_dq")
 # the flagship of bench.py: BERT-large, phase-1 shapes, dropout 0.1
 BERT = dict(vocab_size=30522, units=1024, hidden_size=4096, num_layers=24,
@@ -1249,6 +1283,82 @@ def check_dropout(dtype, shape, rate, seed) -> int:
     return n
 
 
+def _bits(t):
+    """The tensor's bit patterns: equal bits tell -0.0 from +0.0."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _composition(x, res, dy, mask, rate):
+    """The plain site, ``[res +] where(mask, x * scale, 0)``, and its
+    autograd gradients (dx, dres) for the cotangent dy."""
+    xr = x.detach().clone().requires_grad_()
+    rr = None if res is None else res.detach().clone().requires_grad_()
+    y = dk_mod._apply_mask(xr, mask, rate)
+    if rr is not None:
+        y = rr + y
+    grads = torch.autograd.grad(y, [t for t in (xr, rr) if t is not None],
+                                dy)
+    return y.detach(), grads[0], grads[1] if rr is not None else None
+
+
+def check_dropout_fused(dtype, shape, rate, seed, offset=0,
+                        special=False) -> int:
+    """The fused forward's mask and y, and the fused backward's dx, equal
+    the plain composition's bit for bit, with and without a residual,
+    called directly and through ``fused_dropout(_add)``'s autograd
+    Function (y, dx, dres).  ``offset``: x, res and dy are views that
+    start that many elements into larger buffers (the kernel's scalar
+    path when they leave the 16-byte grid).  ``special``: x holds NaN
+    and +-Inf on dropped elements, res -0.0 on dropped and on some kept
+    ones, dy NaN on dropped ones.  Returns the number of checks."""
+    n = math.prod(shape)
+    g = torch.Generator().manual_seed(n + offset)
+    bufs = [torch.randn(n + offset, generator=g).to(DEV, dtype)
+            for _ in range(3)]
+    x, res, dy = (b[offset:].view(shape) for b in bufs)
+    ref_mask = mask_reference(n, seed, rate, device=DEV).view(shape)
+    keep = ref_mask.bool()
+    if special:                     # in place: the views keep their offset
+        drop = (~keep).view(-1).nonzero()[:, 0]
+        kept = keep.view(-1).nonzero()[:9, 0]
+        xf, rf, gf = x.view(-1), res.view(-1), dy.view(-1)
+        xf[drop[0::3]] = float("nan")
+        xf[drop[1::3]] = float("inf")
+        xf[drop[2::3]] = -float("inf")
+        rf[drop] = -0.0
+        rf[kept] = -0.0
+        gf[drop] = float("nan")
+    tag = f"dropout fused {dtype} {shape} rate={rate} offset={offset}" \
+        + (" special" if special else "")
+    checks = 0
+    for r in (None, res):
+        want_y, want_dx, want_dres = _composition(x, r, dy, ref_mask, rate)
+        y, mask = dropout_fwd(x, r, seed, rate)
+        dx = dropout_bwd(dy, mask, rate)
+        torch.cuda.synchronize()
+        assert mask.dtype == torch.uint8 and mask.shape == x.shape, tag
+        assert torch.equal(mask, ref_mask), f"{tag}: forward's mask"
+        assert torch.equal(_bits(y), _bits(want_y)), f"{tag}: y"
+        assert torch.equal(_bits(dx), _bits(want_dx)), f"{tag}: dx"
+        if special:
+            assert not _bits(y)[~keep].any(), f"{tag}: dropped y not +0.0"
+        xr = x.detach().clone().requires_grad_()
+        rr = None if r is None else r.detach().clone().requires_grad_()
+        fy = dk_mod.fused_dropout(xr, seed, rate) if rr is None \
+            else dk_mod.fused_dropout_add(xr, rr, seed, rate)
+        fy.backward(dy)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(fy.detach()), _bits(want_y)), \
+            f"{tag}: Function's y"
+        assert torch.equal(_bits(xr.grad), _bits(want_dx)), \
+            f"{tag}: Function's dx"
+        if rr is not None:
+            assert torch.equal(_bits(rr.grad), _bits(want_dres)), \
+                f"{tag}: Function's dres"
+        checks += 7
+    return checks
+
+
 def check_xent(N, V, dtype, eps, scale=1.0, seed=0) -> dict:
     """Forward (lse, row sum) and backward (dlogits) kernels against
     their plain versions on the same inputs; returns the max errors."""
@@ -1308,21 +1418,47 @@ XENT_CASES = ((4096, 30522, torch.bfloat16, 0.0, 1.0),
               (9, 7, torch.float32, 0.1, 1.0))
 
 
+# (shape, rate, seed, offset, special): the main path's shape at both
+# rates, ragged sizes, views one element into a larger buffer, and the
+# values a select must drop (NaN, Inf) or keep the sign rule of (-0.0)
+DROPOUT_FUSED_CASES = (
+    ((4096, 1024), 0.1, 1234567891234, 0, False),
+    ((4096, 1024), 0.5, 1234567891234, 0, False),
+    ((1001, 3), 0.3, 99, 0, False), ((7,), 0.3, 99, 0, False),
+    ((5,), 0.3, 99, 0, False), ((1,), 0.3, 99, 0, False),
+    ((4096, 1024), 0.1, 7, 1, False), ((1001, 3), 0.3, 99, 1, False),
+    ((4096, 1024), 0.5, 5, 0, True), ((1001, 3), 0.5, 5, 1, True))
+
+
 def phase_training_kernels() -> dict:
-    errs = {"dropout_mask": {}, "xent_forward": {}, "xent_backward": {}}
+    errs = {"dropout_mask": {}, "dropout_fwd": {}, "dropout_bwd": {},
+            "xent_forward": {}, "xent_backward": {}}
+    checks = 0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         for rate in (0.1, 0.5):
             check_dropout(dtype, (4096, 1024), rate, seed=1234567891234)
         for shape in ((1001, 3), (7,), (5,), (1,)):
             check_dropout(dtype, shape, 0.3, seed=99)
-        errs["dropout_mask"][name] = 0.0          # bit-identical above
-    # degenerate rates draw no mask: no launch
+        for shape, rate, seed, offset, special in DROPOUT_FUSED_CASES:
+            checks += check_dropout_fused(dtype, shape, rate, seed, offset,
+                                          special)
+        for k in ("dropout_mask", "dropout_fwd", "dropout_bwd"):
+            errs[k][name] = 0.0                   # bit-identical above
+    log(f"dropout fused forward and backward: {checks} checks bit-identical "
+        f"to the plain composition over {len(DROPOUT_FUSED_CASES)} cases "
+        f"a dtype")
+    # degenerate rates draw no mask: no launch of any dropout kernel
     x = torch.ones((64, 64), device=DEV)
-    n0 = dropout_mask.launches
+    n0 = [KERNELS[k]["fn"].launches
+          for k in ("dropout_mask", "dropout_fwd", "dropout_bwd")]
     assert torch.equal(dk_mod.fused_dropout(x, 1, 0.0), x)
     assert torch.count_nonzero(dk_mod.fused_dropout(x, 1, 1.0)) == 0
-    assert dropout_mask.launches == n0, "a degenerate rate launched"
+    assert torch.equal(dk_mod.fused_dropout_add(x, x, 1, 0.0), 2 * x)
+    assert torch.equal(dk_mod.fused_dropout_add(x, x, 1, 1.0), x)
+    assert n0 == [KERNELS[k]["fn"].launches for k in
+                  ("dropout_mask", "dropout_fwd", "dropout_bwd")], \
+        "a degenerate rate launched"
     for N, V, dtype, eps, scale in XENT_CASES:
         e = check_xent(N, V, dtype, eps, scale)
         name = str(dtype).replace("torch.", "")
@@ -1332,7 +1468,9 @@ def phase_training_kernels() -> dict:
             errs["xent_backward"].get(name, 0.0), e["dlogits"])
     log(json.dumps({"training_kernels": [
         {"name": k, "max_err": v} for k, v in errs.items()],
-        "tol": {"dropout_mask": "bit-identical", "xent_forward":
+        "tol": {"dropout_mask": "bit-identical", "dropout_fwd":
+                "bit-identical", "dropout_bwd": "bit-identical",
+                "xent_forward":
                 f"lse rel {LSE_RTOL}", "xent_backward": {
                     str(dt).replace("torch.", ""):
                         f"rtol {r} of |ref| + atol {a} of max|ref|"
@@ -1388,7 +1526,11 @@ def _per_step(L, T) -> dict:
     T: flash (forward, dK/dV, dQ) once a layer where the model's
     attention takes it (at or above the 512² crossover), else never."""
     flash = L if fa_mod.kernel_active(T, T, DEV) else 0
-    return {"dropout_mask": 2 * L + 1, "xent_forward": 1,
+    # each dropout site (the embedding's, two DropoutAdds a layer) is one
+    # fused forward and one fused backward launch; the mask-only kernel
+    # is off the path
+    return {"dropout_mask": 0, "dropout_fwd": 2 * L + 1,
+            "dropout_bwd": 2 * L + 1, "xent_forward": 1,
             "xent_backward": 1, **{n: flash for n in FLASH_KERNELS}}
 
 
@@ -1410,6 +1552,11 @@ def phase_training(smi: str, B: int, T: int) -> dict:
             rec.setdefault(key, args)
         return keep
 
+    def keep_first_site(args, kw):
+        # a DropoutAdd's inputs: the first call with a residual
+        if args[1] is not None:
+            rec.setdefault("dropout_fwd", args)
+
     def step():
         with autograd.record():
             loss = model(tokens, labels)
@@ -1422,7 +1569,8 @@ def phase_training(smi: str, B: int, T: int) -> dict:
     # the counts start from 0 here and are read right after the phase
     for name in per_step:
         KERNELS[name]["fn"].launches = 0
-    with recording(dk_mod, "_mask_cuda", keep_first("mask")), \
+    with recording(dk_mod, "_fwd_cuda", keep_first_site), \
+            recording(dk_mod, "_bwd_cuda", keep_first("dropout_bwd")), \
             recording(xk_mod, "_fwd_cuda", keep_first("fwd")), \
             recording(xk_mod, "_bwd_cuda", keep_first("bwd")), \
             recording(fa_mod, "_flash_bwd_core", keep_first("flash_bwd")):
@@ -1504,10 +1652,13 @@ def phase_training(smi: str, B: int, T: int) -> dict:
                  if "dkdv_kernel" in n or "dq_kernel" in n)
     fwd_ms = sum(ms for n, ms in busy["by_name"].items()
                  if "tc::fwd_kernel" in n or "flash_fwd_kernel" in n)
+    drop_ms = sum(ms for n, ms in busy["by_name"].items()
+                  if "dropout_kernel" in n)
     card_ms = busy["busy_s"] * 1e3
     log(f"one profiled training step [{smi}]: {prof_s * 1e3:.1f} ms wall, "
         f"card busy {card_ms:.1f} ms = {busy['busy_share']:.3f} "
         f"(idle {1 - busy['busy_share']:.3f}), {busy['kernels']} kernels; "
+        f"dropout kernels {drop_ms:.3f} ms = {drop_ms / card_ms:.3f}, "
         f"flash forward kernel {fwd_ms:.3f} ms = {fwd_ms / card_ms:.3f} and "
         f"flash backward kernels {bwd_ms:.3f} ms = "
         f"{bwd_ms / card_ms:.3f} of the card time; "
@@ -1522,11 +1673,13 @@ def phase_training(smi: str, B: int, T: int) -> dict:
 def plain_kernels():
     """Swap every kernel's launcher for its plain version (the parity
     harness's switch; the main paths never enter it)."""
-    saved = (dk_mod._mask_cuda, xk_mod._fwd_cuda, xk_mod._bwd_cuda,
-             fa_mod._flash_core, fa_mod._flash_bwd_core, pa_mod._launch,
-             pa_mod._launch_q8)
+    saved = (dk_mod._mask_cuda, dk_mod._fwd_cuda, dk_mod._bwd_cuda,
+             xk_mod._fwd_cuda, xk_mod._bwd_cuda, fa_mod._flash_core,
+             fa_mod._flash_bwd_core, pa_mod._launch, pa_mod._launch_q8)
     dk_mod._mask_cuda = lambda n, seed, rate, dev: mask_reference(
         n, seed, rate, device=dev)
+    dk_mod._fwd_cuda = dropout_fwd_reference
+    dk_mod._bwd_cuda = dropout_bwd_reference
     xk_mod._fwd_cuda = stats_reference
     xk_mod._bwd_cuda = dlogits_reference
     fa_mod._flash_core = _reference_attention_lse
@@ -1537,9 +1690,9 @@ def plain_kernels():
     try:
         yield
     finally:
-        (dk_mod._mask_cuda, xk_mod._fwd_cuda, xk_mod._bwd_cuda,
-         fa_mod._flash_core, fa_mod._flash_bwd_core, pa_mod._launch,
-         pa_mod._launch_q8) = saved
+        (dk_mod._mask_cuda, dk_mod._fwd_cuda, dk_mod._bwd_cuda,
+         xk_mod._fwd_cuda, xk_mod._bwd_cuda, fa_mod._flash_core,
+         fa_mod._flash_bwd_core, pa_mod._launch, pa_mod._launch_q8) = saved
 
 
 def _one_step(cfg, B, T, plain: bool):
@@ -1596,10 +1749,92 @@ def _bound(nbytes, flops, peak_flops):
         "bytes" if t_bytes >= t_ops else "operations"
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), the clock
+    of the integer-multiply bound."""
+    try:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.split()[0])
+    except (OSError, IndexError, ValueError, subprocess.SubprocessError):
+        raise SystemExit("chip_smoke: nvidia-smi gave no clocks.max.sm")
+    return mhz * 1e6
+
+
+def time_dropout(rec) -> dict:
+    """The three dropout kernels at the inputs of the main path's first
+    DropoutAdd (the forward) and its first backward, held bit for bit to
+    the plain versions there and timed beside them, the old site (the
+    mask kernel, then the torch apply and add, and autograd's backward of
+    them) and a one-call PyTorch yardstick; bounds: the mask kernel's the
+    larger of its bytes and its integer multiplies, the fused entries'
+    their bytes."""
+    x, res, seed, rate = rec["dropout_fwd"]
+    dy, mask, brate = rec["dropout_bwd"]
+    n, e = x.numel(), x.element_size()
+    y, m = dropout_fwd(x, res, seed, rate)
+    ref_y, ref_m = dropout_fwd_reference(x, res, seed, rate)
+    assert torch.equal(m, ref_m) and torch.equal(_bits(y), _bits(ref_y)), \
+        "dropout forward at main-path inputs differs"
+    dx = dropout_bwd(dy, mask, brate)
+    ref_dx = dropout_bwd_reference(dy, mask, brate)
+    assert torch.equal(_bits(dx), _bits(ref_dx)), \
+        "dropout backward at main-path inputs differs"
+    assert torch.equal(dropout_mask(x, seed, rate).view(-1),
+                       mask_reference(n, seed, rate, device=x.device)), \
+        "dropout mask at main-path inputs differs"
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    int_peak = sms * INT_MULS_PER_CLOCK_SM * clock
+    muls = (n + 3) // 4 * PHILOX_MULS
+    shape = f"{tuple(x.shape)} {x.dtype} rate={rate}"
+    out = {}
+    bound, by = _bound(n, muls, int_peak)
+    out["dropout_mask"] = {
+        "shape": shape, "max_abs_err": 0.0,
+        "ms": time_ms(lambda: dropout_mask(x, seed, rate)),
+        "plain_ms": time_ms(lambda: mask_reference(n, seed, rate,
+                                                   device=x.device)),
+        "library_ms": time_ms(lambda: torch.empty(
+            n, dtype=torch.uint8, device=x.device).bernoulli_(1 - rate)),
+        "bound_ms": bound, "bound_by": by,
+        "bytes_ms": n / HBM_BYTES_PER_S * 1e3,
+        "ops_ms": muls / int_peak * 1e3, "sm_clock_mhz": clock / 1e6,
+        "sms": sms}
+    bound, by = _bound(n * (3 * e + 1), muls, int_peak)
+    out["dropout_fwd"] = {
+        "shape": shape + " + residual", "max_abs_err": 0.0,
+        "ms": time_ms(lambda: dropout_fwd(x, res, seed, rate)),
+        "plain_ms": time_ms(lambda: dropout_fwd_reference(x, res, seed,
+                                                          rate)),
+        "old_ms": time_ms(lambda: res + dk_mod._apply_mask(
+            x, dropout_mask(x, seed, rate), rate)),
+        "library_ms": time_ms(lambda: F.dropout(x, rate) + res),
+        "bound_ms": bound, "bound_by": by}
+    # the old backward: autograd through the apply and the add
+    xr = x.detach().requires_grad_()
+    old = res + dk_mod._apply_mask(xr, mask, brate)
+    bound, by = _bound(n * (2 * e + 1), 0, PEAK_FLOPS[torch.float32])
+    out["dropout_bwd"] = {
+        "shape": f"{tuple(dy.shape)} {dy.dtype} rate={brate}",
+        "max_abs_err": 0.0,
+        "ms": time_ms(lambda: dropout_bwd(dy, mask, brate)),
+        "plain_ms": time_ms(lambda: dropout_bwd_reference(dy, mask, brate)),
+        "old_ms": time_ms(lambda: torch.autograd.grad(
+            old, xr, dy, retain_graph=True)),
+        "library_ms": time_ms(lambda: torch.ops.aten.native_dropout_backward(
+            dy, mask.view(torch.bool), dk_mod._scale(brate, dy.dtype))),
+        "bound_ms": bound, "bound_by": by}
+    # what any one launch costs in `time_ms`: a one-element fill
+    one = torch.empty(1, device=x.device)
+    out["launch_floor_ms"] = time_ms(lambda: one.fill_(0.0))
+    return out
+
+
 def time_training_kernels(tres) -> dict:
     rec = tres["rec"]
     (x2, want_sum), (bx, labels, lse, g, eps) = rec["fwd"], rec["bwd"]
-    n_mask, seed, rate, mdev = rec["mask"]
     N, V = x2.shape
     out = {}
     # forward: read (N, V) once, write lse; ~4 f32 ops an element
@@ -1632,22 +1867,7 @@ def time_training_kernels(tres) -> dict:
         "library_ms": time_ms(lambda: torch.autograd.grad(
             ce, xr, g.to(ce.dtype), retain_graph=True)),
         "bound_ms": bound, "bound_by": by}
-    # keep-mask: writes one byte an element and reads nothing; its
-    # Philox work is integer arithmetic, for which the data-sheet table
-    # gives no peak, so only bytes enter the bound
-    xm = torch.empty((n_mask,), device=mdev)
-    ok = torch.equal(dropout_mask(xm, seed, rate),
-                     mask_reference(n_mask, seed, rate, device=mdev))
-    assert ok, "dropout mask at main-path inputs differs"
-    bound, by = _bound(n_mask, 0, PEAK_FLOPS[torch.float32])
-    out["dropout_mask"] = {
-        "shape": f"{n_mask} elements rate={rate}", "max_abs_err": 0.0,
-        "ms": time_ms(lambda: dropout_mask(xm, seed, rate)),
-        "plain_ms": time_ms(lambda: mask_reference(n_mask, seed, rate,
-                                                   device=mdev)),
-        "library_ms": time_ms(lambda: torch.empty(
-            n_mask, dtype=torch.uint8, device=mdev).bernoulli_(1 - rate)),
-        "bound_ms": bound, "bound_by": by}
+    out.update(time_dropout(rec))
     return out
 
 
@@ -1897,6 +2117,7 @@ def main() -> int:
     tres = timed("training", phase_training, smi, *BERT_BATCH)
     timed("training_parity", phase_train_parity, 8, 128)
     times.update(timed("training_timing", time_training_kernels, tres))
+    launch_floor = times.pop("launch_floor_ms")
     del tres["rec"]
     # phase-2 pretraining: attention through the flash kernels
     tres512 = timed("training_512", phase_training, smi, *BERT_BATCH_512)
@@ -1930,7 +2151,15 @@ def main() -> int:
         r = times[name]
         log(f"{name} {r['shape']}: {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            + (f", the old site {r['old_ms']:.4f} ms" if "old_ms" in r
+               else "") + f" [{smi}]")
+    r = times["dropout_mask"]
+    log(f"dropout_mask bound reckonings: {r['bytes_ms']:.5f} ms of bytes, "
+        f"{r['ops_ms']:.5f} ms of {PHILOX_MULS} integer multiplies per 4 "
+        f"elements at {INT_MULS_PER_CLOCK_SM} a clock an SM x {r['sms']} "
+        f"SMs x {r['sm_clock_mhz']:.0f} MHz (clocks.max.sm); one "
+        f"one-element launch takes {launch_floor:.4f} ms in time_ms [{smi}]")
     for name, r in longctx.items():
         half = "forward" if name == "flash_attention" else "backward"
         log(f"{name} long-context {r['shape']}: {r['ms']:.4f} ms, plain "

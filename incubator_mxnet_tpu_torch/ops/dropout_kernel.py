@@ -1,19 +1,29 @@
 """Fused dropout (PyTorch/CUDA port of
 `incubator_mxnet_tpu/ops/dropout_kernel.py`).
 
-The kernel writes only the uint8 keep-mask; the apply
-``where(mask, x * scale, 0)`` and the residual add stay torch ops, and
-autograd's backward of that apply reuses the saved mask, so forward and
-backward drop the same elements and the kernel runs in the forward
-only.  Two versions of the mask:
+The JAX package's kernel writes only the uint8 keep-mask and leaves the
+apply ``where(mask, x * scale, 0) [+ res]`` to XLA, which fuses it into
+the surrounding fusions.  Eager PyTorch fuses nothing, so on the card
+the port writes that fusion out: ``csrc/dropout.cu`` draws the mask,
+writes it and applies it (with the residual add) in one pass, and its
+backward applies the saved mask to the gradient in one pass.  Three
+entry points, each with its plain PyTorch version:
 
-* `mask_reference` — the plain PyTorch version: Philox4x32-10 in int64
-  tensor ops (each 32-bit product split into 16-bit halves, since torch
-  has no unsigned multiply-high).  The CPU path, and the oracle the
-  kernel is held to bit for bit.
-* ``csrc/dropout.cu`` — the hand-written CUDA kernel that replaces the
-  Pallas TPU kernel `_dropout_kernel` (launched by `_kernel2d`): one
-  thread per 4 mask bytes, one Philox call each.
+* `dropout_mask` — the keep-mask alone (``mx_dropout_mask``); plain
+  version `mask_reference`: Philox4x32-10 in int64 tensor ops (each
+  32-bit product split into 16-bit halves, since torch has no unsigned
+  multiply-high).
+* `dropout_fwd` — (``[res +] where(keep, x * scale, 0)``, mask)
+  (``mx_dropout_fwd``); plain version `dropout_fwd_reference`.
+* `dropout_bwd` — ``where(mask, dy, 0) * scale`` (``mx_dropout_bwd``);
+  plain version `dropout_bwd_reference`.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and takes
+its plain version for CPU tensors.  `fused_dropout` and
+`fused_dropout_add` on CUDA tensors run `_DropoutApply`, an autograd
+Function over the forward and backward kernels; on CPU tensors they
+are the composition of `dropout_mask` and the torch apply, with
+autograd's own backward.  The two give the same bits.
 
 Mask contract: element ``i`` of the flattened array is kept iff word
 ``i % 4`` of ``philox4x32_10(counter=(i // 4, 0, 0), key=seed)`` is
@@ -21,12 +31,10 @@ Mask contract: element ``i`` of the flattened array is kept iff word
 (seed, numel, rate), independent of dtype and launch geometry.  The JAX
 package's bits differ (the TPU's PRNG, threefry elsewhere), so the
 port holds the contract, not JAX's bits.
-
-`dropout_mask` takes the plain version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -35,11 +43,25 @@ from .. import _build
 from ..base import MXNetError
 
 __all__ = ["fused_dropout", "fused_dropout_add", "dropout_mask",
-           "mask_reference", "philox4x32_10", "threshold"]
+           "dropout_fwd", "dropout_bwd", "dropout_fwd_reference",
+           "dropout_bwd_reference", "mask_reference", "philox4x32_10",
+           "threshold"]
 
 _U32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57        # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85        # Weyl key increments
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype codes
+_P = ctypes.c_void_p
+_ARGTYPES = {
+    "mx_dropout_mask": [_P, ctypes.c_longlong, ctypes.c_ulonglong,
+                        ctypes.c_uint, _P],
+    "mx_dropout_fwd": [_P, _P, _P, _P, ctypes.c_longlong,
+                       ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float,
+                       ctypes.c_int, _P],
+    "mx_dropout_bwd": [_P, _P, _P, ctypes.c_longlong, ctypes.c_float,
+                       ctypes.c_int, _P],
+}
+_bound: dict = {}                         # entry name -> (library, function)
 
 
 def threshold(rate: float) -> int:
@@ -85,43 +107,6 @@ def mask_reference(numel: int, seed: int, rate: float,
     return (bits >= threshold(rate)).to(torch.uint8)
 
 
-def _mask_cuda(numel: int, seed: int, rate: float, device) -> torch.Tensor:
-    """Launch ``csrc/dropout.cu``: the keep-mask, uint8 (numel,)."""
-    mask = torch.empty(numel, dtype=torch.uint8, device=device)
-    if numel == 0:
-        return mask
-    import ctypes
-
-    fn = _build.load("dropout").mx_dropout_mask
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
-                   ctypes.c_uint, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(mask.data_ptr(), numel, int(seed) & ((1 << 64) - 1),
-             threshold(rate), _build.stream(device))
-    if err != 0:
-        raise MXNetError(f"dropout mask kernel launch failed "
-                         f"(CUDA error {err})")
-    dropout_mask.launches += 1
-    return mask
-
-
-def dropout_mask(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """The uint8 keep-mask for ``x`` (same shape; a function of seed,
-    numel and rate only).  CUDA tensors launch the kernel, CPU tensors
-    take the plain version."""
-    if x.device.type == "cuda":
-        m = _mask_cuda(x.numel(), seed, rate, x.device)
-    elif x.device.type == "cpu":
-        m = mask_reference(x.numel(), seed, rate)
-    else:
-        raise MXNetError(f"dropout_mask: unsupported device {x.device}")
-    return m.view(x.shape)
-
-
-# kernel launches since import (the main-path proof in chip_smoke.py)
-dropout_mask.launches = 0
-
-
 @functools.lru_cache(maxsize=64)
 def _scale(rate: float, dtype: torch.dtype) -> float:
     """1/(1-rate) rounded to ``dtype`` first, as the JAX apply
@@ -133,6 +118,177 @@ def _apply_mask(x, mask, rate):
     return torch.where(mask.view(torch.bool), x * _scale(rate, x.dtype), 0.0)
 
 
+def dropout_fwd_reference(x, res, seed: int, rate: float):
+    """Plain version of the fused forward: (``[res +] where(keep,
+    x * scale, 0)``, the uint8 keep-mask shaped like ``x``)."""
+    mask = mask_reference(x.numel(), seed, rate, device=x.device)
+    mask = mask.view(x.shape)
+    y = _apply_mask(x, mask, rate)
+    return (y if res is None else res + y), mask
+
+
+def dropout_bwd_reference(dy, mask, rate: float):
+    """Plain version of the fused backward: ``where(mask, dy, 0) *
+    scale``, as autograd differentiates `_apply_mask`."""
+    return torch.where(mask.view(torch.bool), dy, 0.0) \
+        * _scale(rate, dy.dtype)
+
+
+def _entry(name: str):
+    """``csrc/dropout.cu``'s C function ``name``, its argument and
+    result types set once per loaded library."""
+    lib = _build.load("dropout")
+    hit = _bound.get(name)
+    if hit is not None and hit[0] is lib:
+        return hit[1]
+    fn = getattr(lib, name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    _bound[name] = (lib, fn)
+    return fn
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise MXNetError(f"dropout {what} kernel launch failed "
+                         f"(CUDA error {err})")
+
+
+def _seed64(seed: int) -> int:
+    return int(seed) & ((1 << 64) - 1)
+
+
+def _mask_cuda(numel: int, seed: int, rate: float, device) -> torch.Tensor:
+    """Launch ``mx_dropout_mask``: the keep-mask, uint8 (numel,)."""
+    mask = torch.empty(numel, dtype=torch.uint8, device=device)
+    if numel == 0:
+        return mask
+    err = _entry("mx_dropout_mask")(mask.data_ptr(), numel, _seed64(seed),
+                                    threshold(rate), _build.stream(device))
+    _raise_on(err, "mask")
+    dropout_mask.launches += 1
+    return mask
+
+
+def _operand(t: torch.Tensor, like: torch.Tensor, what: str) -> torch.Tensor:
+    """``t`` checked against ``like`` (device, dtype, shape) and made
+    contiguous (a copy where it is not)."""
+    if t.device != like.device or t.dtype != like.dtype \
+            or t.shape != like.shape:
+        raise MXNetError(f"dropout: {what} {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device} does not match {tuple(like.shape)} "
+                         f"{like.dtype} on {like.device}")
+    return t.contiguous()
+
+
+def _dtype_code(t: torch.Tensor) -> int:
+    code = _DTYPES.get(t.dtype)
+    if code is None:
+        raise MXNetError(f"dropout kernel: dtype {t.dtype} (float32 or "
+                         f"bfloat16)")
+    return code
+
+
+def _fwd_cuda(x, res, seed: int, rate: float):
+    """Launch ``mx_dropout_fwd``: (y, uint8 mask), both shaped like x."""
+    code = _dtype_code(x)
+    x = x.contiguous()
+    if res is not None:
+        res = _operand(res, x, "residual")
+    y = torch.empty_like(x)
+    mask = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    if x.numel() == 0:
+        return y, mask
+    err = _entry("mx_dropout_fwd")(
+        x.data_ptr(), None if res is None else res.data_ptr(), y.data_ptr(),
+        mask.data_ptr(), x.numel(), _seed64(seed), threshold(rate),
+        _scale(rate, x.dtype), code, _build.stream(x.device))
+    _raise_on(err, "forward")
+    dropout_fwd.launches += 1
+    return y, mask
+
+
+def _bwd_cuda(dy, mask, rate: float):
+    """Launch ``mx_dropout_bwd``: dx shaped like dy."""
+    code = _dtype_code(dy)
+    dy = dy.contiguous()
+    if mask.dtype != torch.uint8 or mask.shape != dy.shape \
+            or mask.device != dy.device:
+        raise MXNetError(f"dropout backward: mask {tuple(mask.shape)} "
+                         f"{mask.dtype} for dy {tuple(dy.shape)}")
+    mask = mask.contiguous()
+    dx = torch.empty_like(dy)
+    if dy.numel() == 0:
+        return dx
+    err = _entry("mx_dropout_bwd")(
+        dy.data_ptr(), mask.data_ptr(), dx.data_ptr(), dy.numel(),
+        _scale(rate, dy.dtype), code, _build.stream(dy.device))
+    _raise_on(err, "backward")
+    dropout_bwd.launches += 1
+    return dx
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the kernels (cuda) or the plain versions
+    (cpu); other devices are refused."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise MXNetError(f"dropout: unsupported device {t.device}")
+
+
+def dropout_mask(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """The uint8 keep-mask for ``x`` (same shape; a function of seed,
+    numel and rate only)."""
+    if _on_cuda(x):
+        m = _mask_cuda(x.numel(), seed, rate, x.device)
+    else:
+        m = mask_reference(x.numel(), seed, rate)
+    return m.view(x.shape)
+
+
+def dropout_fwd(x, res, seed: int, rate: float):
+    """(``[res +] where(keep, x * scale, 0)``, uint8 keep-mask) in one
+    pass; ``res`` may be None."""
+    if _on_cuda(x):
+        return _fwd_cuda(x, res, seed, rate)
+    return dropout_fwd_reference(x, res, seed, rate)
+
+
+def dropout_bwd(dy, mask, rate: float):
+    """``where(mask, dy, 0) * scale`` in one pass."""
+    if _on_cuda(dy):
+        return _bwd_cuda(dy, mask, rate)
+    return dropout_bwd_reference(dy, mask, rate)
+
+
+# kernel launches since import (the main-path proof in chip_smoke.py)
+dropout_mask.launches = 0
+dropout_fwd.launches = 0
+dropout_bwd.launches = 0
+
+
+class _DropoutApply(torch.autograd.Function):
+    """``[res +] dropout(x)`` through the fused kernels: the forward
+    saves the mask it drew, the backward applies it to dy; the
+    residual's gradient is dy itself."""
+
+    @staticmethod
+    def forward(ctx, x, res, seed, rate):
+        y, mask = dropout_fwd(x, res, seed, rate)
+        ctx.save_for_backward(mask)
+        ctx.rate = rate
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (mask,) = ctx.saved_tensors
+        dx = dropout_bwd(dy, mask, ctx.rate) \
+            if ctx.needs_input_grad[0] else None
+        return dx, dy if ctx.needs_input_grad[1] else None, None, None
+
+
 def fused_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     """Dropout of ``x`` with the mask of (``seed``, numel, ``rate``).
     rate >= 1 gives zeros; rate <= 0 or an empty ``x`` gives ``x``; no
@@ -141,10 +297,17 @@ def fused_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
         return torch.zeros_like(x)
     if rate <= 0.0 or x.numel() == 0:
         return x
+    if _on_cuda(x):
+        return _DropoutApply.apply(x, None, seed, rate)
     return _apply_mask(x, dropout_mask(x, seed, rate), rate)
 
 
 def fused_dropout_add(x, res, seed: int, rate: float) -> torch.Tensor:
-    """``res + dropout(x)`` — the transformer post-sublayer pattern,
-    literally ``res + fused_dropout(...)`` as in the JAX package."""
-    return res + fused_dropout(x, seed, rate)
+    """``res + dropout(x)`` — the transformer post-sublayer pattern, as
+    ``res + fused_dropout(...)`` in the JAX package; on CUDA one kernel
+    draws the mask, applies it and adds ``res``."""
+    if rate >= 1.0 or rate <= 0.0 or x.numel() == 0:
+        return res + fused_dropout(x, seed, rate)
+    if _on_cuda(x):
+        return _DropoutApply.apply(x, res, seed, rate)
+    return res + _apply_mask(x, dropout_mask(x, seed, rate), rate)

@@ -137,7 +137,8 @@ TINY_BERT = dict(vocab_size=600, units=16, hidden_size=32, num_layers=1,
 
 def test_training_entry_points_default_to_cuda(monkeypatch):
     from incubator_mxnet_tpu_torch.models import BERTForPretraining
-    from incubator_mxnet_tpu_torch.ops import dropout_mask, xent_forward
+    from incubator_mxnet_tpu_torch.ops import (dropout_bwd, dropout_fwd,
+                                               dropout_mask, xent_forward)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError):
@@ -148,6 +149,10 @@ def test_training_entry_points_default_to_cuda(monkeypatch):
     meta = torch.empty((4, 600), device="meta")
     with pytest.raises(MXNetError):
         dropout_mask(meta, 1, 0.1)
+    with pytest.raises(MXNetError):
+        dropout_fwd(meta, None, 1, 0.1)
+    with pytest.raises(MXNetError):
+        dropout_bwd(meta, meta.to(torch.uint8), 0.1)
     with pytest.raises(MXNetError):
         xent_forward(meta)
 
@@ -166,7 +171,7 @@ def test_training_cpu_path_never_builds_or_loads_kernels():
         "SoftmaxCrossEntropyLoss\n"
         "from incubator_mxnet_tpu_torch.models import BERTForPretraining\n"
         "from incubator_mxnet_tpu_torch.ops import (dropout_mask,\n"
-        "    xent_forward, xent_backward)\n"
+        "    dropout_fwd, dropout_bwd, xent_forward, xent_backward)\n"
         f"net = BERTForPretraining(**{TINY_BERT!r}, device='cpu')\n"
         "net.initialize()\n"
         "tr = Trainer(net.collect_params(), 'sgd', {'momentum': 0.9})\n"
@@ -178,6 +183,7 @@ def test_training_cpu_path_never_builds_or_loads_kernels():
         "tr.step(2)\n"
         "assert not _build._libs\n"
         "assert dropout_mask.launches == 0\n"
+        "assert dropout_fwd.launches == dropout_bwd.launches == 0\n"
         "assert xent_forward.launches == xent_backward.launches == 0\n"
         "print('ok')\n")
     assert res.returncode == 0, res.stderr
@@ -216,6 +222,9 @@ def _launchers():
         "flash_dq": (lambda: fa._dq_cuda(*bwd), fa.flash_bwd_dq),
         "dropout": (lambda: dk._mask_cuda(2400, 7, 0.1, x.device),
                     dk.dropout_mask),
+        "dropout_fwd": (lambda: dk._fwd_cuda(x, x, 7, 0.1), dk.dropout_fwd),
+        "dropout_bwd": (lambda: dk._bwd_cuda(
+            x, torch.ones(x.shape, dtype=torch.uint8), 0.1), dk.dropout_bwd),
         "xent_forward": (lambda: xk._fwd_cuda(x, False), xk.xent_forward),
         "xent_backward": (lambda: xk._bwd_cuda(
             x, torch.zeros(4, dtype=torch.long), torch.zeros(4),
@@ -223,7 +232,8 @@ def _launchers():
     }
 
 
-KERNELS = ["dropout", "xent_forward", "xent_backward", "flash_forward",
+KERNELS = ["dropout", "dropout_fwd", "dropout_bwd", "xent_forward",
+           "xent_backward", "flash_forward",
            "flash_dkdv", "flash_dq", "paged", "paged_q8"]
 
 
@@ -328,6 +338,7 @@ def test_chip_smoke_names_the_int8_paged_kernel():
 @pytest.mark.parametrize("name", ["paged_attention", "paged_attention_q8",
                                   "flash_attention", "flash_bwd_dkdv",
                                   "flash_bwd_dq", "dropout_mask",
+                                  "dropout_fwd", "dropout_bwd",
                                   "xent_forward", "xent_backward"])
 def test_chip_smoke_rows_point_at_pallas_calls(name):
     """Each kernel row's ``replaces`` names a line of the JAX package
