@@ -132,6 +132,30 @@ Phases (any failure ends the run with a non-zero exit code):
    first different where the top-2 gap is below 1e-3), and greedy
    parity >= 95% of the kv8 against the float engine and of int8-weight
    against float ``generate``.
+17. speculative path (runs right after phase 14) — phase 4's net with
+   ``quantize_for_decode`` as its own int8 draft (``speculate_k=4``,
+   float target weights): phase 4's traffic with its prefix-cache hit
+   and a profiled solo request, the same over int8 KV pages, and a
+   sampled run (temperature 1.0, top_k 50, at least one rejection);
+   each in its own launch-count window, where the paged kernel must
+   launch 12 x (4 x iterations + iterations + 2 x chunks) (over int8
+   pages the verify and target chunks on the int8-page kernel) and
+   flash never; greedy tokens held to the non-speculative engine's by
+   the gap rule (f32: top-2 gap below 1e-3; bf16: below 4 bf16 ULPs of
+   the top logit); one recorded verify launch of B·(k+1) rows bit-equal
+   to k+1 launches of B rows; whether cuBLAS gives the decode products
+   the same bits at 8 rows alone and inside 40; prints decoded tok/s
+   beside the float engine's, the accept rate, tokens a lane a verify,
+   TTFT and TPOT p50, rollback reasons, busy share and kernels a
+   scheduler iteration;
+18. beam search — ``beam_search`` on phase 4's net, B=2, P=128, N=32:
+   beam_size=1 held to ``generate`` by the gap rule; beam_size=4 sorted,
+   its best score within 2^-7 of the summed magnitudes of ``lm_score``
+   over its tokens, one flash launch a layer a call;
+19. speculative parity (runs after phase 16) — 2 layers, f32: the
+   self-drafted speculative engine through the kernels against the
+   same engine on the plain versions and against the non-speculative
+   engine, by the gap rule.
 
 The line before the last is a JSON object with every kernel's launches
 (summed over the main paths that ran it), error, time, plain-version
@@ -653,6 +677,29 @@ def _live_pages(tables, pos, bs):
             for j in range(int(p[b]) // bs + 1)}
 
 
+def _burst(eng, prompts, n_new=32):
+    """Phase 4's traffic on ``eng``: a warm-up request, then one request
+    a prompt and, once request 1 decodes, its prompt again (a
+    prefix-cache hit).  Returns (tokens a prompt, the hit's tokens, the
+    hit's request, seconds, every timed request)."""
+    eng.submit(prompts[0][:40], 2).result(timeout=300)      # warm-up
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, n_new) for p in prompts]
+    deadline = time.monotonic() + 300
+    while reqs[1].status != "running" and not reqs[1].finished:
+        assert time.monotonic() < deadline, "request 1 stalled"
+        time.sleep(0.001)
+    dup = eng.submit(prompts[1], n_new)
+    toks = [r.result(timeout=600) for r in reqs]
+    dup_toks = dup.result(timeout=600)
+    return toks, dup_toks, dup, time.perf_counter() - t0, reqs + [dup]
+
+
+def _p50(reqs, field):
+    vals = [getattr(r, field) for r in reqs if getattr(r, field) is not None]
+    return float(np.median(vals))
+
+
 def _build_net(dtype, num_layers, seed):
     cfg = dict(MODEL, num_layers=num_layers)
     net = TransformerLM(**cfg, dropout=0.0, device=DEV, seed=seed)
@@ -712,19 +759,7 @@ def phase_main_path(smi: str) -> dict:
                             prefill_chunk=32)
         pools0.append((eng._programs.pool_k[0], eng._programs.pool_v[0]))
         try:
-            eng.submit(prompts[0][:40], 2).result(timeout=300)  # warm-up
-            t0 = time.perf_counter()
-            reqs = [eng.submit(p, 32) for p in prompts]
-            # the same prompt again once its blocks are registered: a
-            # prefix-cache hit, co-batched with the rest
-            deadline = time.monotonic() + 300
-            while reqs[1].status != "running" and not reqs[1].finished:
-                assert time.monotonic() < deadline, "request 1 stalled"
-                time.sleep(0.001)
-            dup = eng.submit(prompts[1], 32)
-            toks = [r.result(timeout=600) for r in reqs]
-            dup_toks = dup.result(timeout=600)
-            eng_s = time.perf_counter() - t0
+            toks, dup_toks, dup, eng_s, reqs_all = _burst(eng, prompts)
             st = eng.stats()
             kv = {"kv_bytes_per_token": eng.kv_bytes_per_token,
                   "kv_pool_bytes": eng.kv_pool_bytes}
@@ -758,15 +793,12 @@ def phase_main_path(smi: str) -> dict:
             f"{name} was never launched on the main path"
     assert launches["paged_attention_q8"] == 0, launches
 
-    reqs_all = reqs + [dup]
     n_tok = sum(len(r.tokens) for r in reqs_all)
-    ttft = sorted(r.ttft for r in reqs_all)
-    tpot = sorted(r.tpot for r in reqs_all if r.tpot is not None)
     res = {
         "generate_tok_s": 8 * 32 / gen_s,
         "engine_tok_s": n_tok / eng_s,
-        "ttft_p50_s": float(np.median(ttft)),
-        "tpot_p50_s": float(np.median(tpot)),
+        "ttft_p50_s": _p50(reqs_all, "ttft"),
+        "tpot_p50_s": _p50(reqs_all, "tpot"),
         "engine_steps": st["steps"],
         "prefix_hits": st["prefix_cache"]["hits"],
         "launches": launches,
@@ -1031,17 +1063,7 @@ def phase_quant_path(smi: str, res) -> dict:
         pools.append(layer0(eng))
         try:
             assert eng.path == "int8" and eng.kv_dtype == "int8"
-            eng.submit(prompts[0][:40], 2).result(timeout=300)  # warm-up
-            t0 = time.perf_counter()
-            reqs = [eng.submit(p, 32) for p in prompts]
-            deadline = time.monotonic() + 300
-            while reqs[1].status != "running" and not reqs[1].finished:
-                assert time.monotonic() < deadline, "request 1 stalled"
-                time.sleep(0.001)
-            dup = eng.submit(prompts[1], 32)
-            toks = [r.result(timeout=600) for r in reqs]
-            dup_toks = dup.result(timeout=600)
-            eng_s = time.perf_counter() - t0
+            toks, dup_toks, dup, eng_s, reqs_all = _burst(eng, prompts)
             kv = {"kv_bytes_per_token": eng.kv_bytes_per_token,
                   "kv_pool_bytes": eng.kv_pool_bytes}
         finally:
@@ -1079,16 +1101,13 @@ def phase_quant_path(smi: str, res) -> dict:
         (f"paged_attention_q8 launched {launches['paged_attention_q8']} "
          f"times over {steps} steps and {n_chunks[0]} chunks of {L} layers")
 
-    reqs_all = reqs + [dup]
     n_tok = sum(len(r.tokens) for r in reqs_all)
-    ttft = sorted(r.ttft for r in reqs_all)
-    tpot = sorted(r.tpot for r in reqs_all if r.tpot is not None)
     out = {
         "generate_tok_s": 8 * 32 / gen_s,
         "generate_agree": float(agree),
         "engine_tok_s": n_tok / eng_s,
-        "ttft_p50_s": float(np.median(ttft)),
-        "tpot_p50_s": float(np.median(tpot)),
+        "ttft_p50_s": _p50(reqs_all, "ttft"),
+        "tpot_p50_s": _p50(reqs_all, "tpot"),
         "steps": steps, "chunks": n_chunks[0],
         "launches": launches, "busy": busy, "kv": kv,
         "weight_bytes": {"int8": qc.weight_bytes(), "float": float_bytes},
@@ -1130,16 +1149,16 @@ def phase_quant_path(smi: str, res) -> dict:
 
 
 # ---------------------------------------------------------------- phase 15
-def _kv8_gap(net, seq) -> float:
-    """Top-2 gap of the kv8 engine's logits after ``seq``: its
-    token-forward over a fresh int8 pool, the whole sequence as one
-    chunk, through the plain versions."""
+def _chunk_logits(net, seq, kv_dtype=None):
+    """The engine's f32 logits after ``seq``: its token forward over a
+    fresh pool (int8 with ``kv_dtype="int8"``), the whole sequence as
+    one chunk, through the plain versions (no launch is counted)."""
     T, bs = len(seq), 16
     nbps = -(-T // bs)
     progs = PagedPrograms(net, max_batch=1, block_size=bs,
                           blocks_per_seq=nbps, num_blocks=nbps + 1,
                           temperature=0.0, top_k=0, prefill_chunk=T,
-                          kv_dtype="int8")
+                          quantized=False, kv_dtype=kv_dtype)
     row = torch.arange(1, nbps + 1, dtype=torch.int32, device=DEV)
     pos = torch.arange(T, dtype=torch.int32, device=DEV)
     params = gen_mod._gather_params(net, progs._qc)
@@ -1150,7 +1169,12 @@ def _kv8_gap(net, seq) -> float:
             row[None, :].expand(T, nbps).contiguous(),
             torch.as_tensor(np.asarray(seq), device=DEV), pos,
             row.long()[pos.long() // bs], pos.long() % bs)
-    top2 = gen_mod._logits_of(params, h[-1:])[0].topk(2).values
+    return gen_mod._logits_of(params, h[-1:])[0]
+
+
+def _kv8_gap(net, seq) -> float:
+    """Top-2 gap of the kv8 engine's logits after ``seq``."""
+    top2 = _chunk_logits(net, seq, "int8").topk(2).values
     return float(top2[0] - top2[1])
 
 
@@ -1258,6 +1282,404 @@ def time_paged_q8(qres) -> dict:
             "live_pages": len(live), "bytes": nbytes,
         }
     return out
+
+
+# ---------------------------------------------------------------- phase 17
+SPEC_K = 4
+# the bf16 gap rule: two runs of one greedy decode in bf16 may first
+# differ where the reference run's top-2 gap is below this many bf16
+# ULPs of its top logit.  The logits are bf16 values (the head's product
+# is rounded to bf16 before the f32 cast), so each logit carries half a
+# ULP of rounding, and the hidden state entering the head carries the
+# bf16 roundoff of 12 layers' products and residual sums taken in
+# another order (cuBLAS picks its kernel by the row count: 8 rows a
+# step, 40 a verify): a flip inside a few ULPs is that roundoff, a wrong
+# token anywhere else is not.
+GAP_ULPS_BF16 = 4
+
+
+def _gap_bound(logits, dtype) -> float:
+    """The largest top-2 gap at which two greedy runs of a net in
+    ``dtype`` may order its top two logits differently: PARITY_GAP in
+    f32, else GAP_ULPS_BF16 ULPs of bf16 at the top logit."""
+    if dtype == torch.float32:
+        return PARITY_GAP
+    top = max(abs(float(logits.max())), 1e-30)
+    return GAP_ULPS_BF16 * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def check_gap_rule(net, prompts, want, got, tag, kv_dtype=None) -> int:
+    """``got`` against the reference run ``want``, prompt by prompt:
+    token-equal, or first different at a token where the reference's
+    top-2 gap (the engine's chunk logits after the common prefix) is
+    below `_gap_bound`.  Returns the number of token-equal prompts."""
+    dtype = net.embed.weight.dtype
+    n_equal = 0
+    for p, w, g in zip(prompts, want, got):
+        assert len(w) == len(g), (tag, len(w), len(g))
+        if w == g:
+            n_equal += 1
+            continue
+        i = next(j for j in range(len(w)) if w[j] != g[j])
+        logits = _chunk_logits(net, np.concatenate([p, w[:i]]), kv_dtype)
+        top2 = logits.topk(2).values
+        gap, bound = float(top2[0] - top2[1]), _gap_bound(logits, dtype)
+        assert gap < bound, (
+            f"{tag}: runs differ at token {i} of a {len(p)}-token prompt "
+            f"where the reference's top-2 gap is {gap} (bound {bound})")
+        log(f"{tag}: prompt {len(p)} first differs at token {i}, top-2 gap "
+            f"{gap:.3e} < {bound:.3e}")
+    return n_equal
+
+
+class _SpecCalls:
+    """Counts the paged-attention calls of speculative engines on their
+    layer-0 pools (target: verify windows of B·(k+1) rows and chunks;
+    draft: steps of B rows and chunks) and keeps the inputs of the
+    verify call with the most active lanes, the pools as they stood
+    then (the callback runs on the scheduler thread, so the engine's
+    host lane state is that of the call)."""
+
+    def __init__(self, B, k):
+        self.rows = (B * (k + 1), B)
+        self.engines = []
+        self.n = dict(verify=0, chunk=0, draft=0, draft_chunk=0)
+        self.kept, self.kept_active = None, 0
+
+    def watch(self, eng):
+        pg = eng._programs
+        self.engines.append((eng, pg.pool_k[0], pg.dpool_k[0]))
+        return eng
+
+    def __call__(self, args, kw):
+        q, pk = args[0], args[1]
+        for eng, target, draft in self.engines:
+            if pk is target:
+                kind = "verify" if q.shape[0] == self.rows[0] else "chunk"
+            elif pk is draft:
+                kind = "draft" if q.shape[0] == self.rows[1] else \
+                    "draft_chunk"
+            else:
+                continue
+            self.n[kind] += 1
+            active = int(eng._active.sum())
+            if kind == "verify" and active > self.kept_active:
+                self.kept = ([a.clone() for a in args[:5]], dict(kw))
+                self.kept_active = active
+
+
+def _spec_window(calls, run):
+    """Drive ``run()`` with every serving kernel's count set to 0 just
+    before and read just after; returns (run's result, launches)."""
+    for name in SERVING_KERNELS:
+        KERNELS[name]["fn"].launches = 0
+    with recording(prog_mod, "paged_attention", calls):
+        out = run()
+    torch.cuda.synchronize()
+    return out, {name: KERNELS[name]["fn"].launches
+                 for name in SERVING_KERNELS}
+
+
+def _assert_spec_launches(launches, calls, iters, L, k, kv8, tag):
+    """Each iteration runs k draft steps and one verify, each chunk a
+    target and a draft chunk, each one launch a layer; the verify and
+    the target chunks take the int8-page kernel over an int8 pool, the
+    draft always the float one; no flash launch."""
+    n = calls.n
+    assert n["verify"] == iters and n["draft"] == k * iters \
+        and n["draft_chunk"] == n["chunk"] > 0, (tag, n, iters)
+    target = L * (iters + n["chunk"])
+    draft = L * (k * iters + n["draft_chunk"])
+    want = {"paged_attention": draft + (0 if kv8 else target),
+            "paged_attention_q8": target if kv8 else 0,
+            "flash_attention": 0}
+    assert launches == want, (tag, launches, want, n, iters)
+    if not kv8:
+        assert launches["paged_attention"] == \
+            L * (k * iters + iters + 2 * n["chunk"])
+
+
+def check_verify_rows(kept, k) -> dict:
+    """A recorded layer-0 verify call: one launch over B·(k+1) rows
+    against k+1 launches of the B rows at pos+j (the JAX package's
+    verify shape) on the pools as they stood, bit for bit, and against
+    the plain version."""
+    (q, pk, pv, tables, pos), _ = kept
+    T = k + 1
+    full = paged_attention(q, pk, pv, tables, pos)
+    equal = all(torch.equal(
+        full[j::T],
+        paged_attention(q[j::T].contiguous(), pk, pv,
+                        tables[j::T].contiguous(), pos[j::T].contiguous()))
+        for j in range(T))
+    err = (full.float() - paged_attention_dense(q, pk, pv, tables, pos)
+           .float()).abs().max().item()
+    assert equal, "verify rows differ from k+1 launches of B rows"
+    assert err <= TOL[q.dtype], f"paged at the verify's inputs: err {err}"
+    return {"rows": q.shape[0], "pos": pos[::T].tolist(), "bit_equal": equal,
+            "max_abs_err": err}
+
+
+def probe_dense_rows(net, rows=(8, 40)) -> dict:
+    """The decode products at the main path's row counts: 8 rows alone
+    (a step) and the same 8 rows inside 40 (a verify window), through
+    `_dense`, bf16: whether cuBLAS gives them the same bits."""
+    lyr = net._layers[0]
+    g = torch.Generator().manual_seed(9)
+    out = {}
+    for name, d in (("qkv", lyr.attn.qkv), ("proj", lyr.attn.proj),
+                    ("ffn1", lyr.ffn.ffn_dense1), ("ffn2", lyr.ffn.ffn_dense2),
+                    ("head", net.head)):
+        x = torch.randn((rows[1], d.weight.shape[1]), generator=g).to(
+            DEV, d.weight.dtype)
+        small = gen_mod._dense(x[:rows[0]], d.weight, d.bias)
+        big = gen_mod._dense(x, d.weight, d.bias)[:rows[0]]
+        out[name] = {"bit_equal": bool(torch.equal(small, big)),
+                     "max_abs_diff": (small.float() - big.float()).abs()
+                     .max().item()}
+    return out
+
+
+def phase_spec_path(smi: str, res) -> dict:
+    """Speculative decoding at full width: phase 4's bf16 net with
+    `quantize_for_decode` as its own int8 draft (k = 4), float target
+    weights; phase 4's traffic on a speculative engine, a profiled solo
+    request, the same over the int8 KV pool, and a sampled run
+    (temperature 1.0, top_k 50); each held to its non-speculative
+    engine by the gap rule and its launches counted in its own
+    window."""
+    net, prompts = res["net"], res["prompts"]
+    V, L, k, B = MODEL["vocab"], MODEL["num_layers"], SPEC_K, 8
+    net.quantize_for_decode()
+    assert net._decode_quant.act_quant == "none"
+
+    def engine(**kw):
+        return ServingEngine(net, max_batch=B, block_size=16,
+                             prefill_chunk=32, quantized=False, **kw)
+
+    def spec_stats(eng):
+        return eng.stats()["speculate"]
+
+    # -- greedy over float pages: the burst and a profiled solo --------
+    calls = _SpecCalls(B, k)
+
+    def greedy_run():
+        with calls.watch(engine(speculate_k=k)) as eng:
+            assert eng.path == "float"
+            burst = _burst(eng, prompts)
+            st = eng.stats()
+        with calls.watch(engine(speculate_k=k)) as solo_eng:
+            solo_eng.submit(prompts[0][:40], 2).result(timeout=300)
+            s0 = spec_stats(solo_eng)["steps"]
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                solo = solo_eng.submit(prompts[5], 32).result(timeout=600)
+                torch.cuda.synchronize()
+                solo_s = time.perf_counter() - t0
+            solo_iters = spec_stats(solo_eng)["steps"] - s0
+            iters = st["speculate"]["steps"] + spec_stats(solo_eng)["steps"]
+        return burst, st, solo, solo_s, solo_iters, prof, iters
+
+    (burst, st, solo, solo_s, solo_iters, prof, iters), launches = \
+        _spec_window(calls, greedy_run)
+    toks, dup_toks, dup, spec_s, reqs = burst
+    _assert_spec_launches(launches, calls, iters, L, k, False, "spec")
+    for t in toks + [dup_toks]:
+        assert len(t) == 32 and all(0 <= x < V for x in t)
+    assert dup.cached_tokens > 0, "the second submission missed"
+    assert dup_toks == toks[1], "speculative prefix-cache hit differs"
+    assert solo == toks[5], "speculative solo run differs from co-batched"
+    sp = st["speculate"]
+    assert sp["draft"] == "self-int8" and sp["greedy"], sp
+    busy = device_busy(prof, solo_s)
+    solo_chunks = -(-len(prompts[5]) // 32)
+    verify_rows = check_verify_rows(calls.kept, k)
+    dense_rows = probe_dense_rows(net)
+
+    # the non-speculative float engine on the same net and traffic
+    with engine() as eng:
+        ftoks, _, _, float_s, freqs = _burst(eng, prompts)
+    eq_float = check_gap_rule(net, prompts, ftoks, toks,
+                              "speculative vs non-speculative (bf16)")
+
+    # -- greedy over int8 pages --------------------------------------
+    calls8 = _SpecCalls(B, k)
+
+    def kv8_run():
+        with calls8.watch(engine(speculate_k=k, kv_dtype="int8")) as eng:
+            out = _burst(eng, prompts)
+            return out, eng.stats()
+
+    (burst8, st8), launches8 = _spec_window(calls8, kv8_run)
+    toks8, dup8, dupreq8, _, _ = burst8
+    _assert_spec_launches(launches8, calls8, st8["speculate"]["steps"], L, k,
+                          True, "kv8 spec")
+    assert dupreq8.cached_tokens > 0 and dup8 == toks8[1]
+    with engine(kv_dtype="int8") as eng:
+        want8 = _burst(eng, prompts)[0]
+    eq_kv8 = check_gap_rule(net, prompts, want8, toks8,
+                            "kv8 speculative vs kv8 non-speculative (bf16)",
+                            kv_dtype="int8")
+
+    # -- sampled: temperature 1.0, top_k 50 ---------------------------
+    callss = _SpecCalls(B, k)
+
+    def sampled_run():
+        with callss.watch(engine(speculate_k=k, temperature=1.0,
+                                 top_k=50)) as eng:
+            reqs_s = [eng.submit(p, 32, seed=i)
+                      for i, p in enumerate(prompts)]
+            return [r.result(timeout=600) for r in reqs_s], eng.stats()
+
+    (stoks, sst), launchess = _spec_window(callss, sampled_run)
+    _assert_spec_launches(launchess, callss, sst["speculate"]["steps"], L, k,
+                          False, "sampled spec")
+    for t in stoks:
+        assert len(t) == 32 and all(0 <= x < V for x in t)
+    ssp = sst["speculate"]
+    assert not ssp["greedy"] and ssp["rollback"].get("rejected", 0) >= 1, ssp
+    net.dequantize_decode()
+
+    n_tok = sum(len(r.tokens) for r in reqs)
+    out = {
+        "spec_tok_s": n_tok / spec_s,
+        "float_tok_s": sum(len(r.tokens) for r in freqs) / float_s,
+        "accept_rate": sp["accept_rate"], "steps": sp["steps"],
+        # tokens a lane emits a verify: the verifies' tokens (all but
+        # each request's first) over the lane-iterations (proposed / k)
+        "tokens_per_verify": (n_tok - len(reqs)) * k / sp["proposed"],
+        "ttft_p50_s": _p50(reqs, "ttft"), "tpot_p50_s": _p50(reqs, "tpot"),
+        "rollback": sp["rollback"], "busy": busy,
+        "kernels_per_iteration": busy["kernels"] / (solo_iters
+                                                    + solo_chunks),
+        "verify_rows": verify_rows, "dense_rows": dense_rows,
+        "launches": {n: launches[n] + launches8[n] + launchess[n]
+                     for n in SERVING_KERNELS},
+        "kv8_accept_rate": st8["speculate"]["accept_rate"],
+        "sampled_accept_rate": ssp["accept_rate"],
+        "equal": {"float": eq_float, "kv8": eq_kv8},
+    }
+    log(f"speculative path [{smi}]: self-int8 draft k={k}; {n_tok} tokens "
+        f"over {len(reqs)} requests in {spec_s:.3f} s "
+        f"({out['spec_tok_s']:.1f} decoded tok/s) against the float "
+        f"engine's {out['float_tok_s']:.1f} in {float_s:.3f} s "
+        f"({out['spec_tok_s'] / out['float_tok_s']:.3f}x); accept rate "
+        f"{sp['accept_rate']:.4f} over {sp['proposed']} proposals, "
+        f"{out['tokens_per_verify']:.3f} tokens a lane a verify, "
+        f"{sp['steps']} verifies; TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} "
+        f"ms, TPOT p50 {out['tpot_p50_s'] * 1e3:.2f} ms; rollback "
+        f"{sp['rollback']}; token-equal to the non-speculative engine "
+        f"{eq_float}/{len(prompts)}; launches {launches} = {L} x ({k} x "
+        f"{iters} + {iters} + 2 x {calls.n['chunk']})")
+    log(f"speculative solo request ({len(prompts[5])}-token prompt, 32 "
+        f"tokens: {solo_chunks} chunks, {solo_iters} iterations) under the "
+        f"profiler [{smi}]: {solo_s:.3f} s wall, card busy "
+        f"{busy['busy_s']:.4f} s = {busy['busy_share']:.3f} of the wall "
+        f"(idle {1 - busy['busy_share']:.3f}), {busy['kernels']} kernels "
+        f"({out['kernels_per_iteration']:.0f} a scheduler iteration); paged "
+        f"kernel {_paged_ms(busy):.3f} ms; device ms by kernel: "
+        + "; ".join(f"{n} {ms:.3f}" for n, ms in busy["top"]))
+    log(f"speculative kv8 [{smi}]: accept rate "
+        f"{out['kv8_accept_rate']:.4f}, token-equal to the kv8 engine "
+        f"{eq_kv8}/{len(prompts)}, launches {launches8}; sampled (T=1.0, "
+        f"top_k 50): accept rate {ssp['accept_rate']:.4f}, rollback "
+        f"{ssp['rollback']}, launches {launchess}")
+    log(f"verify rows [{smi}]: {json.dumps(verify_rows)}; decode products "
+        f"at 8 rows alone and inside 40 (bf16): {json.dumps(dense_rows)}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 18
+BEAM = dict(B=2, P=128, N=32, K=4)
+# the beam's score against lm_score: each of the N terms is a bf16
+# pipeline's log-probability, the two taken through different attention
+# (flash prefill against cached decode), so their sum may differ by a
+# bf16 rounding (2^-7 relative) of the sum of the terms' magnitudes
+BEAM_SCORE_RTOL = 2.0 ** -7
+
+
+def phase_beam(smi: str, res) -> dict:
+    """`lm_beam_search` at full width in bf16 on phase 4's net: B=2,
+    P=128, N=32, K=4, and K=1 held to `generate` by the gap rule; the
+    scores sorted, the best beam's score equal to the sum of `lm_score`
+    over its tokens within BEAM_SCORE_RTOL, one flash launch a layer a
+    call and no paged launch."""
+    net = res["net"]
+    B, P, N, K = BEAM["B"], BEAM["P"], BEAM["N"], BEAM["K"]
+    L, V = MODEL["num_layers"], MODEL["vocab"]
+    prompt = res["prompt"][:B, :P]
+    net.beam_search(prompt[:, :8], 2, beam_size=K)          # warm-up
+    for name in SERVING_KERNELS:
+        KERNELS[name]["fn"].launches = 0
+    seqs1, _ = net.beam_search(prompt, N, beam_size=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs, scores = net.beam_search(prompt, N, beam_size=K)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    launches = {name: KERNELS[name]["fn"].launches
+                for name in SERVING_KERNELS}
+    assert launches == {"flash_attention": 2 * L, "paged_attention": 0,
+                        "paged_attention_q8": 0}, launches
+    assert seqs.shape == (B, K, P + N) and seqs.dtype == torch.int32
+    assert scores.shape == (B, K) and torch.isfinite(scores).all()
+    assert torch.equal(seqs[:, :, :P].long(), prompt[:, None].expand(B, K, P))
+    assert int(seqs.min()) >= 0 and int(seqs.max()) < V
+    assert (scores[:, :-1] >= scores[:, 1:]).all(), "beams not sorted"
+    gen = net.generate(prompt, N)
+    prompts = [p.cpu().numpy().astype(np.int32) for p in prompt]
+    eq = check_gap_rule(net, prompts, [g[P:].tolist() for g in gen],
+                        [s[0, P:].tolist() for s in seqs1],
+                        "beam_size=1 vs generate (bf16)")
+    logp = net.score(seqs[:, 0])[:, P - 1:].float()          # (B, N)
+    oracle = logp.sum(dim=1)
+    err = (oracle - scores[:, 0].float()).abs()
+    bound = BEAM_SCORE_RTOL * logp.abs().sum(dim=1)
+    assert (err <= bound).all(), (err.tolist(), bound.tolist())
+    log(f"beam search [{smi}]: B={B} P={P} N={N} K={K} bf16 in "
+        f"{beam_s:.3f} s ({B * K * N / beam_s:.1f} beam tokens/s); best "
+        f"scores {scores[:, 0].tolist()} against lm_score sums "
+        f"{oracle.tolist()} (|err| {err.tolist()} <= {bound.tolist()}); "
+        f"beam_size=1 token-equal to generate {eq}/{B}; launches {launches}")
+    return {"beam_s": beam_s, "launches": launches, "score_err": err.tolist()}
+
+
+# ---------------------------------------------------------------- phase 19
+def phase_spec_parity() -> dict:
+    """At full width, 2 layers, f32: the self-drafted speculative engine
+    through the kernels against the same engine on the plain versions,
+    and against the non-speculative engine, each by the gap rule."""
+    net = _build_net(torch.float32, 2, seed=1)
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, MODEL["vocab"], (n,)).astype(np.int32)
+               for n in (40, 77, 130, 200)]
+    net.quantize_for_decode()
+
+    def run(**kw):
+        with ServingEngine(net, max_batch=4, block_size=16, prefill_chunk=32,
+                           quantized=False, **kw) as eng:
+            reqs = [eng.submit(p, 16) for p in prompts]
+            return [r.result(timeout=600) for r in reqs], eng.stats()
+
+    n0 = paged_attention.launches
+    got_k, st = run(speculate_k=SPEC_K)
+    n1 = paged_attention.launches
+    with plain_kernels():
+        got_p, _ = run(speculate_k=SPEC_K)
+    assert n1 > n0 and paged_attention.launches == n1, (n0, n1)
+    eq_plain = check_gap_rule(net, prompts, got_p, got_k,
+                              "speculative kernels vs plain (f32)")
+    got_n, _ = run()
+    eq_nonspec = check_gap_rule(net, prompts, got_n, got_k,
+                                "speculative vs non-speculative (f32)")
+    net.dequantize_decode()
+    log(f"speculative parity (f32, 2 layers, width {MODEL['units']}): "
+        f"kernels vs plain {eq_plain}/{len(prompts)} prompts token-equal, "
+        f"vs non-speculative {eq_nonspec}/{len(prompts)} over 16 tokens; "
+        f"accept rate {st['speculate']['accept_rate']:.4f}")
+    return {"kernel_vs_plain": eq_plain, "vs_nonspec": eq_nonspec}
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2109,9 +2531,13 @@ def main() -> int:
     del res["rec"], res["pools"]
     # the quantized serving path: int8 weights and int8 KV pages
     qres = timed("quant_path", phase_quant_path, smi, res)
+    # the rest of TransformerLM decode: speculation and beam search
+    sres = timed("spec_path", phase_spec_path, smi, res)
+    bres = timed("beam", phase_beam, smi, res)
     del res["net"]
     qtimes = timed("quant_timing", time_paged_q8, qres)
     timed("quant_parity", phase_quant_parity)
+    timed("spec_parity", phase_spec_parity)
     del qres["rec"], qres["pools"]
     errs.update(timed("training_kernels", phase_training_kernels))
     tres = timed("training", phase_training, smi, *BERT_BATCH)
@@ -2170,7 +2596,7 @@ def main() -> int:
     times["paged_attention_q8"] = qtimes["step"]
     # each kernel's launches summed over the main paths that ran it
     launches = {}
-    for path in (res, qres, tres, tres512, lres):
+    for path in (res, qres, sres, bres, tres, tres512, lres):
         for name, n in path["launches"].items():
             launches[name] = launches.get(name, 0) + n
     rows = []

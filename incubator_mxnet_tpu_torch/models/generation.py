@@ -1,6 +1,7 @@
 """Autoregressive KV-cache generation for `models.TransformerLM`
 (PyTorch/CUDA port of `incubator_mxnet_tpu/models/generation.py`: the
-float path, the int8 weight path and `lm_score`).
+float path, the int8 weight path, `lm_score`, `lm_beam_search` and
+`lm_stream`).
 
 The JAX package compiles prefill plus the whole token loop into one XLA
 program; PyTorch runs eagerly, so here the prefill is one pass over the
@@ -55,7 +56,7 @@ from ..gluon.nn.basic_layers import layer_norm as _ln
 from ..ops.flash_attention import flash_attention
 from ..random import counter_seed
 
-__all__ = ["lm_generate", "lm_score"]
+__all__ = ["lm_generate", "lm_beam_search", "lm_score", "lm_stream"]
 
 _F32_MIN = torch.finfo(torch.float32).min
 
@@ -162,7 +163,8 @@ def _gather_params(net, qc=None):
 
 def _embed(params, toks, positions):
     """Token embedding · sqrt(C) plus the positional encoding at
-    ``positions`` (an int or a tensor of positions)."""
+    ``positions`` (an int or a tensor of positions, each below
+    ``max_len``: callers that step past the sequence clamp first)."""
     emb = params["embed"]
     return (emb[toks.long()] * math.sqrt(emb.shape[1])
             + params["pe"][positions].to(emb.dtype))
@@ -358,3 +360,145 @@ def lm_score(net, tokens, *, quantized=None):
                     out_dtype=torch.float32)
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     return logp.gather(2, tokens[:, 1:, None])[..., 0]
+
+
+def lm_stream(net, prompt, max_new_tokens: int, *, engine=None,
+              deadline=None, seed: int = 0, **engine_kw):
+    """Stream generated tokens one at a time through the net's shared
+    continuous-batching engine (`serving.default_engine`): yields int
+    token ids as the engine emits them, so concurrent callers are
+    co-batched into one decode step instead of running serial
+    `lm_generate` calls.
+
+    Abandoning the generator mid-stream (break / close / GC) cancels the
+    request and returns its KV blocks to the pool.  ``deadline``
+    (seconds) bounds the request end to end: past it the engine evicts
+    the sequence and the generator raises `serving.RequestTimedOut`.
+    ``engine_kw`` (temperature, top_k, eos_id, max_batch, ...)
+    configures the shared engine on first use; ``engine=`` targets an
+    explicit `ServingEngine`.
+    """
+    from ..serving import default_engine
+
+    eng = engine if engine is not None else default_engine(net, **engine_kw)
+    return eng.submit(prompt, max_new_tokens, deadline=deadline,
+                      seed=seed).stream()
+
+
+# the score of a finished beam's non-eos continuations
+_NEG = -1e9
+
+
+def _top_k_by_index(x, k):
+    """The k largest entries of each row of ``x`` and their indices,
+    ties to the lower index (``jax.lax.top_k``'s order; `torch.topk`
+    promises none, and finished beams tie at ``_NEG`` by the
+    thousand)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _beam_loop(first_logits, kcs, vcs, step_fn, t0, N, B, K, eos_id, alpha):
+    """K-beam token loop: the K·V candidate expansion each step, the
+    per-layer caches reordered by beam parent each step, and the
+    sequences rebuilt by walking the (token, parent) trace backwards.
+    ``kcs``/``vcs`` are the batch-B caches (repeated K-fold here;
+    ``step_fn(kcs, vcs, tok, t)`` runs at batch B·K and writes position
+    ``t``).  Emits N tokens at positions t0 .. t0+N-1.  Returns (gen
+    (B, K, N) best-first, normalized scores (B, K))."""
+    logp0 = torch.log_softmax(first_logits, dim=-1)          # (B, V)
+    V = logp0.shape[-1]
+    scores, tok = _top_k_by_index(logp0, K)                  # (B, K)
+    tok0 = tok
+    # beams live as (B*K, ...)
+    kcs = [c.repeat_interleave(K, dim=0) for c in kcs]
+    vcs = [c.repeat_interleave(K, dim=0) for c in vcs]
+    done = tok == eos_id if eos_id >= 0 else torch.zeros_like(tok, dtype=bool)
+    lens = torch.ones_like(tok)                  # generated tokens so far
+    frozen = None
+    if eos_id >= 0:
+        # a finished beam may only extend with eos, at no cost: its
+        # score and length freeze
+        frozen = torch.full((V,), _NEG, device=logp0.device)
+        frozen[eos_id] = 0.0
+    toks, parents = [], []
+    base = torch.arange(B, device=tok.device)[:, None] * K
+    for t in range(t0, t0 + N - 1):
+        logits = step_fn(kcs, vcs, tok.reshape(B * K), t)
+        logp = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
+        if frozen is not None:
+            logp = torch.where(done[..., None], frozen, logp)
+        cand = scores[..., None] + logp                      # (B, K, V)
+        scores, idx = _top_k_by_index(cand.reshape(B, K * V), K)
+        parent = idx // V
+        tok = idx % V
+        gidx = (base + parent).reshape(B * K)
+        kcs = [c.index_select(0, gidx) for c in kcs]
+        vcs = [c.index_select(0, gidx) for c in vcs]
+        pdone = done.gather(1, parent)
+        plens = lens.gather(1, parent)
+        if eos_id >= 0:
+            done = pdone | (tok == eos_id)
+            lens = torch.where(pdone, plens, plens + 1)
+        else:
+            done, lens = pdone, plens + 1
+        toks.append(tok)
+        parents.append(parent)
+
+    # backtrack: follow the parent pointers from the final beams to the
+    # first expansion
+    ptr = torch.arange(K, device=tok.device).expand(B, K)
+    rest = []
+    for tk, par in zip(reversed(toks), reversed(parents)):
+        rest.append(tk.gather(1, ptr))
+        ptr = par.gather(1, ptr)
+    gen = torch.stack([tok0.gather(1, ptr)] + rest[::-1], dim=2)
+
+    # GNMT length penalty: rank by score / ((5+len)/6)^alpha
+    norm = scores / (((5.0 + lens.float()) / 6.0) ** alpha) \
+        if alpha > 0.0 else scores
+    order = torch.sort(-norm, dim=1, stable=True).indices
+    gen = gen.gather(1, order[..., None].expand_as(gen))
+    return gen, norm.gather(1, order)
+
+
+@torch.no_grad()
+def lm_beam_search(net, prompt, max_new_tokens: int, *, beam_size: int = 4,
+                   eos_id: int = -1, alpha: float = 0.0, quantized=None):
+    """K-beam search decode for `models.TransformerLM` on the net's
+    device: the prompt prefilled once through the flash kernel, then
+    `_beam_loop` over `_decode_token` at batch B·K.
+
+    prompt: int (B, P).  Returns (sequences, scores): int32
+    (B, beam_size, P+N) sorted best-first, and f32 (B, beam_size)
+    cumulative log-probabilities (GNMT length-penalty-normalized when
+    ``alpha > 0``; eos_id >= 0 freezes finished beams' scores and
+    lengths).  beam_size=1 reproduces greedy `lm_generate`.
+    ``quantized`` selects the weight path as in `lm_generate`.
+    """
+    prompt = _as_tokens(prompt, net.embed.weight.device)
+    B, P = prompt.shape
+    N = int(max_new_tokens)
+    K = int(beam_size)
+    if N < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {N}")
+    if K < 1:
+        raise ValueError(f"beam_size must be >= 1, got {K}")
+    V = net.head.weight.shape[0]
+    if K > V:
+        raise ValueError(f"beam_size {K} exceeds vocab {V}")
+    if P + N > net._max_len:
+        raise ValueError(
+            f"prompt+new = {P + N} exceeds max_len {net._max_len}")
+    H = net._layers[0].attn._num_heads
+    acts = tuple(lyr.ffn._act for lyr in net._layers)
+    params = _gather_params(net, _quant_config(net, quantized))
+    h_last, kcs, vcs = _prefill(params, prompt, acts, H, P + N)
+
+    def step_fn(kc, vc, tok, t):
+        return _decode_token(params, acts, kc, vc, tok, t, H)
+
+    gen, norm = _beam_loop(_logits_of(params, h_last), kcs, vcs, step_fn,
+                           P, N, B, K, int(eos_id), float(alpha))
+    seqs = torch.cat([prompt[:, None].expand(B, K, P), gen], dim=2)
+    return seqs.to(torch.int32), norm

@@ -141,6 +141,14 @@ class TransformerLM(HybridBlock):
 
         return lm_generate(self, prompt, max_new_tokens, **kw)
 
+    def beam_search(self, prompt, max_new_tokens, **kw):
+        """K-beam decode -> (sequences (B, K, P+N), scores (B, K)),
+        best-first; see `models.generation.lm_beam_search` (beam_size /
+        eos_id / GNMT length-penalty alpha / quantized)."""
+        from .generation import lm_beam_search
+
+        return lm_beam_search(self, prompt, max_new_tokens, **kw)
+
     def score(self, tokens, **kw):
         """Teacher-forced per-token log-probabilities through the decode
         stack's numerics; see `models.generation.lm_score`."""

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine with overload safety (PyTorch/CUDA
 port of the scheduler core of `incubator_mxnet_tpu/serving/engine.py`,
-float and int8 KV pools, float and int8 weights).
+float and int8 KV pools, float and int8 weights, speculative decoding).
 
 `ServingEngine` runs an iteration-level (Orca-style) scheduler on a
 background thread: each iteration retires finished sequences, evicts
@@ -16,6 +16,17 @@ content-addresses full KV blocks by prefix-token hash, so a request
 whose prompt shares a block-aligned prefix with earlier traffic binds
 those blocks read-only and prefills only its uncached tail; its greedy
 output is bit-identical to a cold prefill.
+
+Speculative decoding (``speculate_k > 0``): each iteration a draft model
+proposes k tokens per lane on its own pool, and ONE target forward
+verifies every lane's window of k+1 positions; a lane emits its
+accepted drafts plus one token of the target's (the correction at the
+first rejection, or a bonus token).  Greedy output is the target's
+argmax whatever the draft proposes, and sampled output keeps the
+target's distribution (exact rejection sampling).  The draft pool
+shares the target's block tables and block ids, so one admission
+covers both, a prefix-cache hit finds the draft's K/V too, and
+rollback is host-side position arithmetic.
 
 The robustness envelope:
 
@@ -44,8 +55,8 @@ step is stage (locked) → device call (unlocked) → commit (re-locked,
 with a slot-identity check).
 
 The JAX engine's telemetry, SLO tracker, HTTP endpoints, flight
-recorder and stall profiler are not part of this port yet, nor is
-speculative decoding.
+recorder, stall profiler and ``varz_config`` are not part of this port
+yet.
 """
 from __future__ import annotations
 
@@ -135,6 +146,8 @@ class Request:
         self.finish_reason: Optional[str] = None
         self.ttft: Optional[float] = None   # derived at _finish
         self.tpot: Optional[float] = None   # mean s/token past the first
+        self.spec_proposed = 0              # draft tokens offered for us
+        self.spec_accepted = 0              # ... accepted by the target
         self._cancel = False
 
     # -- engine side (engine lock held) ------------------------------- #
@@ -166,6 +179,13 @@ class Request:
     @property
     def finished(self) -> bool:
         return self.status in _TERMINAL
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """This request's draft-token acceptance rate (0.0 when it
+        never ran under speculation)."""
+        return (self.spec_accepted / self.spec_proposed
+                if self.spec_proposed else 0.0)
 
     def cancel(self) -> None:
         """Request cancellation (non-blocking, any thread, idempotent).
@@ -251,7 +271,7 @@ class _PrefillJob:
         self.t_work = 0.0                   # seconds spent so far
 
 
-def _check_kernel_shapes(net, block_size: int) -> None:
+def _check_kernel_shapes(net, block_size: int, what: str = "net") -> None:
     """Raise ValueError when ``net`` lives on CUDA and the paged-attention
     kernel refuses its head dim or ``block_size``: an engine that would
     fail at its first scheduler step is refused when it is built.  The
@@ -262,7 +282,7 @@ def _check_kernel_shapes(net, block_size: int) -> None:
     problem = kernel_shape_problem(head_dim, block_size)
     if problem is not None:
         raise ValueError(f"ServingEngine on CUDA: the paged-attention "
-                         f"kernel refuses this net and block size: "
+                         f"kernel refuses this {what} and block size: "
                          f"{problem}")
 
 
@@ -298,11 +318,19 @@ class ServingEngine:
                     quantized at page-write time and dequantized inside
                     the paged-attention kernel (1.88x the sequences per
                     pool byte at bf16, D=64).
+    speculate_k     draft tokens proposed per lane per iteration (0:
+                    speculation off); must be < ``max_seq_len``.
+    draft_net       the draft `TransformerLM` (same vocab, ``max_len``
+                    >= ``max_seq_len``, same device); None self-drafts
+                    through the target's int8 weight path, which needs
+                    a float target marked by `quantize_for_decode`.
+    spec_greedy     accept by argmax prefix match even when sampling
+                    (forced at temperature <= 0).
     poll_interval   scheduler idle/wait tick (default 2 ms).
     fault_hook      callable(phase: str) invoked before each
-                    "prefill"/"step" device call — the fault-injection
-                    seam tests use (sleep = slow step, raise = scheduler
-                    failure).
+                    "prefill"/"draft"/"step" device call — the
+                    fault-injection seam tests use (sleep = slow step,
+                    raise = scheduler failure).
     """
 
     def __init__(self, net, *, max_batch: int = 4, block_size: int = 16,
@@ -314,6 +342,8 @@ class ServingEngine:
                  default_deadline: Optional[float] = None,
                  prefill_chunk: Optional[int] = None,
                  quantized=None, kv_dtype: Optional[str] = None,
+                 speculate_k: int = 0, draft_net=None,
+                 spec_greedy: bool = False,
                  poll_interval: Optional[float] = None, fault_hook=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -349,12 +379,32 @@ class ServingEngine:
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self._chunk = max(1, min(int(prefill_chunk if prefill_chunk
                                      is not None else _PREFILL_CHUNK), msl))
+        self._spec_k = int(speculate_k)
+        self._spec = self._spec_k > 0
+        if self._spec_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        if self._spec and self._spec_k >= msl:
+            raise ValueError(
+                f"speculate_k {self._spec_k} >= max_seq_len {msl}")
+        if self._spec and draft_net is not None:
+            dv, tv = (draft_net.embed.weight.shape[0],
+                      net.embed.weight.shape[0])
+            if dv != tv:
+                raise ValueError(f"draft_net vocab {dv} != target vocab {tv}")
+            if draft_net._max_len < msl:
+                raise ValueError(f"draft_net.max_len {draft_net._max_len} "
+                                 f"< max_seq_len {msl}")
+            dd, td = draft_net.embed.weight.device, net.embed.weight.device
+            if dd != td:
+                raise ValueError(f"draft_net is on {dd}, the target on {td}")
+            _check_kernel_shapes(draft_net, block_size, "draft net")
         self._programs = PagedPrograms(
             net, max_batch=self._B, block_size=self._bs,
             blocks_per_seq=self._nbps, num_blocks=self._num_blocks,
             temperature=temperature, top_k=top_k,
             prefill_chunk=self._chunk, quantized=quantized,
-            kv_dtype=kv_dtype)
+            kv_dtype=kv_dtype, speculate_k=self._spec_k,
+            draft_net=draft_net, spec_greedy=spec_greedy)
         self._pool = BlockPool(self._num_blocks, self._bs)
 
         # per-lane step inputs (scheduler thread only; snapshots are
@@ -380,7 +430,10 @@ class ServingEngine:
         self._stats = {"admitted": 0, "done": 0, "steps": 0,
                        "prefix_hits": 0, "prefix_misses": 0,
                        "cached_tokens": 0,
-                       "shed": OrderedDict(), "evicted": OrderedDict()}
+                       "shed": OrderedDict(), "evicted": OrderedDict(),
+                       "spec_steps": 0, "spec_proposed": 0,
+                       "spec_accepted": 0, "spec_ewma": None,
+                       "spec_rollback": OrderedDict()}
         self._thread = threading.Thread(
             target=self._scheduler, daemon=True,
             name="mxt-serving-scheduler")
@@ -408,9 +461,14 @@ class ServingEngine:
         return self._programs.path
 
     @property
+    def speculate_k(self) -> int:
+        """Draft tokens proposed per lane per iteration (0: off)."""
+        return self._spec_k
+
+    @property
     def kv_pool_bytes(self) -> int:
         """Device bytes of the whole KV pool (pages and int8 scales, all
-        layers)."""
+        layers, the draft's pages included)."""
         return self._programs.kv_pool_bytes
 
     @property
@@ -528,7 +586,7 @@ class ServingEngine:
     def stats(self) -> dict:
         """Snapshot of the engine's counters (host-side, lock-held)."""
         with self._lock:
-            return {
+            out = {
                 "admitted": self._stats["admitted"],
                 "done": self._stats["done"],
                 "steps": self._stats["steps"],
@@ -550,6 +608,21 @@ class ServingEngine:
                 "path": self.path,
                 "kv_dtype": self.kv_dtype or "model",
             }
+            if self._spec:
+                prop = self._stats["spec_proposed"]
+                out["speculate"] = {
+                    "k": self._spec_k,
+                    "draft": self._programs.draft_label,
+                    "greedy": self._programs.spec_greedy,
+                    "steps": self._stats["spec_steps"],
+                    "proposed": prop,
+                    "accepted": self._stats["spec_accepted"],
+                    "accept_rate": (self._stats["spec_accepted"] / prop
+                                    if prop else None),
+                    "accept_rate_ewma": self._stats["spec_ewma"],
+                    "rollback": dict(self._stats["spec_rollback"]),
+                }
+            return out
 
     # ------------------------------------------------------------------ #
     # internals
@@ -579,7 +652,14 @@ class ServingEngine:
             raise RuntimeError("serving engine is closed")
 
     def _blocks_needed(self, P: int, N: int) -> int:
-        return -(-(P + N) // self._bs)
+        horizon = P + N
+        if self._spec:
+            # the window writes up to k positions past the last committed
+            # one (at most P+N-2: the final token needs no write), so
+            # reserve blocks up to min(P+N-2+k, msl-1): rejected
+            # positions land in the lane's OWN pages, never a neighbour's
+            horizon = min(P + N - 1 + self._spec_k, self._msl)
+        return -(-horizon // self._bs)
 
     @staticmethod
     def _count(table: OrderedDict, reason: str) -> None:
@@ -656,7 +736,8 @@ class ServingEngine:
             if staged is not None:
                 self._run_chunk(staged, hook)
             if live:
-                self._decode_step(snap, live, hook)
+                (self._spec_step if self._spec
+                 else self._decode_step)(snap, live, hook)
 
     def _reap_locked(self, now: float) -> None:
         # queued requests: cancellation and deadlines apply while waiting
@@ -772,6 +853,10 @@ class ServingEngine:
         t0 = time.perf_counter()
         tok = self._programs.prefill_chunk(job.row, toks, start, job.P,
                                            job.seed, final)
+        if self._spec:
+            # the draft's pool takes the same chunk: its first proposal
+            # attends to the whole prompt
+            self._programs.draft_prefill_chunk(job.row, toks, start, job.P)
         dt = time.perf_counter() - t0
         now = time.monotonic()
         with self._work:
@@ -846,6 +931,69 @@ class ServingEngine:
                 if tok == self._eos \
                         or len(req.tokens) >= req.max_new_tokens:
                     self._retire_locked(lane)
+
+    def _spec_step(self, snap, live, hook) -> None:
+        """One speculate-then-verify iteration, `_decode_step`'s shape:
+        the draft proposes k tokens per lane on its own pool (they stay
+        on the card and feed the verify), the verify emits ``out[:,
+        :alen+1]`` per lane — both outside the lock — and the commit,
+        re-locked, truncates each lane at eviction (slot identity), eos
+        and ``max_new_tokens``.  Rollback is host-side position
+        arithmetic only (see `PagedPrograms.spec_verify`)."""
+        k = self._spec_k
+        if hook is not None:
+            hook("draft")
+        d_toks, q = self._programs.draft_step(*snap)
+        if hook is not None:
+            hook("step")
+        out, alen = self._programs.spec_verify(*snap, d_toks, q)
+        now = time.monotonic()
+        with self._work:
+            self._stats["steps"] += 1
+            self._stats["spec_steps"] += 1
+            rollback = self._stats["spec_rollback"]
+            proposed = accepted = 0
+            for lane, req in live:
+                slot = self._slots[lane]
+                if slot is None or slot.req is not req:
+                    continue                # evicted while speculating
+                a = int(alen[lane])
+                proposed += k
+                accepted += a
+                req.spec_proposed += k
+                req.spec_accepted += a
+                if a < k:
+                    self._count(rollback, "rejected")
+                delivered, stop = 0, None
+                for j in range(a + 1):      # accepted run + correction/bonus
+                    tok = int(out[lane, j])
+                    req._deliver(tok, now)
+                    delivered += 1
+                    if tok == self._eos:
+                        stop = "eos"
+                        break
+                    if len(req.tokens) >= req.max_new_tokens:
+                        stop = "max_tokens"
+                        break
+                if stop is not None and delivered < a + 1:
+                    self._count(rollback, stop)
+                self._pos[lane] += delivered
+                self._toks[lane] = int(out[lane, delivered - 1])
+                if not BlockPool.covers(len(slot.blocks), self._bs,
+                                        int(self._pos[lane]) - 1):
+                    raise RuntimeError(
+                        f"speculative commit outran lane {lane}'s "
+                        f"reservation: pos {int(self._pos[lane])} vs "
+                        f"{len(slot.blocks)} blocks of {self._bs}")
+                if stop is not None:
+                    self._retire_locked(lane)
+            if proposed:
+                rate = accepted / proposed
+                self._stats["spec_proposed"] += proposed
+                self._stats["spec_accepted"] += accepted
+                ewma = self._stats["spec_ewma"]
+                self._stats["spec_ewma"] = rate if ewma is None \
+                    else 0.9 * ewma + 0.1 * rate
 
 
 def default_engine(net, **kw) -> ServingEngine:

@@ -1,6 +1,6 @@
 """Device programs for paged continuous-batching decode (PyTorch/CUDA
 port of `incubator_mxnet_tpu/serving/programs.py`: the float and the
-int8 KV program families).
+int8 KV program families, and speculative decoding).
 
 Two program families over a preallocated paged KV pool:
 
@@ -39,6 +39,18 @@ into int8 pools, their f32 scales into scale pools (num_blocks, H, bs)
 beside them, and the attention dequantizes inside the int8-page kernel.
 The weights take the int8 decode path when the net carries
 `quantize_for_decode` state (``quantized=None``) or when asked.
+
+Speculative decoding (``speculate_k > 0``) adds three programs over a
+second, DRAFT pool in the draft net's dtype, addressed by the same
+block tables and block ids as the target's: ``draft_step`` (k token
+forwards of the draft, each proposing d_j), ``draft_prefill_chunk``
+(the chunk program on the draft weights, without the pick) and
+``spec_verify`` (ONE target forward of every lane's window ``[tok,
+d_1 .. d_k]`` at ``pos .. pos+k`` as B·(k+1) rows, then exact
+acceptance on the card; only the emitted tokens and the accepted
+lengths come back to the host).  The window steps past the committed
+positions, so rows at positions >= the sequence cap clamp their
+positional encoding and write the scratch block (`_host_slots`).
 """
 from __future__ import annotations
 
@@ -49,8 +61,45 @@ from ..contrib.quantization import quantize_kv
 from ..models import generation as G
 from ..ops.paged_attention import paged_attention
 from ..random import counter_seed
+from .kv_pool import SCRATCH_BLOCK
 
 __all__ = ["PagedPrograms"]
+
+# salts deriving the speculative acceptance and residual-resample
+# streams from a request's seed: distinct from each other and from the
+# plain (seed, position) streams the draft and bonus picks use, so every
+# uniform the rejection sampler consumes is independent of the proposal
+# it judges (the JAX package's values)
+_ACCEPT_SALT = 0x5ACC
+_RESID_SALT = 0x0E51
+
+
+def _stream(seed, t, salt=None) -> int:
+    """Seed of the draws at position ``t`` of a request's ``seed``: the
+    plain stream, or the one derived with ``salt``."""
+    s = int(seed) if salt is None else counter_seed(int(seed), salt)
+    return counter_seed(s, int(t))
+
+
+def _lane_noise(shape, seeds, positions, device, salt=None):
+    """Gumbel noise (rows, *shape), each row from the stream of (its
+    seed, its position)."""
+    return torch.stack([G._gumbel(shape, _stream(s, t, salt), device)
+                        for s, t in zip(seeds, positions)])
+
+
+def _uniform(stream_seed: int) -> float:
+    """One uniform draw in [0, 1) from the stream ``stream_seed``, on
+    the host."""
+    g = torch.Generator().manual_seed(stream_seed)
+    return float(torch.rand((), generator=g))
+
+
+def _sample(lg, seeds, positions, salt=None):
+    """One draw from softmax(``lg``) (rows, V) per row: argmax of the
+    logits plus the row's stream's Gumbel noise."""
+    return (lg + _lane_noise(lg.shape[1:], seeds, positions, lg.device,
+                             salt)).argmax(dim=-1)
 
 
 def _row_pick(temperature, top_k):
@@ -60,13 +109,23 @@ def _row_pick(temperature, top_k):
     def pick(logits, positions, seeds):
         if temperature <= 0.0:
             return logits.argmax(dim=-1)
-        lg = G._top_k_logits(logits, temperature, top_k)
-        noise = torch.stack([
-            G._gumbel(lg.shape[1:], counter_seed(int(s), int(t)), lg.device)
-            for s, t in zip(seeds, positions)])
-        return (lg + noise).argmax(dim=-1)
+        return _sample(G._top_k_logits(logits, temperature, top_k), seeds,
+                       positions)
 
     return pick
+
+
+def _host_slots(tables, pos, ok, bs, msl):
+    """Host arithmetic of the rows' page writes: positions clamped to
+    ``msl - 1`` (for the positional encoding and the attention, which
+    reads every slot of a lane's table either way past it), and the
+    block and slot each row writes; rows not ``ok`` or at positions >=
+    ``msl`` write the scratch block."""
+    posc = np.clip(pos, 0, msl - 1)
+    blk = np.take_along_axis(tables, (posc // bs)[:, None], axis=1)[:, 0]
+    wblk = np.where(ok & (pos < msl), blk, SCRATCH_BLOCK)
+    return (posc.astype(np.int32), wblk.astype(np.int64),
+            (posc % bs).astype(np.int64))
 
 
 def _write_pages(pool_k, pool_v, wblk, off, k, v):
@@ -82,12 +141,14 @@ def _write_pages(pool_k, pool_v, wblk, off, k, v):
 def _token_forward(params, acts, H, pool_k, pool_v, scale_k, scale_v,
                    tables, toks, pos, wblk, off):
     """Every row's forward over the paged pool: embed ``toks`` at
-    ``pos``, and per layer write the row's K/V at (wblk, off), then
-    attend through the row's table; returns the final hidden states.
-    Write-then-read: a row's own position is in the pool by the time
-    its mask admits it.  With scale pools (the int8 family; empty lists
-    otherwise) K/V are quantized per head vector before the write and
-    their scales written beside them."""
+    ``pos`` (below the sequence cap: `_host_slots` clamps), and per
+    layer write every row's K/V at (wblk, off), then attend through
+    each row's table; returns the final hidden states.  Write-then-read:
+    a row's own position is in the pool by the time its mask admits it,
+    and rows of one lane at later positions are masked out of it.  With
+    scale pools (the int8 family; empty lists otherwise) K/V are
+    quantized per head vector before the write and their scales written
+    beside them."""
     B = toks.shape[0]
     h = G._embed(params, toks, pos.long())
     C = h.shape[-1]
@@ -115,12 +176,20 @@ class PagedPrograms:
     stay finite), in the model dtype or, with ``kv_dtype="int8"``, int8
     with f32 scale pools (num_blocks, H, block_size) filled with ones;
     and the step and prefill-chunk programs over them.  ``quantized``
-    picks the weight path as in `lm_generate`.  Called from the
-    scheduler thread only."""
+    picks the weight path as in `lm_generate`.
+
+    With ``speculate_k > 0`` also the draft pools (in the draft's dtype,
+    never int8) and the speculative programs.  ``draft_net=None``
+    self-drafts through the int8 weight path of the target (a float
+    target marked by `quantize_for_decode`); ``spec_greedy`` (forced at
+    temperature <= 0) accepts the leading run of draft tokens that
+    match the target's argmax.  Called from the scheduler thread
+    only."""
 
     def __init__(self, net, *, max_batch, block_size, blocks_per_seq,
                  num_blocks, temperature, top_k, prefill_chunk=32,
-                 quantized=None, kv_dtype=None):
+                 quantized=None, kv_dtype=None, speculate_k=0,
+                 draft_net=None, spec_greedy=False):
         if kv_dtype not in (None, "int8"):
             raise ValueError(
                 f"kv_dtype must be None (model dtype) or 'int8', "
@@ -136,25 +205,62 @@ class PagedPrograms:
         self._acts = tuple(lyr.ffn._act for lyr in net._layers)
         self._bs = int(block_size)
         self._nbps = int(blocks_per_seq)
+        self._msl = self._nbps * self._bs
         self._chunk = int(prefill_chunk)
-        self._pick = _row_pick(float(temperature), int(top_k))
+        self._temperature = float(temperature)
+        self._top_k = int(top_k)
+        self._pick = _row_pick(self._temperature, self._top_k)
+        self._nb = int(num_blocks)
         emb = net.embed.weight
         self.device = emb.device
-        D = net._units // self._H
-        shape = (int(num_blocks), self._H, self._bs, D)
-        L = len(net._layers)
         dt = torch.int8 if kv_dtype == "int8" else emb.dtype
-
-        def pools(make, shp, dtype):
-            return [make(shp, dtype=dtype, device=self.device)
-                    for _ in range(L)]
-
-        self.pool_k = pools(torch.zeros, shape, dt)
-        self.pool_v = pools(torch.zeros, shape, dt)
+        self.pool_k, self.pool_v = self._pools(net, dt)
         self.scale_k = self.scale_v = []
         if kv_dtype == "int8":
-            self.scale_k = pools(torch.ones, shape[:3], torch.float32)
-            self.scale_v = pools(torch.ones, shape[:3], torch.float32)
+            L, H, bs = len(net._layers), self._H, self._bs
+            self.scale_k = [torch.ones((self._nb, H, bs), device=self.device)
+                            for _ in range(L)]
+            self.scale_v = [torch.ones((self._nb, H, bs), device=self.device)
+                            for _ in range(L)]
+        self._init_speculative(net, speculate_k, draft_net, spec_greedy)
+
+    def _pools(self, net, dtype):
+        """Zero-filled per-layer K and V pools for ``net``'s heads."""
+        H = net._layers[0].attn._num_heads
+        shape = (self._nb, H, self._bs, net._units // H)
+        return tuple([torch.zeros(shape, dtype=dtype, device=self.device)
+                      for _ in net._layers] for _ in range(2))
+
+    def _init_speculative(self, net, speculate_k, draft_net, spec_greedy):
+        """Resolve the draft model and make its pools."""
+        self._spec_k = int(speculate_k)
+        self._spec_greedy = bool(spec_greedy) or self._temperature <= 0.0
+        self._draft_net = None
+        self._draft_label = None
+        self.dpool_k = self.dpool_v = []
+        if self._spec_k == 0:
+            return
+        if self._spec_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        if draft_net is None:
+            if self.path != "float":
+                raise ValueError(
+                    "speculate_k with draft_net=None self-drafts through "
+                    "the int8 weight path, but the target is already int8: "
+                    "pass a distinct draft_net")
+            self._draft_qc = G._quant_config(net, True)
+            self._draft_net = net
+            self._draft_label = "self-int8"
+        else:
+            self._draft_qc = G._quant_config(draft_net, None)
+            self._draft_net = draft_net
+            self._draft_label = (f"net[{len(draft_net._layers)}x"
+                                 f"{draft_net._units}]")
+        dnet = self._draft_net
+        self._dH = dnet._layers[0].attn._num_heads
+        self._dacts = tuple(lyr.ffn._act for lyr in dnet._layers)
+        self.dpool_k, self.dpool_v = self._pools(dnet,
+                                                 dnet.embed.weight.dtype)
 
     @property
     def prefill_chunk_len(self) -> int:
@@ -173,13 +279,66 @@ class PagedPrograms:
 
     @property
     def kv_pool_bytes(self) -> int:
-        """Device bytes of the pages and their scales, all layers."""
+        """Device bytes of the pages and their scales, all layers, the
+        draft's pages included (resident memory spent per position)."""
         return sum(t.numel() * t.element_size()
-                   for t in (*self.pool_k, *self.pool_v,
-                             *self.scale_k, *self.scale_v))
+                   for t in (*self.pool_k, *self.pool_v, *self.scale_k,
+                             *self.scale_v, *self.dpool_k, *self.dpool_v))
+
+    @property
+    def speculate_k(self) -> int:
+        """Draft window length (0: speculation off)."""
+        return self._spec_k
+
+    @property
+    def spec_greedy(self) -> bool:
+        """The acceptance rule: True is the argmax prefix match."""
+        return self._spec_greedy
+
+    @property
+    def draft_label(self):
+        """"self-int8", or the draft net's layers x width."""
+        return self._draft_label
+
+    @property
+    def draft_net(self):
+        return self._draft_net
 
     def _dev(self, arr: np.ndarray):
         return torch.from_numpy(arr).to(self.device)
+
+    def _rows(self, tables, pos, ok):
+        """The device inputs of rows at host ``tables`` (rows, nbps),
+        ``pos`` (rows,) and ``ok`` (rows,) bool: their tables, clamped
+        positions, and the block and slot each writes (`_host_slots`).
+        Each host-to-device copy waits for the card, so a program
+        makes its copies before it launches."""
+        posc, wblk, off = _host_slots(tables, pos, ok, self._bs, self._msl)
+        return (self._dev(tables), self._dev(posc), self._dev(wblk),
+                self._dev(off))
+
+    def _forward(self, params, draft, rows, toks):
+        """Every row's forward over the target (or the draft) pools, at
+        `_rows` inputs, ``toks`` (rows,) on the card; returns the final
+        hidden states (rows, C)."""
+        if draft:
+            H, acts = self._dH, self._dacts
+            pools = (self.dpool_k, self.dpool_v, [], [])
+        else:
+            H, acts = self._H, self._acts
+            pools = (self.pool_k, self.pool_v, self.scale_k, self.scale_v)
+        tables, posc, wblk, off = rows
+        return _token_forward(params, acts, H, *pools, tables, toks, posc,
+                              wblk, off)
+
+    def _chunk_forward(self, params, draft, table_row, toks, start,
+                       valid_len):
+        """Positions ``start .. start+chunk-1`` of one sequence; those
+        from ``valid_len`` on write to scratch."""
+        posw = start + np.arange(self._chunk)
+        rows = self._rows(np.tile(table_row, (self._chunk, 1)), posw,
+                          posw < valid_len)
+        return self._forward(params, draft, rows, self._dev(toks))
 
     @torch.no_grad()
     def step(self, tables, toks, pos, active, seeds) -> np.ndarray:
@@ -188,13 +347,8 @@ class PagedPrograms:
         (B,) int64); returns the next token of every lane.  The JAX
         package's `_build_step` program."""
         params = G._gather_params(self._net, self._qc)
-        t_tables, t_pos = self._dev(tables), self._dev(pos)
-        posl = t_pos.long()
-        wblk = t_tables.long().gather(1, (posl // self._bs)[:, None])[:, 0]
-        wblk = torch.where(self._dev(active), wblk, 0)   # idle -> scratch
-        h = _token_forward(params, self._acts, self._H, self.pool_k,
-                           self.pool_v, self.scale_k, self.scale_v, t_tables,
-                           self._dev(toks), t_pos, wblk, posl % self._bs)
+        rows = self._rows(tables, pos, active)
+        h = self._forward(params, False, rows, self._dev(toks))
         nxt = self._pick(G._logits_of(params, h), pos, seeds)
         return nxt.cpu().numpy()
 
@@ -207,20 +361,127 @@ class PagedPrograms:
         returns the first generated token (picked from the row of
         position ``valid_len - 1``); else None.  The JAX package's
         `_build_prefill_chunk` program."""
-        CH, bs, nbps = self._chunk, self._bs, self._nbps
         params = G._gather_params(self._net, self._qc)
-        posw = start + torch.arange(CH, device=self.device)
-        posc = posw.clamp(0, nbps * bs - 1)
-        row = self._dev(table_row)
-        wblk = torch.where(posw < valid_len,
-                           row.long()[(posc // bs).clamp(0, nbps - 1)], 0)
-        tables = row[None, :].expand(CH, nbps).contiguous()
-        h = _token_forward(params, self._acts, self._H, self.pool_k,
-                           self.pool_v, self.scale_k, self.scale_v, tables,
-                           self._dev(toks), posc.to(torch.int32), wblk,
-                           posc % bs)
+        h = self._chunk_forward(params, False, table_row, toks, start,
+                                valid_len)
         if not final:
             return None
-        li = min(max(valid_len - 1 - start, 0), CH - 1)
+        li = min(max(valid_len - 1 - start, 0), self._chunk - 1)
         logits = G._logits_of(params, h[li:li + 1])
         return int(self._pick(logits, [valid_len - 1], [seed])[0])
+
+    # -- speculative decoding ------------------------------------------ #
+    def draft_params(self):
+        """The draft's weights (the target's int8 weights when it
+        self-drafts)."""
+        return G._gather_params(self._draft_net, self._draft_qc)
+
+    @torch.no_grad()
+    def draft_prefill_chunk(self, table_row, toks, start: int,
+                            valid_len: int) -> None:
+        """The chunk program on the draft weights and pools, without the
+        pick (the target's chunk picks the first token).  The JAX
+        package's `_build_draft_prefill_chunk` program."""
+        self._chunk_forward(self.draft_params(), True, table_row, toks,
+                            start, valid_len)
+
+    @torch.no_grad()
+    def draft_step(self, tables, toks, pos, active, seeds):
+        """k draft token forwards at ``pos .. pos+k-1`` over the draft
+        pools (host arrays in, as `step`).  Step j proposes d_{j+1}:
+        the draft's argmax when greedy, else a draw from q_j = softmax
+        of its temperature-scaled top-k logits, from the stream of
+        (seed, pos+j), the plain pick's recipe.  Returns (d_toks (B, k)
+        on the card, q (B, k, V) or None when greedy).  The JAX
+        package's `_build_draft_step` program."""
+        params = self.draft_params()
+        k = self._spec_k
+        slots = [_host_slots(tables, pos + j, active, self._bs, self._msl)
+                 for j in range(k)]
+        posc, wblk, off = (self._dev(np.stack(a)) for a in zip(*slots))
+        t_tables, cur = self._dev(tables), self._dev(toks)
+        d_toks, q = [], []
+        for j in range(k):
+            h = self._forward(params, True, (t_tables, posc[j], wblk[j],
+                                             off[j]), cur)
+            logits = G._logits_of(params, h)
+            if self._spec_greedy:
+                cur = logits.argmax(dim=-1)
+            else:
+                lg = G._top_k_logits(logits, self._temperature, self._top_k)
+                cur = _sample(lg, seeds, pos + j)
+                q.append(torch.softmax(lg, dim=-1))
+            d_toks.append(cur)
+        return (torch.stack(d_toks, dim=1),
+                torch.stack(q, dim=1) if q else None)
+
+    @torch.no_grad()
+    def spec_verify(self, tables, toks, pos, active, seeds, d_toks, q):
+        """The verifier: ONE target forward of every lane's window
+        ``[tok, d_1 .. d_k]`` at ``pos .. pos+k`` as B·(k+1) rows (lane
+        b's row j is row b·(k+1)+j).  Per layer every row's K/V is
+        written before any row attends, and each row's mask admits
+        slots <= its own position, so row j's math is that of a step at
+        pos+j.  Then acceptance on the card:
+
+        * greedy: ``out = argmax``, and the accepted length is the
+          leading run of drafts equal to it;
+        * stochastic: accept d_j while ``u_j·q_j(d_j) < p_j(d_j)``, u_j
+          from the `_ACCEPT_SALT` stream at pos+j; the first rejected
+          position resamples from ``max(p - q, 0)`` (the `_RESID_SALT`
+          stream at its position); a fully accepted window draws the
+          bonus token from p_{k+1} with the plain pick at pos+k.
+
+        Returns host ``(out (B, k+1), alen (B,))``, one copy from the
+        card; the engine emits ``out[:, :alen+1]``.  Rejected
+        positions' pages need no rollback: they are rewritten before
+        any mask admits them.  The JAX package's `_build_spec_verify`
+        program."""
+        k = self._spec_k
+        T = k + 1
+        B = toks.shape[0]
+        params = G._gather_params(self._net, self._qc)
+        posw = (pos[:, None] + np.arange(T)).reshape(-1)
+        rows = self._rows(np.repeat(tables, T, axis=0), posw,
+                          np.repeat(active, T))
+        win = torch.cat([self._dev(toks).long()[:, None], d_toks], dim=1)
+        h = self._forward(params, False, rows, win.reshape(-1))
+        logits = G._logits_of(params, h).reshape(B, T, -1)
+        if self._spec_greedy:
+            out = logits.argmax(dim=-1)
+            match = (d_toks == out[:, :k]).long()
+            alen = match.cumprod(dim=1).sum(dim=1)
+        else:
+            out, alen = self._accept(logits, d_toks, q, pos, seeds)
+        res = torch.cat([out, alen[:, None]], dim=1).cpu().numpy()
+        return res[:, :T], res[:, T]
+
+    def _accept(self, logits, d_toks, q, pos, seeds):
+        """Exact rejection sampling of the drafts against the target's
+        distribution (see `spec_verify`)."""
+        k = self._spec_k
+        B, T, V = logits.shape
+        dev = logits.device
+        lg = G._top_k_logits(logits, self._temperature, self._top_k)
+        p = torch.softmax(lg, dim=-1)                          # (B, T, V)
+        # the k uniforms of each lane are scalars: drawn on the host
+        u = torch.tensor([[_uniform(_stream(s, t + j, _ACCEPT_SALT))
+                           for j in range(k)] for s, t in zip(seeds, pos)],
+                         device=dev)
+        pd = p[:, :k].gather(2, d_toks[..., None])[..., 0]
+        qd = q.gather(2, d_toks[..., None])[..., 0]
+        acc = (u * qd.clamp(min=1e-38) < pd).long()
+        alen = acc.cumprod(dim=1).sum(dim=1)
+        # the correction at every window position, each from its own
+        # stream; the first rejected one is kept (host positions only,
+        # so the card is not waited on)
+        ts = (pos[:, None] + np.arange(k)).reshape(-1)
+        resid = (p[:, :k] - q).clamp(min=0.0).reshape(B * k, V)
+        corr = _sample(torch.log(resid + 1e-38), np.repeat(seeds, k), ts,
+                       _RESID_SALT).reshape(B, k)
+        corr = corr.gather(1, alen.clamp(max=k - 1)[:, None])[:, 0]
+        bonus = _sample(lg[:, k], seeds, pos + k)
+        last = torch.where(alen == k, bonus, corr)
+        d_pad = torch.cat([d_toks, torch.zeros_like(d_toks[:, :1])], dim=1)
+        idx = torch.arange(T, device=dev)[None, :]
+        return torch.where(idx < alen[:, None], d_pad, last[:, None]), alen

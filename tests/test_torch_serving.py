@@ -13,8 +13,9 @@ The load-bearing contracts, as in the JAX package:
   one; shared blocks are decref'd exactly.
 * **Overload safety** — a full queue sheds, SLO estimates shed late
   requests, deadlines evict mid-batch, abandoned streams release their
-  blocks, close() joins the scheduler thread, and scheduler errors are
-  parked and re-raised.
+  blocks (a `Request.stream` or an `lm_stream` generator), close()
+  joins the scheduler thread, and scheduler errors are parked and
+  re-raised.
 * **int8 KV pages** (``kv_dtype="int8"``) — the port's kv8 engine gives
   the JAX kv8 engine's tokens on the same weights (both take their
   dense attention on the CPU), keeps >= 95% greedy parity with the
@@ -38,7 +39,8 @@ from incubator_mxnet_tpu.models.transformer import TransformerLM as JaxLM
 from incubator_mxnet_tpu.ndarray.ndarray import NDArray
 from incubator_mxnet_tpu.serving import ServingEngine as JaxEngine
 from incubator_mxnet_tpu_torch.convert import load_jax_params
-from incubator_mxnet_tpu_torch.models import TransformerLM, lm_generate
+from incubator_mxnet_tpu_torch.models import (TransformerLM, lm_generate,
+                                              lm_stream)
 from incubator_mxnet_tpu_torch.serving import (BlockPool, RequestCancelled,
                                                RequestFailed, RequestShed,
                                                RequestTimedOut, ServingEngine)
@@ -411,6 +413,39 @@ def test_abandoned_stream_releases_blocks(clean_engine):
                  == eng.stats()["blocks_total"])
     assert req.status == "cancelled"
     eng.set_fault_hook(None)
+
+
+def test_lm_stream_yields_and_finishes(nets, clean_engine):
+    toks = list(lm_stream(nets[1], P1, 8, engine=clean_engine))
+    assert toks == _ref(nets, P1, 8)
+
+
+def test_lm_stream_abandoned_releases_blocks(net, clean_engine):
+    eng = clean_engine
+    cancelled = eng.stats()["evicted"].get("cancel", 0)
+    eng.set_fault_hook(_slow("step", 0.02))
+    it = lm_stream(net, P1, 30, engine=eng)
+    assert isinstance(next(it), int)
+    it.close()                             # the caller walks away
+    assert _wait(lambda: eng.stats()["blocks_free"]
+                 == eng.stats()["blocks_total"])
+    assert eng.stats()["evicted"].get("cancel", 0) == cancelled + 1
+    eng.set_fault_hook(None)
+
+
+def test_lm_stream_uses_the_default_engine(nets):
+    """Without ``engine=``, `lm_stream` serves through the net's shared
+    engine (`default_engine`), configured by its keyword arguments on
+    first use and reused after."""
+    net = nets[1]
+    kw = dict(max_batch=2, block_size=8, poll_interval=_POLL)
+    try:
+        assert list(lm_stream(net, P2, 6, **kw)) == _ref(nets, P2, 6)
+        eng = net._serving_engine
+        assert list(lm_stream(net, P1, 8, **kw)) == _ref(nets, P1, 8)
+        assert net._serving_engine is eng and not eng.closed
+    finally:
+        net._serving_engine.close()
 
 
 def test_close_joins_scheduler_and_rejects_new_work(net):
