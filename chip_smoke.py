@@ -157,8 +157,52 @@ Phases (any failure ends the run with a non-zero exit code):
    same engine on the plain versions and against the non-speculative
    engine, by the gap rule.
 
+Phases 4, 14, 17 and 18 run the serving programs' eager bodies
+(`_graphs.eager()`: their launch counts and recorded kernel inputs are
+per call); phases 5, 16 and 19 run on CUDA graphs, the port's default.
+The compiled programs as CUDA graphs (run right after phase 18, on
+phase 4's net):
+
+20. graphed main path — the float, kv8 (int8 weights and pages) and
+   self-drafted k=4 engines over phase 4's burst, and for the float one
+   ``generate`` (B=8, P=128, N=32) and a profiled solo request, each
+   first on the eager bodies and then on graphs: tokens equal lane for
+   lane, exactly one capture per program per engine under
+   ``RetraceGuard(budget=1)``, and each engine's serving-kernel
+   launches counted from 0 as direct launches plus replays x launches a
+   replay (the kernel must run inside replays); prints graphed against
+   eager decoded tok/s, TTFT and TPOT p50, ``generate`` tok/s, the
+   speculative engine against the float one, and the solo request's
+   wall, scheduler iterations, wall a iteration, card busy share and
+   kernels a iteration;
+21. graphed programs — at full width every serving program (step and
+   prefill chunk over float and int8 pages, greedy and sampled; draft
+   step, draft chunk and verify over float and int8 pages, greedy and
+   sampled) on random pool contents: its capture call and a replay
+   give its eager body's logits (or hidden states), tokens and pool
+   writes bit for bit; then a graphed float step's host time split
+   (fingerprint and gather, slots, staging, launch, sync) and one
+   replay's card time;
+22. ``generate`` (greedy, sampled, eos, ``pad_to_bucket=True``) and
+   ``beam_search`` on graphs equal to their eager bodies at capture and
+   replay (beam scores bit for bit); the bucketed tokens' agreement
+   with the unpadded call is printed;
+23. weight writes — ``set_data``, an in-place write through
+   ``param.data``, a ``cast`` round trip, ``quantize_for_decode`` (and an
+   in-place write re-quantized by a second call), ``dequantize_decode``:
+   the next graphed ``generate`` equals the eager one on the new weights
+   (captures per call printed); an engine after a ``set_data`` equals
+   its eager bodies;
+24. hybridize — a hybridized 2-layer TransformerLM (width 1024, bf16) at
+   (2, 512) replays bit-identical to its eager forward with the flash
+   kernel inside the replay; a train-mode dropout forward refuses to
+   capture; and a captured program's owner dropped inside another
+   program's capture while the collector runs: the capture holds (a
+   graph freed during a capture invalidates it).
+
 The line before the last is a JSON object with every kernel's launches
-(summed over the main paths that ran it), error, time, plain-version
+(summed over the main paths that ran it, launches inside graph replays
+included), error, time, plain-version
 time, bound and library time (the flash kernels' at the T=512 inputs;
 its time at the generate prefill is printed above; the paged kernels'
 at their busiest decode step); the line
@@ -169,6 +213,7 @@ JAX package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import json
 import math
@@ -180,7 +225,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from incubator_mxnet_tpu_torch import _build, autograd, nd
+from incubator_mxnet_tpu_torch import (MXNetError, _build, _graphs,
+                                       autograd, nd)
 from incubator_mxnet_tpu_torch import random as mx_random
 from incubator_mxnet_tpu_torch.contrib.quantization import quantize_kv
 from incubator_mxnet_tpu_torch.gluon import HybridBlock, Trainer
@@ -201,6 +247,8 @@ from incubator_mxnet_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_dense, paged_attention_q8)
 from incubator_mxnet_tpu_torch.ops.xent_kernel import (
     dlogits_reference, stats_reference, xent_backward, xent_forward)
+from incubator_mxnet_tpu_torch.retrace_guard import (PROGRAM_NAMES,
+                                                     RetraceGuard)
 from incubator_mxnet_tpu_torch.serving import PagedPrograms, ServingEngine
 from incubator_mxnet_tpu_torch.serving import programs as prog_mod
 
@@ -1682,6 +1730,567 @@ def phase_spec_parity() -> dict:
     return {"kernel_vs_plain": eq_plain, "vs_nonspec": eq_nonspec}
 
 
+# ---------------------------------------------------------------- phase 20
+def _same(a, b) -> bool:
+    """Bit equality of two program results (tensors, arrays, ints,
+    None, and tuples of them)."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.shape == b.shape \
+            and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return isinstance(b, (tuple, list)) and len(a) == len(b) \
+            and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _pool_tensors(progs):
+    return [*progs.pool_k, *progs.pool_v, *progs.scale_k, *progs.scale_v,
+            *progs.dpool_k, *progs.dpool_v]
+
+
+def check_program_bits(progs, kind, call) -> int:
+    """Program ``kind`` of ``progs`` through ``call()`` on one pool
+    content three times: on its eager body (`_graphs.eager`), at its
+    capture (the warm-up's result) and at a replay.  The replay's
+    outputs (the logits, or a chunk's hidden states), its result
+    (tokens) and the pools it leaves must equal the eager body's bit for
+    bit.  Returns the number of output tensors compared."""
+    pools = _pool_tensors(progs)
+    snap = [p.clone() for p in pools]
+    prog = progs.programs[kind]
+
+    def restore():
+        for p, s in zip(pools, snap):
+            p.copy_(s)
+
+    with _graphs.eager():
+        want = call()
+    want_out = [t.clone() for t in prog.last]
+    want_pools = [p.clone() for p in pools]
+    restore()
+    first = call()                          # capture; its warm-up's result
+    restore()
+    n = _graphs.replays[prog.name]
+    got = call()
+    torch.cuda.synchronize()
+    assert prog.captured and _graphs.replays[prog.name] > n, kind
+    assert _same(first, want), f"{prog.name}: the capture call differs"
+    assert _same(got, want), f"{prog.name}: replayed result differs"
+    assert _same(list(prog.last), want_out), \
+        f"{prog.name}: replayed outputs differ from the eager body's"
+    assert all(torch.equal(p, q) for p, q in zip(pools, want_pools)), \
+        f"{prog.name}: replayed pool writes differ"
+    return len(want_out)
+
+
+def _program_inputs(B, nbps, bs, V, seed):
+    """Lane inputs at full width: distinct block tables, positions from
+    5 to 500, lane 4 idle (scratch tables)."""
+    rs = np.random.RandomState(seed)
+    tables = (1 + np.arange(B * nbps, dtype=np.int32)).reshape(B, nbps)
+    pos = np.array([37, 100, 255, 300, 5, 64, 128, 500][:B], np.int32)
+    active = np.ones(B, bool)
+    active[4] = False
+    tables[4] = 0
+    toks = rs.randint(0, V, (B,)).astype(np.int32)
+    return tables, toks, pos, active, np.arange(B, dtype=np.int64) + seed
+
+
+def _fill_pools(progs, seed):
+    """Random pool contents: bf16 pages of K/V-like values, int8 pages
+    with scales of 0.01-0.05."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    for p in (*progs.pool_k, *progs.pool_v, *progs.dpool_k, *progs.dpool_v):
+        if p.dtype == torch.int8:
+            p.copy_(torch.randint(-127, 128, p.shape, generator=g,
+                                  device=DEV, dtype=torch.int8))
+        else:
+            p.copy_(torch.randn(p.shape, generator=g, device=DEV))
+    for s in (*progs.scale_k, *progs.scale_v):
+        s.copy_(0.01 + 0.04 * torch.rand(s.shape, generator=g, device=DEV))
+
+
+GRAPH_GEN = dict(B=8, P=128, N=32)
+GRAPH_PROGRAM_CASES = (
+    ("float greedy", dict()),
+    ("float sampled", dict(temperature=1.0, top_k=50)),
+    ("kv8 greedy", dict(kv_dtype="int8")),
+    ("kv8 sampled", dict(kv_dtype="int8", temperature=1.0, top_k=50)),
+    ("spec greedy", dict(speculate_k=SPEC_K)),
+    ("spec sampled", dict(speculate_k=SPEC_K, temperature=1.0, top_k=50)),
+    ("spec kv8 greedy", dict(speculate_k=SPEC_K, kv_dtype="int8")),
+)
+
+
+def time_step_host(progs, tables, toks, pos, active, n=50) -> dict:
+    """Host ms of the parts of a greedy ``PagedPrograms.step`` call on
+    its captured graph, mean of ``n``: the weight fingerprint and gather,
+    the slots, the staging, the replay's launch, and the sync that waits
+    out the card; and the card ms of one replay by CUDA events."""
+    prog = progs.programs["step"]
+    parts = np.zeros(5)
+    for _ in range(n):
+        t0 = time.perf_counter()
+        progs.gather_params()
+        t1 = time.perf_counter()
+        slots = progs._slots(tables, pos, active)
+        t2 = time.perf_counter()
+        prog._stage(dict(toks=toks, **slots))
+        t3 = time.perf_counter()
+        prog._graph.replay()
+        t4 = time.perf_counter()
+        prog._out[1].cpu()
+        parts += np.diff([t0, t1, t2, t3, t4, time.perf_counter()])
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(n):
+        prog._graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    out = dict(zip(("gather", "slots", "stage", "launch", "sync"),
+                   (parts * 1e3 / n).tolist()))
+    out["replay_card"] = e0.elapsed_time(e1) / n
+    return out
+
+
+def phase_graph_programs(res) -> dict:
+    """Every serving program at full width (phase 4's 12-layer bf16
+    net, 8 lanes, block 16, 32 blocks a lane), captured and replayed
+    against its eager body on the same inputs and pool contents:
+    step and prefill chunk over float and int8 pages, greedy and
+    sampled; the speculative draft step, draft chunk and verify over
+    float and int8 pages, greedy and sampled (self-int8 draft)."""
+    net = res["net"]
+    V, bs, msl, B = MODEL["vocab"], 16, MODEL["max_len"], 8
+    nbps = msl // bs
+    net.quantize_for_decode()
+    out = {}
+    for ci, (tag, kw) in enumerate(GRAPH_PROGRAM_CASES):
+        progs = PagedPrograms(net, max_batch=B, block_size=bs,
+                              blocks_per_seq=nbps, num_blocks=B * nbps + 1,
+                              prefill_chunk=32, quantized=False,
+                              **dict(dict(temperature=0.0, top_k=0), **kw))
+        _fill_pools(progs, seed=ci)
+        tables, toks, pos, active, seeds = _program_inputs(B, nbps, bs, V,
+                                                           seed=ci)
+        ctoks = np.random.RandomState(ci).randint(0, V, (32,)).astype(
+            np.int32)
+        n = {}
+        if not progs.speculate_k:
+            n["step"] = check_program_bits(
+                progs, "step",
+                lambda: progs.step(tables, toks, pos, active, seeds))
+            n["prefill_chunk"] = check_program_bits(
+                progs, "prefill_chunk",
+                lambda: progs.prefill_chunk(tables[0], ctoks, 32, 50, 3,
+                                            True))
+        else:
+            n["draft_prefill_chunk"] = check_program_bits(
+                progs, "draft_prefill_chunk",
+                lambda: progs.draft_prefill_chunk(tables[0], ctoks, 32, 50))
+            n["draft_step"] = check_program_bits(
+                progs, "draft_step",
+                lambda: progs.draft_step(tables, toks, pos, active, seeds))
+            with _graphs.eager():
+                d_toks, q = progs.draft_step(tables, toks, pos, active,
+                                             seeds)
+            n["spec_verify"] = check_program_bits(
+                progs, "spec_verify",
+                lambda: progs.spec_verify(tables, toks, pos, active, seeds,
+                                          d_toks, q))
+        if tag == "float greedy":
+            host = time_step_host(progs, tables, toks, pos, active)
+        out[tag] = n
+        del progs
+    net.dequantize_decode()
+    log("graphed programs at full width (12 layers, bf16, 8 lanes): "
+        "replays bit-identical to the eager bodies (outputs, results, "
+        "pools): " + json.dumps(out))
+    log("a graphed float step's host ms, mean of 50 calls: " + "; ".join(
+        f"{k} {v:.3f}" for k, v in host.items() if k != "replay_card")
+        + f"; one replay on the card {host['replay_card']:.3f} ms")
+    return {"bits": out, "host": host}
+
+
+def _timed_burst(eng, prompts):
+    toks, dup_toks, dup, s, reqs = _burst(eng, prompts)
+    n_tok = sum(len(r.tokens) for r in reqs)
+    return {"toks": toks + [dup_toks], "tok_s": n_tok / s, "s": s,
+            "ttft_p50_s": _p50(reqs, "ttft"),
+            "tpot_p50_s": _p50(reqs, "tpot"), "hit": dup.cached_tokens > 0}
+
+
+def _profiled_solo(eng, prompt, warm):
+    """A solo request on ``eng`` under the profiler, after a warm-up
+    request ``warm`` of another prompt (no prefix hit): wall, replays,
+    card busy share, kernels and wall and card idle time a scheduler
+    iteration (chunks plus decode iterations)."""
+    eng.submit(warm, 2).result(timeout=300)
+    s0 = eng.stats()["steps"]
+    r0 = sum(_graphs.replays.values())
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        toks = eng.submit(prompt, 32).result(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    iters = eng.stats()["steps"] - s0 + -(-len(prompt) // 32)
+    replays = sum(_graphs.replays.values()) - r0
+    # the same work without the profiler's host cost: a prompt of the
+    # same length that shares no block with the first
+    other = ((prompt.astype(np.int64) + 1) % MODEL["vocab"]).astype(np.int32)
+    t0 = time.perf_counter()
+    eng.submit(other, 32).result(timeout=600)
+    quiet = time.perf_counter() - t0
+    events = prof.events()
+    kern = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = device_busy(prof, wall) if kern else None
+    return {"toks": toks, "wall_s": wall, "iterations": iters,
+            "replays": replays,
+            "graph_launches": sum("GraphLaunch" in e.name for e in events),
+            "wall_ms_per_iteration": wall * 1e3 / iters,
+            "unprofiled_ms_per_iteration": quiet * 1e3 / iters,
+            # the card waits on the host between a step's sync and the
+            # next launch: its idle time a iteration is the host's share
+            "idle_ms_per_iteration": busy and (wall - busy["busy_s"])
+            * 1e3 / iters,
+            "busy_s": busy and busy["busy_s"],
+            "busy_share": busy and busy["busy_share"],
+            "kernels": busy and busy["kernels"],
+            "kernels_per_iteration": busy and busy["kernels"] / iters,
+            "top": busy and busy["top"][:4]}
+
+
+ENGINE_CASES = (
+    ("float", dict(), ("serving_step", "serving_prefill_chunk")),
+    ("kv8", dict(kv_dtype="int8"),
+     ("serving_step_kv8", "serving_prefill_chunk_kv8")),
+    ("spec", dict(speculate_k=SPEC_K, quantized=False),
+     ("serving_draft_step", "serving_draft_prefill_chunk",
+      "serving_spec_verify", "serving_prefill_chunk")),
+)
+
+
+def _quantize_for(net, tag):
+    """Phase 14's int8 weights for the kv8 engine, the self-int8 draft
+    for the speculative one, float weights otherwise."""
+    if tag in ("kv8", "spec"):
+        net.quantize_for_decode()
+    else:
+        net.dequantize_decode()
+
+
+def phase_graph_path(smi: str, res) -> dict:
+    """The serving main path on graphs at full width (phase 4's net):
+    the float, kv8 and self-drafted k=4 engines, each over phase 4's
+    burst (the float one also ``generate`` B=8 P=128 N=32 and a
+    profiled solo request), first on the eager bodies and then on
+    graphs: every lane's tokens equal, exactly one capture per program
+    per engine under a RetraceGuard, and each engine's serving kernels'
+    launches counted from 0 (direct launches plus replays x launches a
+    replay); timings graphed against eager in this run."""
+    net, prompt, prompts = res["net"], res["prompt"], res["prompts"]
+    B, P, N = GRAPH_GEN["B"], GRAPH_GEN["P"], GRAPH_GEN["N"]
+    prompt = prompt[:B, :P]
+
+    def engine(**kw):
+        return ServingEngine(net, max_batch=8, block_size=16,
+                             prefill_chunk=32, **kw)
+
+    def timed_generate():
+        net.generate(prompt, N)             # capture (eager: warm-up)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net.generate(prompt, N)
+        torch.cuda.synchronize()
+        return out, B * N / (time.perf_counter() - t0)
+
+    eager = {}
+    with _graphs.eager():
+        want_gen, eager["generate_tok_s"] = timed_generate()
+        for tag, kw, _ in ENGINE_CASES:
+            _quantize_for(net, tag)
+            with engine(**kw) as eng:
+                eager[tag] = _timed_burst(eng, prompts)
+            if tag == "float":
+                with engine(**kw) as eng:
+                    eager["solo"] = _profiled_solo(eng, prompts[5],
+                                                   prompts[0][:40])
+    graphed, captures = {}, {}
+    launches = {n: 0 for n in SERVING_KERNELS}
+    replayed = dict(launches)
+    for tag, kw, names in ENGINE_CASES:
+        _quantize_for(net, tag)
+        # the counts start from 0 here and are read right after
+        for name in SERVING_KERNELS:
+            KERNELS[name]["fn"].launches = 0
+        _graphs.reset_counts()
+        runs = [("burst", lambda eng: _timed_burst(eng, prompts))]
+        if tag == "float":
+            got_gen, graphed["generate_tok_s"] = timed_generate()
+            assert torch.equal(got_gen, want_gen), "generate: graphed"
+            runs.append(("solo", lambda eng: _profiled_solo(
+                eng, prompts[5], prompts[0][:40])))
+        for what, run in runs:
+            with RetraceGuard(budget=1, watch=PROGRAM_NAMES) as guard:
+                with engine(**kw) as eng:
+                    graphed[tag if what == "burst" else what] = run(eng)
+                    progs = eng._programs.programs
+            per = sorted(p.name for p in progs.values() if p.captured)
+            assert per == sorted(names), (tag, what, per)
+            assert dict(guard.counts) == {n: 1 for n in names}, \
+                (tag, what, dict(guard.counts))
+            captures[f"{tag} {what}"] = dict(guard.counts)
+        torch.cuda.synchronize()
+        window = {n: _graphs.launches(KERNELS[n]["fn"])
+                  for n in SERVING_KERNELS}
+        for n in SERVING_KERNELS:
+            launches[n] += window[n]
+            replayed[n] += _graphs.replayed_launches[KERNELS[n]["fn"]]
+        paged = "paged_attention_q8" if tag == "kv8" else "paged_attention"
+        assert window[paged] > 0 and \
+            _graphs.replayed_launches[KERNELS[paged]["fn"]] > 0, \
+            (tag, window)
+        if tag == "float":
+            assert _graphs.replayed_launches[_fa_fn] > 0, "flash replays"
+        assert graphed[tag]["toks"] == eager[tag]["toks"], \
+            f"{tag} engine: graphed tokens differ from the eager bodies'"
+        assert graphed[tag]["hit"], f"{tag}: the prefix-cache hit missed"
+    net.dequantize_decode()
+    assert graphed["solo"]["toks"] == eager["solo"]["toks"]
+    for d in (eager, graphed):
+        for tag in ("float", "kv8", "spec", "solo"):
+            d[tag].pop("toks")
+    out = {"eager": eager, "graphed": graphed, "launches": launches,
+           "replayed_launches": replayed, "captures": captures}
+    log(f"graphed main path [{smi}]: launches {launches}, of them inside "
+        f"replays {replayed}; captures per engine under "
+        f"RetraceGuard(budget=1): {json.dumps(captures)}")
+    log(f"generate B={B} P={P} N={N} [{smi}]: graphed "
+        f"{graphed['generate_tok_s']:.1f} tok/s, eager "
+        f"{eager['generate_tok_s']:.1f} tok/s "
+        f"({graphed['generate_tok_s'] / eager['generate_tok_s']:.2f}x); "
+        f"tokens equal")
+    for tag, _, _ in ENGINE_CASES:
+        g, e = graphed[tag], eager[tag]
+        log(f"{tag} engine, phase 4's burst [{smi}]: graphed "
+            f"{g['tok_s']:.1f} decoded tok/s, TTFT p50 "
+            f"{g['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+            f"{g['tpot_p50_s'] * 1e3:.2f} ms; eager {e['tok_s']:.1f} tok/s, "
+            f"TTFT p50 {e['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+            f"{e['tpot_p50_s'] * 1e3:.2f} ms ({g['tok_s'] / e['tok_s']:.2f}x);"
+            f" tokens equal")
+    log(f"self-drafted k={SPEC_K} engine against the float engine [{smi}]: "
+        f"graphed {graphed['spec']['tok_s'] / graphed['float']['tok_s']:.3f}x"
+        f", eager {eager['spec']['tok_s'] / eager['float']['tok_s']:.3f}x")
+    for tag, d in (("graphed", graphed["solo"]), ("eager", eager["solo"])):
+        log(f"float solo request ({len(prompts[5])}-token prompt, 32 "
+            f"tokens) under the profiler, {tag} [{smi}]: {d['wall_s']:.4f} s "
+            f"wall, {d['iterations']} scheduler iterations, "
+            f"{d['wall_ms_per_iteration']:.3f} ms of wall a iteration "
+            f"({d['unprofiled_ms_per_iteration']:.3f} without the "
+            f"profiler), "
+            f"{d['replays']} replays ({d['graph_launches']} graph launches "
+            f"seen by the profiler); card "
+            + ("not measured (the profiler saw no kernel)"
+               if d["busy_s"] is None else
+               f"busy {d['busy_s']:.4f} s = {d['busy_share']:.3f} of the "
+               f"wall, idle {d['idle_ms_per_iteration']:.3f} ms a "
+               f"iteration, {d['kernels']} kernels "
+               f"({d['kernels_per_iteration']:.0f} a iteration); top "
+               f"{d['top']}"))
+    return out
+
+
+def check_decode_graphs(smi: str, res) -> dict:
+    """``generate`` (greedy, sampled, eos, ``pad_to_bucket=True``) and
+    ``beam_search`` at full width on graphs against their eager bodies:
+    the capture call and a replay give the eager tokens (beam scores
+    bit for bit); the bucketed call is also compared with the unpadded
+    one."""
+    net = res["net"]
+    prompt = res["prompt"][:, :128]
+    N = 32
+    greedy = net.generate(prompt, N)
+    eos = int(greedy[0, 128 + 3])
+    cases = (("greedy", prompt, {}),
+             ("sampled", prompt, dict(temperature=0.8, top_k=40, seed=7)),
+             ("eos", prompt, dict(eos_id=eos)),
+             ("bucket", prompt[:, :100], dict(pad_to_bucket=True)))
+    out = {}
+    for tag, p, kw in cases:
+        with _graphs.eager():
+            want = net.generate(p, N, **kw)
+        for _ in range(2):                      # capture, then replay
+            assert torch.equal(net.generate(p, N, **kw), want), tag
+        out[tag] = True
+    with _graphs.eager():
+        unpadded = net.generate(prompt[:, :100], N)
+    out["bucket_vs_unpadded"] = float((want == unpadded).float().mean())
+    bp = prompt[:BEAM["B"]]
+    with _graphs.eager():
+        ws, wsc = net.beam_search(bp, N, beam_size=BEAM["K"])
+    for _ in range(2):
+        gs, gsc = net.beam_search(bp, N, beam_size=BEAM["K"])
+        assert torch.equal(gs, ws) and torch.equal(gsc, wsc), "beam"
+    out["beam"] = True
+    log(f"generate and beam_search on graphs [{smi}]: greedy, sampled "
+        f"(T=0.8, top_k 40), eos (id {eos}), pad_to_bucket (P=100 in the "
+        f"128 bucket) and beam (B={BEAM['B']} K={BEAM['K']}) equal to their "
+        f"eager bodies at capture and replay; the bucketed tokens equal "
+        f"the unpadded ones on {out['bucket_vs_unpadded']:.4f} of "
+        f"positions")
+    return out
+
+
+def check_weight_writes(smi: str, res) -> dict:
+    """After each kind of weight write the next graphed call re-gathers
+    or recaptures and gives the eager tokens on the new weights:
+    ``set_data`` (same storage, a new version: a re-gather, no
+    recapture), an in-place write through ``param.data`` (the graph
+    reads it in place), a ``cast`` round trip (new storage: a
+    recapture), ``quantize_for_decode`` (the int8 copies: a new
+    program), an in-place write then ``quantize_for_decode`` again (new
+    int8 copies), ``dequantize_decode``; and an engine's step after a
+    ``set_data``."""
+    net, prompts = res["net"], res["prompts"]
+    p = res["prompt"][:2, :32]
+    w = net.head.weight
+    w1 = net._layers[0].ffn.ffn_dense1.weight
+    caps = []
+
+    def both(tag):
+        with _graphs.eager():
+            want = net.generate(p, 8)
+        c = sum(_graphs.captures.values())
+        got = net.generate(p, 8)
+        caps.append((tag, sum(_graphs.captures.values()) - c))
+        assert torch.equal(got, want), f"{tag}: graphed != eager"
+        return got
+
+    base = both("first")
+    w.set_data(-w.detach())
+    flipped = both("set_data")
+    assert not torch.equal(flipped, base), "set_data changed nothing"
+    w.data.mul_(-1)
+    assert torch.equal(both("param.data"), base)
+    net.cast("float32")
+    net.cast("bfloat16")
+    assert torch.equal(both("cast round trip"), base)
+    net.quantize_for_decode()
+    both("quantize_for_decode")
+    w8 = net._decode_quant.packed(net._layers[0].ffn.ffn_dense1)["w8"]
+    w1.data.mul_(-1)
+    net.quantize_for_decode()
+    both("param.data + quantize_for_decode")
+    w8_new = net._decode_quant.packed(net._layers[0].ffn.ffn_dense1)["w8"]
+    assert torch.equal(w8_new, -w8), "the int8 copies were not re-made"
+    w1.data.mul_(-1)
+    net.dequantize_decode()
+    assert torch.equal(both("dequantize_decode"), base)
+    # an engine: its step after a set_data
+    toks = []
+    for mode in (_graphs.eager, contextlib.nullcontext):
+        with mode():
+            with ServingEngine(net, max_batch=8, block_size=16,
+                               prefill_chunk=32) as eng:
+                a = eng.submit(prompts[0], 8).result(timeout=300)
+                w.set_data(-w.detach())
+                b = eng.submit(prompts[1], 8).result(timeout=300)
+                w.set_data(-w.detach())
+        toks.append((a, b))
+    assert toks[0] == toks[1], "engine after set_data: graphed != eager"
+    log(f"weight writes [{smi}]: graphed generate equal to eager after "
+        f"each, captures a call {caps}; an in-place write then "
+        f"quantize_for_decode re-made the int8 copies; an engine after "
+        f"set_data equal to its eager bodies")
+    return {"captures": caps}
+
+
+class _Owner:
+    """Holds a program in a reference cycle, as an engine or a
+    ``generate`` program does."""
+
+
+def check_capture_during_collection(smi: str) -> dict:
+    """A graph whose owner becomes garbage while another program is
+    being captured is not freed during that capture (destroying a graph
+    there invalidates the capture): the second program's body, at its
+    capture, drops the last reference to a captured program's reference
+    cycle and allocates enough to run the collector at a threshold of
+    (100, 1, 1); the capture succeeds and its replay is right."""
+    pool = _graphs.Pool(DEV)
+    x = torch.arange(1024, dtype=torch.float32, device=DEV)
+    owner = _Owner()
+    owner.prog = _graphs.Program("raw_fn", lambda x: (x * 2,), pool)
+    owner.prog.owner = owner
+    for _ in range(2):
+        owner.prog.run(0, x=x)
+    assert owner.prog.captured
+    keep = [owner]
+    del owner
+    calls = []
+
+    def body(x):
+        calls.append(len(calls))
+        if len(calls) == 2:                 # the capture, not the warm-up
+            keep.clear()
+            [[] for _ in range(20000)]
+        return (x + 1,)
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(100, 1, 1)
+    try:
+        prog = _graphs.Program("raw_fn", body, pool)
+        prog.run(0, x=x)
+        (out,) = prog.run(0, x=x)
+    finally:
+        gc.set_threshold(*thresholds)
+    torch.cuda.synchronize()
+    assert prog.captured and len(calls) == 2
+    assert torch.equal(out, x + 1)
+    log(f"capture during collection [{smi}]: a captured program's owner "
+        f"dropped inside another capture under gc threshold (100, 1, 1); "
+        f"the capture held and its replay is right")
+    return {"calls": len(calls)}
+
+
+def check_hybridize(smi: str) -> dict:
+    """A hybridized TransformerLM (2 layers, width 1024, bf16) at T=512
+    (attention through the flash kernel): the capture call and a replay
+    bit-identical to the eager forward, the flash kernel launched inside
+    the replay; in train mode outside ``record()`` a net with dropout
+    refuses to capture."""
+    net = _build_net(torch.bfloat16, 2, seed=3)
+    x = torch.from_numpy(np.random.RandomState(3).randint(
+        0, MODEL["vocab"], (2, 512))).to(DEV)
+    want = net(x)
+    net.hybridize()
+    n0 = _graphs.replayed_launches[_fa_fn]
+    first, again = net(x), net(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, want) and torch.equal(again, want)
+    flash = _graphs.replayed_launches[_fa_fn] - n0
+    assert flash == 2, flash
+    drop = TransformerLM(**dict(MODEL, num_layers=1), dropout=0.1,
+                         device=DEV, seed=3)
+    drop.hybridize()
+    with autograd.train_mode():
+        try:
+            drop(x[:, :16])
+            refused = False
+        except MXNetError:
+            refused = True
+    assert refused, "a train-mode dropout forward was captured"
+    log(f"hybridize [{smi}]: TransformerLM 2x1024 bf16 at (2, 512) "
+        f"captured and replayed bit-identical to eager, {flash} flash "
+        f"launches inside the replay; train-mode dropout refused")
+    return {"flash_in_replay": flash}
+
 # ---------------------------------------------------------------- phase 7
 def check_dropout(dtype, shape, rate, seed) -> int:
     """The kernel's mask equals the plain Philox mask bit for bit; the
@@ -2524,16 +3133,28 @@ def main() -> int:
     # their host-bound numbers compare with earlier runs of the script
     errs = timed("kernels", phase_kernels)
     errs.update(timed("flash_bwd_kernels", phase_flash_bwd_kernels))
-    res = timed("main_path", phase_main_path, smi)
+    # phases 4, 14, 17 and 18 run the un-captured programs (their
+    # launch counts and recordings are per call); phase 20 drives the
+    # same paths on CUDA graphs
+    with _graphs.eager():
+        res = timed("main_path", phase_main_path, smi)
     times = timed("timing_paged", time_paged, res)
     serving_flash = timed("timing_flash", time_flash, res)
     timed("parity", phase_parity)
     del res["rec"], res["pools"]
     # the quantized serving path: int8 weights and int8 KV pages
-    qres = timed("quant_path", phase_quant_path, smi, res)
-    # the rest of TransformerLM decode: speculation and beam search
-    sres = timed("spec_path", phase_spec_path, smi, res)
-    bres = timed("beam", phase_beam, smi, res)
+    with _graphs.eager():
+        qres = timed("quant_path", phase_quant_path, smi, res)
+        # the rest of TransformerLM decode: speculation and beam search
+        sres = timed("spec_path", phase_spec_path, smi, res)
+        bres = timed("beam", phase_beam, smi, res)
+    # the compiled programs as CUDA graphs
+    gres = timed("graph_path", phase_graph_path, smi, res)
+    timed("graph_programs", phase_graph_programs, res)
+    timed("graph_decode", check_decode_graphs, smi, res)
+    timed("weight_writes", check_weight_writes, smi, res)
+    timed("hybridize", check_hybridize, smi)
+    timed("gc_captures", check_capture_during_collection, smi)
     del res["net"]
     qtimes = timed("quant_timing", time_paged_q8, qres)
     timed("quant_parity", phase_quant_parity)
@@ -2596,7 +3217,7 @@ def main() -> int:
     times["paged_attention_q8"] = qtimes["step"]
     # each kernel's launches summed over the main paths that ran it
     launches = {}
-    for path in (res, qres, sres, bres, tres, tres512, lres):
+    for path in (res, qres, sres, bres, gres, tres, tres512, lres):
         for name, n in path["launches"].items():
             launches[name] = launches.get(name, 0) + n
     rows = []

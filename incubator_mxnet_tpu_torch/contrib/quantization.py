@@ -17,6 +17,7 @@ The post-training quantization half of the JAX module (`quantize_net`,
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Optional
 
 import torch
@@ -25,6 +26,8 @@ from ..context import default_device
 
 __all__ = ["quantize_weight", "quantize_kv", "DecodeQuantConfig",
            "quantize_for_decode", "dequantize_decode"]
+
+_SERIAL = itertools.count()
 
 
 def quantize_weight(w, axis: int = 0):
@@ -97,6 +100,15 @@ class DecodeQuantConfig:
         self.quantize_head = quantize_head
         self._store: Dict[int, dict] = {}      # id(dense) -> entry
         self._targets: Dict[int, object] = {}  # id(dense) -> dense
+        self._serial = next(_SERIAL)
+
+    def cache_key(self) -> tuple:
+        """The decode programs' key of this state: the strategy, the
+        head flag and which `quantize_for_decode` call made it (the
+        JAX package keys on the first two; here each call's int8 copies
+        are distinct tensors that a captured program reads in place, and
+        a new call re-quantizes a write through ``param.data``)."""
+        return ("int8", self.act_quant, self.quantize_head, self._serial)
 
     def add_target(self, dense) -> None:
         self._targets[id(dense)] = dense

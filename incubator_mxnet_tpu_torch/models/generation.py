@@ -4,9 +4,20 @@ float path, the int8 weight path, `lm_score`, `lm_beam_search` and
 `lm_stream`).
 
 The JAX package compiles prefill plus the whole token loop into one XLA
-program; PyTorch runs eagerly, so here the prefill is one pass over the
-prompt and the token loop is a Python loop over `_decode_token`.  The
-math is the JAX package's, helper for helper:
+program, cached per signature on the net.  Here the same signature keys
+a `_GenerateProgram` (`_BeamProgram` for beam search) in a per-net LRU
+(`_program_cache`, cap 32, ``net._gen_program_cache_cap``): a prefill
+program and a one-token decode-step program over static KV caches, each
+captured once into a CUDA graph and replayed after that (`_graphs`).
+The position ``t`` rides in a device scalar that the step advances
+itself, so one graph serves every token.  ``pad_to_bucket=True`` shapes
+the program for the prompt's power-of-two bucket (`bucket_length`) and
+carries the true length in, as the JAX package does.  The weights are
+gathered once per `_params_fingerprint` (storage, in-place version and
+casts of every tensor, and the int8 state's `cache_key`); a graph is
+keyed on the gathered tensors' addresses, so a write that moves one
+recaptures.  On the CPU the same bodies run eagerly on the same
+buffers.  The math is the JAX package's, helper for helper:
 
 * `_prefill` runs the prompt with the training path's causal attention
   (`ops.flash_attention`, the hand-written CUDA kernel on the card);
@@ -17,7 +28,10 @@ math is the JAX package's, helper for helper:
 * sampling is counter-based: the draws at position ``t`` come from a
   stream seeded by ``(seed, t)`` alone (`random.counter_seed`), so a
   seeded run reproduces exactly.  Torch's streams are not JAX's: the
-  same seed samples different tokens in the two packages.
+  same seed samples different tokens in the two packages.  A
+  ``torch.Generator`` seeded on the host cannot be captured, so a
+  sampled pick runs between step replays; a greedy pick (and the eos
+  freeze) runs inside the step's graph.
 
 The int8 weight path (`contrib.quantization.quantize_for_decode`):
 `_gather_params` hands `_dense` an ``{"w8", "s"}`` dict for each
@@ -47,18 +61,30 @@ JAX package, so here they are torch matmuls, in two forms:
 from __future__ import annotations
 
 import math
+import os
+import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import _graphs
 from ..gluon.nn.basic_layers import layer_norm as _ln
 from ..ops.flash_attention import flash_attention
 from ..random import counter_seed
 
-__all__ = ["lm_generate", "lm_beam_search", "lm_score", "lm_stream"]
+__all__ = ["lm_generate", "lm_beam_search", "lm_score", "lm_stream",
+           "bucket_length"]
 
 _F32_MIN = torch.finfo(torch.float32).min
+
+# LRU caps of the per-net program cache and of the gathered weights
+# (one entry per weight path); override per net with
+# ``net._gen_program_cache_cap``
+_PROGRAM_CACHE_CAP = int(os.environ.get("MXTPU_GEN_PROGRAM_CACHE", "32"))
+_PARAMS_CACHE_CAP = 4
+_gather_lock = threading.Lock()
 
 
 def _f32_product(x, w8):
@@ -161,6 +187,126 @@ def _gather_params(net, qc=None):
             "layers": layers}
 
 
+def _params_fingerprint(net, qc=None):
+    """Key over the tensors `_gather_params` reads.  The JAX package keys
+    on buffer identity, because its updates replace buffers; PyTorch
+    writes in place and ``cast()`` may reuse an address, so each tensor
+    contributes its storage address, in-place version, ``Block.cast``
+    count and dtype, and the int8 state its `cache_key`.  A change means
+    the gathered tree (and the int8 copies in it) may be stale.  A write
+    through ``param.data`` bumps none of these: the float tree reads it
+    in place, and the int8 copies follow at the next
+    `quantize_for_decode`.  Every program call computes it, so it walks
+    the layers `_gather_params` reads (a third of the cost of
+    ``net.parameters()``)."""
+    return (tuple((t.data_ptr(), t._version, getattr(t, "_casts", 0),
+                   t.dtype) for t in _param_tensors(net)),
+            None if qc is None else qc.cache_key())
+
+
+def _param_tensors(net):
+    """The tensors `_gather_params` reads: every parameter of the net
+    and the positional-encoding table."""
+    head = net.head
+    ts = [net.embed.weight, net._pe, net.ln.gamma, net.ln.beta,
+          head.weight, head.bias]
+    for lyr in net._layers:
+        attn, ffn = lyr.attn, lyr.ffn
+        ts += [lyr.ln1.gamma, lyr.ln1.beta, attn.qkv.weight, attn.qkv.bias,
+               attn.proj.weight, attn.proj.bias, lyr.ln2.gamma,
+               lyr.ln2.beta, ffn.ffn_dense1.weight, ffn.ffn_dense1.bias,
+               ffn.ffn_dense2.weight, ffn.ffn_dense2.bias]
+    return [t for t in ts if t is not None]
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def _params_sig(params):
+    """What a captured program bakes in of a gathered tree: each
+    tensor's address, dtype, shape and device."""
+    return tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.device)
+                 for t in _leaves(params))
+
+
+def _gathered(net, qc):
+    """(`_gather_params(net, qc)`, its `_params_sig`), gathered once per
+    `_params_fingerprint` and cached on the net per weight path (the JAX
+    package's ``PagedPrograms.gather_params``)."""
+    with _gather_lock:
+        cache = getattr(net, "_gen_params", None)
+        if cache is None:
+            cache = net._gen_params = OrderedDict()
+        qkey = None if qc is None else qc.cache_key()
+        fp = _params_fingerprint(net, qc)
+        ent = _lru_touch(cache, qkey)
+        if ent is None or ent[0] != fp:
+            params = _gather_params(net, qc)
+            ent = _lru_put(cache, qkey, (fp, params, _params_sig(params)),
+                           _PARAMS_CACHE_CAP)
+        return ent[1], ent[2]
+
+
+def _lru_touch(cache, key):
+    """LRU read: returns cache[key] (refreshing recency) or None."""
+    val = cache.get(key)
+    if val is not None:
+        cache.move_to_end(key)
+    return val
+
+
+def _lru_put(cache, key, val, cap):
+    """LRU insert with eviction beyond ``cap``."""
+    cache[key] = val
+    while len(cache) > max(1, int(cap)):
+        cache.popitem(last=False)
+    return val
+
+
+def _program_cache(net):
+    cache = getattr(net, "_gen_programs", None)
+    if cache is None:
+        cache = net._gen_programs = OrderedDict()
+    return cache
+
+
+def _cache_program(net, sig, prog):
+    return _lru_put(_program_cache(net), sig, prog,
+                    getattr(net, "_gen_program_cache_cap", _PROGRAM_CACHE_CAP))
+
+
+def _net_pool(net):
+    """The graph pool of the net's ``generate``/``beam_search``
+    programs."""
+    dev = net.embed.weight.device
+    pool = getattr(net, "_graph_pool", None)
+    if pool is None or pool.device != dev:
+        pool = net._graph_pool = _graphs.Pool(dev)
+    return pool
+
+
+def bucket_length(n: int, *, floor: int = 16) -> int:
+    """Prompt-length bucketing rule: the smallest power of two >=
+    max(n, floor).  ``lm_generate(..., pad_to_bucket=True)`` captures
+    one program per BUCKET (the true length rides in as a device
+    scalar), so variable-length traffic keeps the program cache at
+    O(#buckets) instead of O(#distinct lengths)."""
+    if n < 0:
+        raise ValueError(f"length must be >= 0, got {n}")
+    b = max(1, int(floor))
+    while b < n:
+        b *= 2
+    return b
+
+
 def _embed(params, toks, positions):
     """Token embedding · sqrt(C) plus the positional encoding at
     ``positions`` (an int or a tensor of positions, each below
@@ -179,11 +325,20 @@ def _logits_of(params, h_last):
                   out_dtype=torch.float32)
 
 
-def _prefill(params, prompt, acts, H, pad_to, return_h=False):
+def _prefill(params, prompt, acts, H, pad_to, return_h=False,
+             valid_len=None, caches=None):
     """Run the prompt with the training path's causal attention; returns
     (h_last (B, C) at the final prompt position, per-layer K/V caches
     (B, H, pad_to, D)).  ``return_h`` returns the whole (B, P, C) hidden
-    states and no caches instead (`lm_score`'s teacher-forced pass)."""
+    states and no caches instead (`lm_score`'s teacher-forced pass).
+
+    ``valid_len`` (a (1,) int64 tensor) reads h_last at ``valid_len - 1``
+    of a right-padded prompt: under the causal mask every position below
+    it computes its unpadded value, and decode overwrites the pad slots
+    as it goes.  ``caches`` (per-layer K and V lists) are written in
+    place instead of allocated, zero past the prompt; a cache of
+    ``R·B`` rows takes each row's K/V R times (beam search's K-fold
+    beams)."""
     B, P = prompt.shape
     emb = params["embed"]
     C = emb.shape[1]
@@ -200,28 +355,40 @@ def _prefill(params, prompt, acts, H, pad_to, return_h=False):
         h = h + _ffn_fwd(_ln(h, *lp["ln2"]), lp, act)
         if return_h:
             continue
-        kc = kt.new_zeros((B, H, pad_to, kt.shape[-1]))
-        vc = vt.new_zeros((B, H, pad_to, vt.shape[-1]))
+        if caches is None:
+            kc = kt.new_zeros((B, H, pad_to, kt.shape[-1]))
+            vc = vt.new_zeros((B, H, pad_to, vt.shape[-1]))
+        else:
+            kc, vc = caches[0][len(kcs)], caches[1][len(vcs)]
+            rep = kc.shape[0] // B
+            if rep > 1:
+                kt = kt.repeat_interleave(rep, dim=0)
+                vt = vt.repeat_interleave(rep, dim=0)
+            kc[:, :, P:].zero_()
+            vc[:, :, P:].zero_()
         kc[:, :, :P] = kt
         vc[:, :, :P] = vt
         kcs.append(kc)
         vcs.append(vc)
     if return_h:
         return h, None, None
-    return h[:, -1], kcs, vcs
+    if valid_len is None:
+        return h[:, -1], kcs, vcs
+    return h.index_select(1, valid_len - 1)[:, 0], kcs, vcs
 
 
 def _cached_self_attn(lp, h, kcache, vcache, t, H):
     """The cached one-token self-attention sub-step: pre-LN, qkv, cache
-    write at position t (in place: the caches are this call's state,
-    where the JAX scan threads them through its carry), f32 iota-masked
-    scores and softmax, PV product, output projection."""
+    write at position ``t`` ((1,) int64 on the card; in place: the
+    caches are this call's state, where the JAX scan threads them
+    through its carry), f32 iota-masked scores and softmax, PV product,
+    output projection."""
     Bp, C = h.shape
     D = C // H
     x = _ln(h, *lp["ln1"])
     q, k, v = _qkv_heads(_dense(x, *lp["qkv"]), H)        # (B', H, D)
-    kcache[:, :, t] = k
-    vcache[:, :, t] = v
+    kcache.index_copy_(2, t, k[:, :, None])
+    vcache.index_copy_(2, t, v[:, :, None])
     s = torch.einsum("bhd,bhkd->bhk", q.float(),
                      kcache.float()) / math.sqrt(D)
     pos = torch.arange(s.shape[-1], device=s.device)
@@ -232,8 +399,10 @@ def _cached_self_attn(lp, h, kcache, vcache, t, H):
 
 
 def _decode_token(params, acts, kcaches, vcaches, tok, t, H):
-    """One transformer step for token ``tok`` (B,) at position ``t``
-    against the per-layer caches; returns f32 logits (B, V)."""
+    """One transformer step for token ``tok`` (B,) at position ``t``, a
+    (1,) int64 tensor on the card (a captured step reads its position
+    there: a Python int would be baked into the graph), against the
+    per-layer caches; returns f32 logits (B, V)."""
     h = _embed(params, tok, t)
     for li, (lp, act) in enumerate(zip(params["layers"], acts)):
         h = _cached_self_attn(lp, h, kcaches[li], vcaches[li], t, H)
@@ -273,21 +442,110 @@ def _make_pick(temperature, top_k):
     return pick
 
 
-def _greedy_loop(first_logits, step_fn, pick, seed, t0, N, eos_id):
-    """Emit N tokens at positions t0 .. t0+N-1: the first from
-    ``first_logits``, the rest from ``step_fn(tok, t) -> logits``.
-    eos_id >= 0 freezes a finished row at eos.  Returns (B, N)."""
-    tok = pick(first_logits, t0 - 1, seed)
-    done = tok == eos_id
-    out = [tok]
-    for t in range(t0, t0 + N - 1):
-        nxt = pick(step_fn(tok, t), t, seed)
-        if eos_id >= 0:
-            nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
-            done = done | (nxt == eos_id)
-        out.append(nxt)
-        tok = nxt
-    return torch.stack(out, dim=1)
+class _GenerateProgram:
+    """`lm_generate`'s programs for one signature (B, Pp, N, sampling,
+    eos, weight path, bucketing): ``decode_prefill`` runs the (padded)
+    prompt through the flash kernel into static per-layer caches
+    (B, H, Pp+N, D) and picks the first token, and ``decode_step`` runs
+    one token at the device position ``t`` and advances it.  Greedy, the
+    step also takes the argmax, applies the eos freeze and writes the
+    token into the static output, so N-1 replays need nothing from the
+    host; sampled, the pick runs between replays from the host-seeded
+    streams (`_make_pick`).  Calls are serialised: the caches are the
+    program's state."""
+
+    def __init__(self, net, B, Pp, N, temperature, top_k, eos_id):
+        self._B, self._Pp, self._N = B, Pp, N
+        self._H = net._layers[0].attn._num_heads
+        self._acts = tuple(lyr.ffn._act for lyr in net._layers)
+        self._greedy = temperature <= 0.0
+        self._pick = _make_pick(temperature, top_k)
+        self._eos = eos_id
+        self._lock = threading.Lock()
+        pool = _net_pool(net)
+        self._prefill_prog = _graphs.Program("decode_prefill",
+                                             self._prefill_body, pool)
+        self._step_prog = _graphs.Program("decode_step", self._step_body,
+                                          pool)
+        self._psig = None
+
+    def _bind(self, params, psig):
+        """Point the bodies at ``params``; a new weight signature (a
+        recapture) gets fresh state in the weights' dtype and device."""
+        self._params = params
+        if psig == self._psig:
+            return
+        emb = params["embed"]
+        B, W, H = self._B, self._Pp + self._N, self._H
+        shape = (B, H, W, emb.shape[1] // H)
+        L = len(params["layers"])
+        self._kcs = [emb.new_zeros(shape) for _ in range(L)]
+        self._vcs = [emb.new_zeros(shape) for _ in range(L)]
+        long = dict(dtype=torch.long, device=emb.device)
+        self._tok = torch.zeros((B,), **long)
+        self._done = torch.zeros((B,), dtype=torch.bool, device=emb.device)
+        self._t = torch.zeros((1,), **long)
+        self._i = torch.zeros((1,), **long)
+        self._out = torch.zeros((B, self._N), **long)
+        self._psig = psig
+
+    def _prefill_body(self, prompt, valid_len):
+        params = self._params
+        h_last, _, _ = _prefill(params, prompt, self._acts, self._H,
+                                self._Pp + self._N, valid_len=valid_len,
+                                caches=(self._kcs, self._vcs))
+        logits = _logits_of(params, h_last)
+        self._t.copy_(valid_len)
+        if self._greedy:
+            first = logits.argmax(dim=-1)
+            self._tok.copy_(first)
+            self._done.copy_(first == self._eos)
+            self._out[:, 0] = first
+            self._i.fill_(1)
+        return (logits,)
+
+    def _step_body(self):
+        logits = _decode_token(self._params, self._acts, self._kcs,
+                               self._vcs, self._tok, self._t, self._H)
+        self._t.add_(1)
+        if not self._greedy:
+            return (logits,)
+        nxt = logits.argmax(dim=-1)
+        if self._eos >= 0:
+            nxt = torch.where(self._done, torch.full_like(nxt, self._eos),
+                              nxt)
+            self._done.copy_(self._done | (nxt == self._eos))
+        self._out.index_copy_(1, self._i, nxt[:, None])
+        self._tok.copy_(nxt)
+        self._i.add_(1)
+        return (logits,)
+
+    def __call__(self, params, psig, prompt, P, seed):
+        """The (B, N) generated block for a prompt padded to Pp whose
+        true length is P."""
+        with self._lock:
+            self._bind(params, psig)
+            (first,) = self._prefill_prog.run(
+                psig, prompt=prompt, valid_len=np.array([P], np.int64))
+            if self._greedy:
+                for _ in range(self._N - 1):
+                    self._step_prog.run(psig)
+                return self._out.clone()
+            tok = self._pick(first, P - 1, seed)
+            done = tok == self._eos
+            out = [tok]
+            for t in range(P, P + self._N - 1):
+                self._tok.copy_(tok)
+                (logits,) = self._step_prog.run(psig)
+                nxt = self._pick(logits, t, seed)
+                if self._eos >= 0:
+                    nxt = torch.where(done, torch.full_like(nxt, self._eos),
+                                      nxt)
+                    done = done | (nxt == self._eos)
+                out.append(nxt)
+                tok = nxt
+            return torch.stack(out, dim=1)
+
 
 
 def _as_tokens(prompt, device):
@@ -313,9 +571,13 @@ def lm_generate(net, prompt, max_new_tokens: int, *, temperature: float = 0.0,
     `contrib.quantization.quantize_for_decode(net)` was applied; True
     requires it; False forces the float path.
 
-    ``pad_to_bucket`` is accepted for the JAX signature: the JAX
-    package pads to bound its compiled-program cache, and its output is
-    token-identical either way, so eager PyTorch runs the exact shape.
+    ``pad_to_bucket=True`` right-pads the prompt to its power-of-two
+    length bucket (`bucket_length`) and carries the true length in:
+    the same tokens, but variable-length traffic captures one program
+    per bucket instead of one per exact length.  The programs are
+    cached on the net per (B, P, N, temperature, top_k, eos_id, weight
+    path, bucketing) signature (`_GenerateProgram`), LRU-capped at 32
+    (``net._gen_program_cache_cap``).
     """
     prompt = _as_tokens(prompt, net.embed.weight.device)
     B, P = prompt.shape
@@ -325,17 +587,20 @@ def lm_generate(net, prompt, max_new_tokens: int, *, temperature: float = 0.0,
     if P + N > net._max_len:
         raise ValueError(
             f"prompt+new = {P + N} exceeds max_len {net._max_len}")
-    H = net._layers[0].attn._num_heads
-    acts = tuple(lyr.ffn._act for lyr in net._layers)
-    params = _gather_params(net, _quant_config(net, quantized))
-    pick = _make_pick(float(temperature), int(top_k))
-    h_last, kcs, vcs = _prefill(params, prompt, acts, H, P + N)
-
-    def step_fn(tok, t):
-        return _decode_token(params, acts, kcs, vcs, tok, t, H)
-
-    gen = _greedy_loop(_logits_of(params, h_last), step_fn, pick, int(seed),
-                       P, N, int(eos_id))
+    qc = _quant_config(net, quantized)
+    qkey = qc.cache_key() if qc is not None else None
+    # the bucket never reaches past max_len - N, so the check above holds
+    Pp = min(bucket_length(P), net._max_len - N) if pad_to_bucket else P
+    sig = (B, Pp, N, float(temperature), int(top_k), int(eos_id), qkey,
+           bool(pad_to_bucket))
+    prog = _lru_touch(_program_cache(net), sig)
+    if prog is None:
+        prog = _cache_program(net, sig, _GenerateProgram(
+            net, B, Pp, N, float(temperature), int(top_k), int(eos_id)))
+    params, psig = _gathered(net, qc)
+    padded = prompt if Pp == P else torch.cat(
+        [prompt, prompt.new_zeros((B, Pp - P))], dim=1)
+    gen = prog(params, psig, padded, P, int(seed))
     return torch.cat([prompt, gen], dim=1).to(torch.int32)
 
 
@@ -398,76 +663,144 @@ def _top_k_by_index(x, k):
     return vals[..., :k], idx[..., :k]
 
 
-def _beam_loop(first_logits, kcs, vcs, step_fn, t0, N, B, K, eos_id, alpha):
-    """K-beam token loop: the K·V candidate expansion each step, the
-    per-layer caches reordered by beam parent each step, and the
-    sequences rebuilt by walking the (token, parent) trace backwards.
-    ``kcs``/``vcs`` are the batch-B caches (repeated K-fold here;
-    ``step_fn(kcs, vcs, tok, t)`` runs at batch B·K and writes position
-    ``t``).  Emits N tokens at positions t0 .. t0+N-1.  Returns (gen
-    (B, K, N) best-first, normalized scores (B, K))."""
-    logp0 = torch.log_softmax(first_logits, dim=-1)          # (B, V)
-    V = logp0.shape[-1]
-    scores, tok = _top_k_by_index(logp0, K)                  # (B, K)
-    tok0 = tok
-    # beams live as (B*K, ...)
-    kcs = [c.repeat_interleave(K, dim=0) for c in kcs]
-    vcs = [c.repeat_interleave(K, dim=0) for c in vcs]
-    done = tok == eos_id if eos_id >= 0 else torch.zeros_like(tok, dtype=bool)
-    lens = torch.ones_like(tok)                  # generated tokens so far
-    frozen = None
-    if eos_id >= 0:
-        # a finished beam may only extend with eos, at no cost: its
-        # score and length freeze
-        frozen = torch.full((V,), _NEG, device=logp0.device)
-        frozen[eos_id] = 0.0
-    toks, parents = [], []
-    base = torch.arange(B, device=tok.device)[:, None] * K
-    for t in range(t0, t0 + N - 1):
-        logits = step_fn(kcs, vcs, tok.reshape(B * K), t)
+class _BeamProgram:
+    """`lm_beam_search`'s programs for one signature (B, P, N, K, eos,
+    alpha, weight path): ``beam_prefill`` runs the prompt through the
+    flash kernel into static caches of B·K rows (each row K-fold) and
+    takes the first K expansions; ``beam_step`` runs one position at
+    batch B·K: the K·V candidate expansion, the caches reordered by beam
+    parent in place (gathered, then copied back: a graph's buffers stay
+    where it found them), and the (token, parent) trace written at the
+    device step index.  The sequences are rebuilt on the card after the
+    loop by walking the trace backwards.  Calls are serialised."""
+
+    def __init__(self, net, B, P, N, K, eos_id, alpha):
+        self._B, self._P, self._N, self._K = B, P, N, K
+        self._H = net._layers[0].attn._num_heads
+        self._acts = tuple(lyr.ffn._act for lyr in net._layers)
+        self._V = net.head.weight.shape[0]
+        self._eos, self._alpha = eos_id, alpha
+        self._lock = threading.Lock()
+        pool = _net_pool(net)
+        self._prefill_prog = _graphs.Program("beam_prefill",
+                                             self._prefill_body, pool)
+        self._step_prog = _graphs.Program("beam_step", self._step_body, pool)
+        self._psig = None
+
+    def _bind(self, params, psig):
+        self._params = params
+        if psig == self._psig:
+            return
+        emb = params["embed"]
+        B, K, H = self._B, self._K, self._H
+        BK, dev = B * K, emb.device
+        shape = (BK, H, self._P + self._N, emb.shape[1] // H)
+        L = len(params["layers"])
+        self._kcs = [emb.new_zeros(shape) for _ in range(L)]
+        self._vcs = [emb.new_zeros(shape) for _ in range(L)]
+        long = dict(dtype=torch.long, device=dev)
+        self._scores = torch.zeros((B, K), dtype=torch.float32, device=dev)
+        self._tok = torch.zeros((B, K), **long)
+        self._tok0 = torch.zeros((B, K), **long)
+        self._done = torch.zeros((B, K), dtype=torch.bool, device=dev)
+        self._lens = torch.zeros((B, K), **long)
+        steps = max(self._N - 1, 1)
+        self._toks = torch.zeros((steps, B, K), **long)
+        self._parents = torch.zeros((steps, B, K), **long)
+        self._t = torch.zeros((1,), **long)
+        self._i = torch.zeros((1,), **long)
+        self._base = torch.arange(B, device=dev)[:, None] * K
+        self._frozen = None
+        if self._eos >= 0:
+            # a finished beam may only extend with eos, at no cost: its
+            # score and length freeze
+            self._frozen = torch.full((self._V,), _NEG, device=dev)
+            self._frozen[self._eos] = 0.0
+        self._psig = psig
+
+    def _prefill_body(self, prompt):
+        params = self._params
+        h_last, _, _ = _prefill(params, prompt, self._acts, self._H,
+                                self._P + self._N,
+                                caches=(self._kcs, self._vcs))
+        logp0 = torch.log_softmax(_logits_of(params, h_last), dim=-1)
+        scores, tok = _top_k_by_index(logp0, self._K)
+        self._scores.copy_(scores)
+        self._tok.copy_(tok)
+        self._tok0.copy_(tok)
+        self._done.copy_(tok == self._eos if self._eos >= 0
+                         else torch.zeros_like(self._done))
+        self._lens.fill_(1)
+        self._t.fill_(self._P)
+        self._i.zero_()
+        return (scores,)
+
+    def _step_body(self):
+        B, K = self._B, self._K
+        logits = _decode_token(self._params, self._acts, self._kcs,
+                               self._vcs, self._tok.reshape(B * K), self._t,
+                               self._H)
+        V = self._V
         logp = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
-        if frozen is not None:
-            logp = torch.where(done[..., None], frozen, logp)
-        cand = scores[..., None] + logp                      # (B, K, V)
+        if self._frozen is not None:
+            logp = torch.where(self._done[..., None], self._frozen, logp)
+        cand = self._scores[..., None] + logp                 # (B, K, V)
         scores, idx = _top_k_by_index(cand.reshape(B, K * V), K)
         parent = idx // V
         tok = idx % V
-        gidx = (base + parent).reshape(B * K)
-        kcs = [c.index_select(0, gidx) for c in kcs]
-        vcs = [c.index_select(0, gidx) for c in vcs]
-        pdone = done.gather(1, parent)
-        plens = lens.gather(1, parent)
-        if eos_id >= 0:
-            done = pdone | (tok == eos_id)
-            lens = torch.where(pdone, plens, plens + 1)
+        gidx = (self._base + parent).reshape(B * K)
+        for c in self._kcs + self._vcs:
+            c.copy_(c.index_select(0, gidx))
+        pdone = self._done.gather(1, parent)
+        plens = self._lens.gather(1, parent)
+        if self._eos >= 0:
+            self._done.copy_(pdone | (tok == self._eos))
+            self._lens.copy_(torch.where(pdone, plens, plens + 1))
         else:
-            done, lens = pdone, plens + 1
-        toks.append(tok)
-        parents.append(parent)
+            self._done.copy_(pdone)
+            self._lens.copy_(plens + 1)
+        self._scores.copy_(scores)
+        self._tok.copy_(tok)
+        self._toks.index_copy_(0, self._i, tok[None])
+        self._parents.index_copy_(0, self._i, parent[None])
+        self._t.add_(1)
+        self._i.add_(1)
+        return (scores,)
 
-    # backtrack: follow the parent pointers from the final beams to the
-    # first expansion
-    ptr = torch.arange(K, device=tok.device).expand(B, K)
-    rest = []
-    for tk, par in zip(reversed(toks), reversed(parents)):
-        rest.append(tk.gather(1, ptr))
-        ptr = par.gather(1, ptr)
-    gen = torch.stack([tok0.gather(1, ptr)] + rest[::-1], dim=2)
+    def _finish(self):
+        """(gen (B, K, N) best-first, normalized scores (B, K)) from the
+        trace: follow the parent pointers from the final beams back to
+        the first expansion, then rank by the GNMT length penalty."""
+        B, K, N = self._B, self._K, self._N
+        ptr = torch.arange(K, device=self._tok.device).expand(B, K)
+        rest = []
+        for s in reversed(range(N - 1)):
+            rest.append(self._toks[s].gather(1, ptr))
+            ptr = self._parents[s].gather(1, ptr)
+        gen = torch.stack([self._tok0.gather(1, ptr)] + rest[::-1], dim=2)
+        scores, alpha = self._scores, self._alpha
+        norm = scores / (((5.0 + self._lens.float()) / 6.0) ** alpha) \
+            if alpha > 0.0 else scores
+        order = torch.sort(-norm, dim=1, stable=True).indices
+        gen = gen.gather(1, order[..., None].expand_as(gen))
+        return gen, norm.gather(1, order)
 
-    # GNMT length penalty: rank by score / ((5+len)/6)^alpha
-    norm = scores / (((5.0 + lens.float()) / 6.0) ** alpha) \
-        if alpha > 0.0 else scores
-    order = torch.sort(-norm, dim=1, stable=True).indices
-    gen = gen.gather(1, order[..., None].expand_as(gen))
-    return gen, norm.gather(1, order)
+    def __call__(self, params, psig, prompt):
+        with self._lock:
+            self._bind(params, psig)
+            self._prefill_prog.run(psig, prompt=prompt)
+            for _ in range(self._N - 1):
+                self._step_prog.run(psig)
+            return self._finish()
 
 
 @torch.no_grad()
 def lm_beam_search(net, prompt, max_new_tokens: int, *, beam_size: int = 4,
                    eos_id: int = -1, alpha: float = 0.0, quantized=None):
     """K-beam search decode for `models.TransformerLM` on the net's
-    device: the prompt prefilled once through the flash kernel, then
-    `_beam_loop` over `_decode_token` at batch B·K.
+    device: the prompt prefilled once through the flash kernel, then one
+    replay of the beam step a position at batch B·K (`_BeamProgram`,
+    cached on the net per signature like `lm_generate`'s programs).
 
     prompt: int (B, P).  Returns (sequences, scores): int32
     (B, beam_size, P+N) sorted best-first, and f32 (B, beam_size)
@@ -490,15 +823,14 @@ def lm_beam_search(net, prompt, max_new_tokens: int, *, beam_size: int = 4,
     if P + N > net._max_len:
         raise ValueError(
             f"prompt+new = {P + N} exceeds max_len {net._max_len}")
-    H = net._layers[0].attn._num_heads
-    acts = tuple(lyr.ffn._act for lyr in net._layers)
-    params = _gather_params(net, _quant_config(net, quantized))
-    h_last, kcs, vcs = _prefill(params, prompt, acts, H, P + N)
-
-    def step_fn(kc, vc, tok, t):
-        return _decode_token(params, acts, kc, vc, tok, t, H)
-
-    gen, norm = _beam_loop(_logits_of(params, h_last), kcs, vcs, step_fn,
-                           P, N, B, K, int(eos_id), float(alpha))
+    qc = _quant_config(net, quantized)
+    sig = ("beam", B, P, N, K, int(eos_id), float(alpha),
+           qc.cache_key() if qc is not None else None)
+    prog = _lru_touch(_program_cache(net), sig)
+    if prog is None:
+        prog = _cache_program(net, sig, _BeamProgram(
+            net, B, P, N, K, int(eos_id), float(alpha)))
+    params, psig = _gathered(net, qc)
+    gen, norm = prog(params, psig, prompt)
     seqs = torch.cat([prompt[:, None].expand(B, K, P), gen], dim=2)
     return seqs.to(torch.int32), norm

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .. import autograd
+from .. import _graphs, autograd
 from .. import random as _random
 from ..base import MXNetError
 from ..ops.dropout_kernel import fused_dropout, fused_dropout_add
@@ -98,6 +98,7 @@ def Dropout(data, p: float = 0.5, axes=()):
                          "not ported")
     if not (autograd.is_training() and p > 0.0):
         return data
+    _refuse_in_program()
     return fused_dropout(data, _random.next_seed(), float(p))
 
 
@@ -106,4 +107,16 @@ def DropoutAdd(data, residual, p: float = 0.5):
     `Dropout`; the plain sum when dropout is inactive."""
     if not (autograd.is_training() and p > 0.0):
         return data + residual
+    _refuse_in_program()
     return fused_dropout_add(data, residual, _random.next_seed(), float(p))
+
+
+def _refuse_in_program() -> None:
+    """An active dropout inside a captured program would replay one
+    mask forever: its seed is drawn on the host and passed by value."""
+    if _graphs.in_body():
+        raise MXNetError(
+            "dropout in train mode inside a captured program (a hybridized "
+            "block called in train mode outside autograd.record()): the "
+            "mask's seed is fixed at capture; call it under record() or in "
+            "predict mode")

@@ -39,7 +39,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, _graphs
 from ..base import MXNetError
 
 __all__ = ["fused_dropout", "fused_dropout_add", "dropout_mask",
@@ -166,7 +166,7 @@ def _mask_cuda(numel: int, seed: int, rate: float, device) -> torch.Tensor:
     err = _entry("mx_dropout_mask")(mask.data_ptr(), numel, _seed64(seed),
                                     threshold(rate), _build.stream(device))
     _raise_on(err, "mask")
-    dropout_mask.launches += 1
+    _graphs.note_launch(dropout_mask)
     return mask
 
 
@@ -204,7 +204,7 @@ def _fwd_cuda(x, res, seed: int, rate: float):
         mask.data_ptr(), x.numel(), _seed64(seed), threshold(rate),
         _scale(rate, x.dtype), code, _build.stream(x.device))
     _raise_on(err, "forward")
-    dropout_fwd.launches += 1
+    _graphs.note_launch(dropout_fwd)
     return y, mask
 
 
@@ -224,7 +224,7 @@ def _bwd_cuda(dy, mask, rate: float):
         dy.data_ptr(), mask.data_ptr(), dx.data_ptr(), dy.numel(),
         _scale(rate, dy.dtype), code, _build.stream(dy.device))
     _raise_on(err, "backward")
-    dropout_bwd.launches += 1
+    _graphs.note_launch(dropout_bwd)
     return dx
 
 

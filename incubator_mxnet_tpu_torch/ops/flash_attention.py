@@ -40,7 +40,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build
+from .. import _build, _graphs
 from ..base import MXNetError
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
@@ -178,7 +178,7 @@ def _flash_core(q, k, v, causal, scale):
     if err != 0:
         raise MXNetError(f"flash_attention kernel launch failed "
                          f"(CUDA error {err})")
-    flash_attention.launches += 1
+    _graphs.note_launch(flash_attention)
     return out, lse
 
 
@@ -281,7 +281,7 @@ def _dkdv_cuda(q, k, v, do, lse, delta, causal, scale):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("mx_flash_attention_dkdv", q, k, v, do, lse, delta,
                 (dk, dv), causal, scale)
-    flash_bwd_dkdv.launches += 1
+    _graphs.note_launch(flash_bwd_dkdv)
     return dk, dv
 
 
@@ -292,7 +292,7 @@ def _dq_cuda(q, k, v, do, lse, delta, causal, scale):
     dq = torch.empty_like(q)
     _bwd_launch("mx_flash_attention_dq", q, k, v, do, lse, delta, (dq,),
                 causal, scale)
-    flash_bwd_dq.launches += 1
+    _graphs.note_launch(flash_bwd_dq)
     return dq
 
 

@@ -45,7 +45,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build
+from .. import _build, _graphs
 from ..base import MXNetError
 
 __all__ = ["paged_attention", "paged_attention_dense",
@@ -169,7 +169,7 @@ def _launch(q, pool_k, pool_v, tables, pos):
     if err != 0:
         raise MXNetError(f"paged_attention kernel launch failed "
                          f"(CUDA error {err})")
-    paged_attention.launches += 1
+    _graphs.note_launch(paged_attention)
     return out
 
 
@@ -187,7 +187,7 @@ def _launch_q8(q, pool_k, pool_v, scale_k, scale_v, tables, pos):
     if err != 0:
         raise MXNetError(f"paged_attention_q8 kernel launch failed "
                          f"(CUDA error {err})")
-    paged_attention_q8.launches += 1
+    _graphs.note_launch(paged_attention_q8)
     return out
 
 

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .. import _build
+from .. import _build, _graphs
 from ..base import MXNetError
 
 __all__ = ["fused_sparse_xent", "fused_smoothed_xent", "should_fuse",
@@ -96,7 +96,7 @@ def _fwd_cuda(x2, want_sum):
     if err != 0:
         raise MXNetError(f"xent forward kernel launch failed "
                          f"(CUDA error {err})")
-    xent_forward.launches += 1
+    _graphs.note_launch(xent_forward)
     return lse, xsum
 
 
@@ -122,7 +122,7 @@ def _bwd_cuda(x2, labels, lse, g, eps):
     if err != 0:
         raise MXNetError(f"xent backward kernel launch failed "
                          f"(CUDA error {err})")
-    xent_backward.launches += 1
+    _graphs.note_launch(xent_backward)
     return dx
 
 

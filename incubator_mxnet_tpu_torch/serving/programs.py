@@ -28,6 +28,20 @@ Writes to the pool are in-place ``index_put_`` into the preallocated
 per-layer tensors: this replaces the JAX programs' donation of the pool
 buffers, which XLA updates in place and hands back.
 
+Each program is a `_graphs.Program`: captured into a CUDA graph at its
+first call on the scheduler thread and replayed after that, over static
+input buffers that the host arrays are staged into (pinned,
+``non_blocking``).  A graph bakes in the pools' addresses, so the
+programs belong to the `PagedPrograms` that owns the pools and capture
+into its graph pool: a graph never replays over another engine's pools
+(the JAX package caches its programs on the net, keyed on the static
+config alone, because its pools are arguments).  The weights are
+gathered once per `models.generation._params_fingerprint`; a gather
+whose tensors moved (a ``cast()``, a re-quantization) recaptures.  What
+draws from a host-seeded ``torch.Generator`` (a sampled pick, the
+stochastic acceptance) runs between replays; greedy picks and the
+greedy acceptance run inside the graphs.
+
 Sampling keeps the `_row_pick` property of the JAX package: a lane's
 draw at position ``t`` comes from the stream seeded by (its request's
 seed, t) alone, never from who it was co-batched with.
@@ -54,9 +68,12 @@ positional encoding and write the scratch block (`_host_slots`).
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
 import torch
 
+from .. import _graphs
 from ..contrib.quantization import quantize_kv
 from ..models import generation as G
 from ..ops.paged_attention import paged_attention
@@ -72,6 +89,16 @@ __all__ = ["PagedPrograms"]
 # it judges (the JAX package's values)
 _ACCEPT_SALT = 0x5ACC
 _RESID_SALT = 0x0E51
+
+# program objects built, by kind (the JAX package's
+# ``serving_program_builds_total``)
+program_builds: Counter = Counter()
+
+
+def _note_build(kind: str) -> None:
+    """Count a program built (a fresh `_graphs.Program`; its capture
+    happens at its first call)."""
+    program_builds[kind] += 1
 
 
 def _stream(seed, t, salt=None) -> int:
@@ -222,7 +249,21 @@ class PagedPrograms:
                             for _ in range(L)]
             self.scale_v = [torch.ones((self._nb, H, bs), device=self.device)
                             for _ in range(L)]
+        # distinct names per KV family, as the JAX package's: a
+        # RetraceGuard budgets captures by name
+        sfx = "_kv8" if kv_dtype == "int8" else ""
+        self._graph_pool = _graphs.Pool(self.device)
+        self.programs = {}
+        self._program("step", "serving_step" + sfx,
+                      self._body(False, logits=True))
+        self._program("prefill_chunk", "serving_prefill_chunk" + sfx,
+                      self._body(False, logits=False))
+        self._params = self._dparams = None
         self._init_speculative(net, speculate_k, draft_net, spec_greedy)
+
+    def _program(self, kind, name, body):
+        _note_build(kind)
+        self.programs[kind] = _graphs.Program(name, body, self._graph_pool)
 
     def _pools(self, net, dtype):
         """Zero-filled per-layer K and V pools for ``net``'s heads."""
@@ -232,7 +273,7 @@ class PagedPrograms:
                       for _ in net._layers] for _ in range(2))
 
     def _init_speculative(self, net, speculate_k, draft_net, spec_greedy):
-        """Resolve the draft model and make its pools."""
+        """Resolve the draft model, make its pools and programs."""
         self._spec_k = int(speculate_k)
         self._spec_greedy = bool(spec_greedy) or self._temperature <= 0.0
         self._draft_net = None
@@ -261,6 +302,16 @@ class PagedPrograms:
         self._dacts = tuple(lyr.ffn._act for lyr in dnet._layers)
         self.dpool_k, self.dpool_v = self._pools(dnet,
                                                  dnet.embed.weight.dtype)
+        sfx = "_kv8" if self._kv_dtype == "int8" else ""
+        # greedy: the k draft forwards and their argmax in one graph;
+        # sampled: one forward a graph, the picks between replays
+        self._program("draft_step", "serving_draft_step",
+                      self._draft_body if self._spec_greedy
+                      else self._body(True, logits=True))
+        self._program("draft_prefill_chunk", "serving_draft_prefill_chunk",
+                      self._body(True, logits=False))
+        self._program("spec_verify", "serving_spec_verify" + sfx,
+                      self._verify_body)
 
     @property
     def prefill_chunk_len(self) -> int:
@@ -304,52 +355,98 @@ class PagedPrograms:
     def draft_net(self):
         return self._draft_net
 
-    def _dev(self, arr: np.ndarray):
-        return torch.from_numpy(arr).to(self.device)
+    # -- weights and bodies -------------------------------------------- #
+    def gather_params(self):
+        """The target's weights for the bodies, gathered once per
+        fingerprint; returns the signature a graph is captured for."""
+        self._params, psig = G._gathered(self._net, self._qc)
+        return psig
 
-    def _rows(self, tables, pos, ok):
-        """The device inputs of rows at host ``tables`` (rows, nbps),
+    def draft_params(self):
+        """The draft's weights (the target's int8 weights when it
+        self-drafts), as `gather_params`."""
+        self._dparams, psig = G._gathered(self._draft_net, self._draft_qc)
+        return psig
+
+    def _slots(self, tables, pos, ok):
+        """The static inputs of rows at host ``tables`` (rows, nbps),
         ``pos`` (rows,) and ``ok`` (rows,) bool: their tables, clamped
-        positions, and the block and slot each writes (`_host_slots`).
-        Each host-to-device copy waits for the card, so a program
-        makes its copies before it launches."""
+        positions, and the block and slot each writes (`_host_slots`),
+        as host arrays for `_graphs.Program.run`."""
         posc, wblk, off = _host_slots(tables, pos, ok, self._bs, self._msl)
-        return (self._dev(tables), self._dev(posc), self._dev(wblk),
-                self._dev(off))
+        return dict(tables=tables, posc=posc, wblk=wblk, off=off)
 
-    def _forward(self, params, draft, rows, toks):
-        """Every row's forward over the target (or the draft) pools, at
-        `_rows` inputs, ``toks`` (rows,) on the card; returns the final
-        hidden states (rows, C)."""
+    def _forward(self, draft, tables, posc, wblk, off, toks):
+        """Every row's forward over the target (or the draft) pools with
+        their weights; returns the final hidden states (rows, C)."""
         if draft:
-            H, acts = self._dH, self._dacts
+            params, H, acts = self._dparams, self._dH, self._dacts
             pools = (self.dpool_k, self.dpool_v, [], [])
         else:
-            H, acts = self._H, self._acts
+            params, H, acts = self._params, self._H, self._acts
             pools = (self.pool_k, self.pool_v, self.scale_k, self.scale_v)
-        tables, posc, wblk, off = rows
         return _token_forward(params, acts, H, *pools, tables, toks, posc,
                               wblk, off)
 
-    def _chunk_forward(self, params, draft, table_row, toks, start,
-                       valid_len):
+    def _body(self, draft, logits):
+        """The step and chunk bodies: the rows' forward, then (``logits``)
+        their f32 logits and, when the pick is greedy, its argmax."""
+        greedy = (self._spec_greedy if draft
+                  else self._temperature <= 0.0)
+
+        def body(tables, toks, posc, wblk, off):
+            h = self._forward(draft, tables, posc, wblk, off, toks)
+            if not logits:
+                return (h,)
+            lg = G._logits_of(self._dparams if draft else self._params, h)
+            return (lg, lg.argmax(dim=-1)) if greedy else (lg,)
+
+        return body
+
+    def _draft_body(self, tables, toks, posc, wblk, off):
+        """k greedy draft forwards at the (k, B) slots: each proposes
+        the next one's token."""
+        cur, d_toks = toks, []
+        for j in range(self._spec_k):
+            h = self._forward(True, tables, posc[j], wblk[j], off[j], cur)
+            cur = G._logits_of(self._dparams, h).argmax(dim=-1)
+            d_toks.append(cur)
+        return (torch.stack(d_toks, dim=1),)
+
+    def _verify_body(self, tables, toks, d_toks, posc, wblk, off):
+        """The target forward of every lane's window ``[tok, d_1 ..
+        d_k]`` as B·(k+1) rows; greedy, the acceptance too: ``out`` is
+        the argmax and the accepted length the leading run of drafts
+        equal to it, packed as (B, k+2)."""
+        k = self._spec_k
+        B = toks.shape[0]
+        win = torch.cat([toks.long()[:, None], d_toks], dim=1)
+        h = self._forward(False, tables, posc, wblk, off, win.reshape(-1))
+        logits = G._logits_of(self._params, h).reshape(B, k + 1, -1)
+        if not self._spec_greedy:
+            return (logits,)
+        out = logits.argmax(dim=-1)
+        alen = (d_toks == out[:, :k]).long().cumprod(dim=1).sum(dim=1)
+        return logits, torch.cat([out, alen[:, None]], dim=1)
+
+    def _chunk_slots(self, table_row, start, valid_len):
         """Positions ``start .. start+chunk-1`` of one sequence; those
         from ``valid_len`` on write to scratch."""
         posw = start + np.arange(self._chunk)
-        rows = self._rows(np.tile(table_row, (self._chunk, 1)), posw,
-                          posw < valid_len)
-        return self._forward(params, draft, rows, self._dev(toks))
+        return self._slots(np.tile(table_row, (self._chunk, 1)), posw,
+                           posw < valid_len)
 
+    # -- the programs --------------------------------------------------- #
     @torch.no_grad()
     def step(self, tables, toks, pos, active, seeds) -> np.ndarray:
         """One decode step for every lane (host arrays in: tables
         (B, nbps) int32, toks/pos (B,) int32, active (B,) bool, seeds
         (B,) int64); returns the next token of every lane.  The JAX
         package's `_build_step` program."""
-        params = G._gather_params(self._net, self._qc)
-        rows = self._rows(tables, pos, active)
-        h = self._forward(params, False, rows, self._dev(toks))
-        nxt = self._pick(G._logits_of(params, h), pos, seeds)
+        out = self.programs["step"].run(
+            self.gather_params(), toks=toks,
+            **self._slots(tables, pos, active))
+        nxt = out[1] if len(out) > 1 else self._pick(out[0], pos, seeds)
         return nxt.cpu().numpy()
 
     @torch.no_grad()
@@ -359,31 +456,27 @@ class PagedPrograms:
         (table_row (nbps,) int32, toks (chunk,) int32; positions past
         ``valid_len`` write to scratch).  On the ``final`` chunk,
         returns the first generated token (picked from the row of
-        position ``valid_len - 1``); else None.  The JAX package's
-        `_build_prefill_chunk` program."""
-        params = G._gather_params(self._net, self._qc)
-        h = self._chunk_forward(params, False, table_row, toks, start,
-                                valid_len)
+        position ``valid_len - 1``, outside the graph); else None.  The
+        JAX package's `_build_prefill_chunk` program."""
+        (h,) = self.programs["prefill_chunk"].run(
+            self.gather_params(), toks=toks,
+            **self._chunk_slots(table_row, start, valid_len))
         if not final:
             return None
         li = min(max(valid_len - 1 - start, 0), self._chunk - 1)
-        logits = G._logits_of(params, h[li:li + 1])
+        logits = G._logits_of(self._params, h[li:li + 1])
         return int(self._pick(logits, [valid_len - 1], [seed])[0])
 
     # -- speculative decoding ------------------------------------------ #
-    def draft_params(self):
-        """The draft's weights (the target's int8 weights when it
-        self-drafts)."""
-        return G._gather_params(self._draft_net, self._draft_qc)
-
     @torch.no_grad()
     def draft_prefill_chunk(self, table_row, toks, start: int,
                             valid_len: int) -> None:
         """The chunk program on the draft weights and pools, without the
         pick (the target's chunk picks the first token).  The JAX
         package's `_build_draft_prefill_chunk` program."""
-        self._chunk_forward(self.draft_params(), True, table_row, toks,
-                            start, valid_len)
+        self.programs["draft_prefill_chunk"].run(
+            self.draft_params(), toks=toks,
+            **self._chunk_slots(table_row, start, valid_len))
 
     @torch.no_grad()
     def draft_step(self, tables, toks, pos, active, seeds):
@@ -394,26 +487,25 @@ class PagedPrograms:
         (seed, pos+j), the plain pick's recipe.  Returns (d_toks (B, k)
         on the card, q (B, k, V) or None when greedy).  The JAX
         package's `_build_draft_step` program."""
-        params = self.draft_params()
+        psig = self.draft_params()
         k = self._spec_k
+        prog = self.programs["draft_step"]
         slots = [_host_slots(tables, pos + j, active, self._bs, self._msl)
                  for j in range(k)]
-        posc, wblk, off = (self._dev(np.stack(a)) for a in zip(*slots))
-        t_tables, cur = self._dev(tables), self._dev(toks)
-        d_toks, q = [], []
-        for j in range(k):
-            h = self._forward(params, True, (t_tables, posc[j], wblk[j],
-                                             off[j]), cur)
-            logits = G._logits_of(params, h)
-            if self._spec_greedy:
-                cur = logits.argmax(dim=-1)
-            else:
-                lg = G._top_k_logits(logits, self._temperature, self._top_k)
-                cur = _sample(lg, seeds, pos + j)
-                q.append(torch.softmax(lg, dim=-1))
+        if self._spec_greedy:
+            posc, wblk, off = (np.stack(a) for a in zip(*slots))
+            (d_toks,) = prog.run(psig, tables=tables, toks=toks, posc=posc,
+                                 wblk=wblk, off=off)
+            return d_toks.clone(), None
+        cur, d_toks, q = toks, [], []
+        for j, (posc, wblk, off) in enumerate(slots):
+            (logits,) = prog.run(psig, tables=tables, toks=cur, posc=posc,
+                                 wblk=wblk, off=off)
+            lg = G._top_k_logits(logits, self._temperature, self._top_k)
+            cur = _sample(lg, seeds, pos + j)
+            q.append(torch.softmax(lg, dim=-1))
             d_toks.append(cur)
-        return (torch.stack(d_toks, dim=1),
-                torch.stack(q, dim=1) if q else None)
+        return torch.stack(d_toks, dim=1), torch.stack(q, dim=1)
 
     @torch.no_grad()
     def spec_verify(self, tables, toks, pos, active, seeds, d_toks, q):
@@ -425,35 +517,30 @@ class PagedPrograms:
         pos+j.  Then acceptance on the card:
 
         * greedy: ``out = argmax``, and the accepted length is the
-          leading run of drafts equal to it;
+          leading run of drafts equal to it (inside the graph);
         * stochastic: accept d_j while ``u_j·q_j(d_j) < p_j(d_j)``, u_j
           from the `_ACCEPT_SALT` stream at pos+j; the first rejected
           position resamples from ``max(p - q, 0)`` (the `_RESID_SALT`
           stream at its position); a fully accepted window draws the
-          bonus token from p_{k+1} with the plain pick at pos+k.
+          bonus token from p_{k+1} with the plain pick at pos+k (after
+          the graph: the draws come from host-seeded streams).
 
         Returns host ``(out (B, k+1), alen (B,))``, one copy from the
         card; the engine emits ``out[:, :alen+1]``.  Rejected
         positions' pages need no rollback: they are rewritten before
         any mask admits them.  The JAX package's `_build_spec_verify`
         program."""
-        k = self._spec_k
-        T = k + 1
-        B = toks.shape[0]
-        params = G._gather_params(self._net, self._qc)
+        T = self._spec_k + 1
         posw = (pos[:, None] + np.arange(T)).reshape(-1)
-        rows = self._rows(np.repeat(tables, T, axis=0), posw,
-                          np.repeat(active, T))
-        win = torch.cat([self._dev(toks).long()[:, None], d_toks], dim=1)
-        h = self._forward(params, False, rows, win.reshape(-1))
-        logits = G._logits_of(params, h).reshape(B, T, -1)
+        out = self.programs["spec_verify"].run(
+            self.gather_params(), toks=toks, d_toks=d_toks,
+            **self._slots(np.repeat(tables, T, axis=0), posw,
+                          np.repeat(active, T)))
         if self._spec_greedy:
-            out = logits.argmax(dim=-1)
-            match = (d_toks == out[:, :k]).long()
-            alen = match.cumprod(dim=1).sum(dim=1)
+            res = out[1].cpu().numpy()
         else:
-            out, alen = self._accept(logits, d_toks, q, pos, seeds)
-        res = torch.cat([out, alen[:, None]], dim=1).cpu().numpy()
+            o, alen = self._accept(out[0], d_toks, q, pos, seeds)
+            res = torch.cat([o, alen[:, None]], dim=1).cpu().numpy()
         return res[:, :T], res[:, T]
 
     def _accept(self, logits, d_toks, q, pos, seeds):

@@ -320,6 +320,9 @@ def test_bwd_launch_hands_the_kernels_16_byte_aligned_tiles(monkeypatch):
 
     monkeypatch.setattr(_build, "load", lambda name: Lib())
     monkeypatch.setattr(_build, "stream", lambda device: 0)
+    # the stand-in launches count: restore the process-wide counter after
+    monkeypatch.setattr(tfa.flash_bwd_dq, "launches",
+                        tfa.flash_bwd_dq.launches)
     g = torch.Generator().manual_seed(0)
     B, H, T, D = 1, 2, 8, 16
     flat = torch.randn(B * H * T * D + 1, generator=g).to(torch.bfloat16)
@@ -543,6 +546,9 @@ def test_fwd_launch_hands_the_kernel_aligned_tiles_and_nonnegative_scale(
 
     monkeypatch.setattr(_build, "load", lambda name: Lib())
     monkeypatch.setattr(_build, "stream", lambda device: 0)
+    # the stand-in launches count: restore the process-wide counter after
+    monkeypatch.setattr(tfa.flash_attention, "launches",
+                        tfa.flash_attention.launches)
     g = torch.Generator().manual_seed(0)
     B, H, T, D = 1, 2, 8, 16
     flat = torch.randn(B * H * T * D + 1, generator=g).to(torch.bfloat16)

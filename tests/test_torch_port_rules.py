@@ -426,3 +426,78 @@ def test_the_port_sources_share_one_header():
             assert '#include "hopper_tc.cuh"' in f.read(), name
     assert os.path.exists(os.path.join(csrc, "hopper_tc.cuh"))
     assert all(os.path.exists(_build._target(n)[0]) for n in _build.SOURCES)
+
+
+# ---- the compiled-programs slice: CUDA graphs ----
+GRAPH_MODULES = ["_graphs", "retrace_guard", "gluon.block",
+                 "models.generation", "serving.programs"]
+
+
+@pytest.mark.parametrize("mod", GRAPH_MODULES)
+def test_graph_modules_import_with_jax_blocked(mod):
+    res = _run("import sys\n"
+               "sys.modules['jax'] = None\n"
+               "sys.modules['incubator_mxnet_tpu'] = None\n"
+               f"import incubator_mxnet_tpu_torch.{mod}\n"
+               "print(sorted(n for n, m in sys.modules.items()\n"
+               "             if m is not None and n.split('.')[0] in\n"
+               "             ('jax', 'jaxlib', 'incubator_mxnet_tpu')))\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("name", ["_graphs.py", "retrace_guard.py"])
+def test_graph_sources_import_neither_jax_nor_the_jax_package(name):
+    mods = list(_imported_modules(os.path.join(PKG, name)))
+    assert mods and not [m for m in mods if (m or "").split(".")[0] in
+                         ("jax", "jaxlib", "incubator_mxnet_tpu")]
+
+
+def _calls_torch_compile(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr == "compile" \
+                and isinstance(node.value, ast.Name) \
+                and node.value.id == "torch":
+            yield node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.module == "torch" \
+                and any(a.name == "compile" for a in node.names):
+            yield node.lineno
+
+
+def test_no_module_of_the_port_calls_torch_compile():
+    """A graph replays the port's own kernels and torch ops; a library
+    compiler's output is not a port of anything."""
+    bad = [(os.path.relpath(p, ROOT), line) for p in _port_sources()
+           for line in _calls_torch_compile(p)]
+    assert bad == []
+
+
+def test_cpu_graph_paths_never_touch_cuda():
+    """Programs on CPU tensors run their bodies eagerly: no graph pool,
+    stream or capture is made, and `generate`, `beam_search`, an engine
+    and a hybridized forward all run."""
+    res = _run(
+        "import torch\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('CUDA graph machinery touched')\n"
+        "torch.cuda.graph_pool_handle = refuse\n"
+        "torch.cuda.Stream = refuse\n"
+        "torch.cuda.CUDAGraph = refuse\n"
+        "from incubator_mxnet_tpu_torch import _graphs\n"
+        "from incubator_mxnet_tpu_torch.models import TransformerLM\n"
+        "net = TransformerLM(vocab=11, units=16, hidden_size=32,\n"
+        "                    num_layers=1, num_heads=2, max_len=32,\n"
+        "                    device='cpu')\n"
+        "net.generate([[1, 2, 3]], 4)\n"
+        "net.generate([[1, 2, 3]], 4, pad_to_bucket=True)\n"
+        "net.beam_search([[1, 2, 3]], 3, beam_size=2)\n"
+        "with net.serve(max_batch=1, block_size=8) as eng:\n"
+        "    eng.submit([1, 2, 3], 4).result(timeout=60)\n"
+        "net.hybridize()\n"
+        "net(torch.tensor([[1, 2]]))\n"
+        "assert not _graphs.captures and not _graphs.replays\n"
+        "print('ok')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
