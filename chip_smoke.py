@@ -55,7 +55,11 @@ Phases (any failure ends the run with a non-zero exit code):
    Function, f32 and bf16, at (4096, 1024) rates 0.1 and 0.5, at the odd
    sizes, on views one element into larger buffers (the kernel's scalar
    path) and with NaN / +-Inf in x and -0.0 in the residual on dropped
-   elements (y there exactly +0.0); degenerate rates launch nothing; the
+   elements (y there exactly +0.0); the device-seed entries
+   (``mx_dropout_fwd_dev``, ``mx_dropout_mask_dev``: the seed read from
+   an int64 in device memory) bit-identical to the by-value entries and
+   to the plain version given the seed tensor, on the same cases;
+   degenerate rates launch nothing; the
    cross-entropy forward (lse, row sum) and backward (dlogits) kernels
    against their plain versions at (4096, 30522) bf16, at small and odd
    vocabularies and at logits of +-1e4, eps 0 and 0.1 (lse within 1e-4
@@ -68,11 +72,15 @@ Phases (any failure ends the run with a non-zero exit code):
    initialized from seed 0, dropout 0.1, the MLM+NSP loss of bench.py's
    PretrainWithLoss, SGD momentum 0.9 through the Trainer
    (keep_grads=False), B=32 T=128 on a fixed batch from seed 0: 2
-   warm-up and 5 timed steps; the loss is finite every step, every
-   trainable parameter the forward reaches changes in step 1, and each
-   step launches the fused dropout forward and backward kernels 49 times
-   each (the mask-only kernel never) and each cross-entropy
-   kernel once while no flash kernel is launched; step time, tokens/s, MFU
+   warm-up and 5 timed steps, on CUDA graphs (the hybridized block's
+   recorded forward and backward programs and the Trainer's update
+   program: one capture each, then replays); the loss is finite every
+   step, every trainable parameter the forward reaches changes in step
+   1, and each step launches the device-seed fused dropout forward and
+   the fused backward 49 times each (the by-value forward and the
+   mask-only kernels never) and each cross-entropy
+   kernel once while no flash kernel is launched, launches inside
+   replays counted; step time, tokens/s, MFU
    (bench.py's FLOP count over 989 TFLOP/s bf16 on an H100 SXM), peak
    memory and the card's busy share, kernel count and the dropout
    kernels' device time over one profiled step;
@@ -186,7 +194,9 @@ phase 4's net):
 22. ``generate`` (greedy, sampled, eos, ``pad_to_bucket=True``) and
    ``beam_search`` on graphs equal to their eager bodies at capture and
    replay (beam scores bit for bit); the bucketed tokens' agreement
-   with the unpadded call is printed;
+   with the unpadded call is printed, and the prefill op by op (layer
+   0's ops, then each layer's output) for the padded and the unpadded
+   prompt, with the first op whose real rows differ;
 23. weight writes — ``set_data``, an in-place write through
    ``param.data``, a ``cast`` round trip, ``quantize_for_decode`` (and an
    in-place write re-quantized by a second call), ``dequantize_decode``:
@@ -195,10 +205,32 @@ phase 4's net):
    its eager bodies;
 24. hybridize — a hybridized 2-layer TransformerLM (width 1024, bf16) at
    (2, 512) replays bit-identical to its eager forward with the flash
-   kernel inside the replay; a train-mode dropout forward refuses to
-   capture; and a captured program's owner dropped inside another
+   kernel inside the replay; in train mode two replays draw two dropout
+   masks from the staged seed table, and re-seeding the first again;
+   and a captured program's owner dropped inside another
    program's capture while the collector runs: the capture holds (a
    graph freed during a capture invalidates it).
+
+The captured training step (after phase 13):
+
+25. captured training — phase 8's model and batch at B=32 T=128 and at
+   B=8 T=512, ``random.seed(7)``: three steps on CUDA graphs, three on
+   the programs' eager bodies (`_graphs.eager()`) and three with the
+   block never hybridized (dropout seeds by value) give the same losses,
+   f32 masters and momenta bit for bit; one capture of each program
+   (``fwd_record``, ``bwd_record``, ``update``) and two replays; each
+   step's launches as phase 8's; then the graphed and the eager step
+   timed in the same run (mean of 5 after 3), tokens/s, MFU, peak
+   memory, and one profiled step's wall, card time, busy share and
+   kernel count each.  Then two patterns beside bench.py's on a
+   2-layer block of width 1024: an input that requires a gradient
+   (three steps, a fresh input each, on one capture of each program:
+   the input's gradient and the weights equal the never-hybridized
+   block's bit for bit), and a bf16 model without f32 masters (the
+   captured update's staged f32 scalars equal to ``fuse_step=False``
+   bit for bit over three steps; whether torch's own foreach product
+   with a Python float on the card agrees with the rule's f32 product
+   is printed).
 
 The line before the last is a JSON object with every kernel's launches
 (summed over the main paths that ran it, launches inside graph replays
@@ -231,6 +263,8 @@ from incubator_mxnet_tpu_torch import random as mx_random
 from incubator_mxnet_tpu_torch.contrib.quantization import quantize_kv
 from incubator_mxnet_tpu_torch.gluon import HybridBlock, Trainer
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from incubator_mxnet_tpu_torch.gluon.nn import Dense
+from incubator_mxnet_tpu_torch.optimizer import optimizer as opt_mod
 from incubator_mxnet_tpu_torch.models import BERTForPretraining, TransformerLM
 from incubator_mxnet_tpu_torch.models import generation as gen_mod
 from incubator_mxnet_tpu_torch.ops import flash_attention as _fa_fn
@@ -241,8 +275,8 @@ from incubator_mxnet_tpu_torch.ops.flash_attention import (
 from incubator_mxnet_tpu_torch.ops import dropout_kernel as dk_mod
 from incubator_mxnet_tpu_torch.ops import xent_kernel as xk_mod
 from incubator_mxnet_tpu_torch.ops.dropout_kernel import (
-    dropout_bwd, dropout_bwd_reference, dropout_fwd, dropout_fwd_reference,
-    dropout_mask, mask_reference)
+    dropout_bwd, dropout_bwd_reference, dropout_fwd, dropout_fwd_dev,
+    dropout_fwd_reference, dropout_mask, dropout_mask_dev, mask_reference)
 from incubator_mxnet_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_dense, paged_attention_q8)
 from incubator_mxnet_tpu_torch.ops.xent_kernel import (
@@ -303,6 +337,16 @@ KERNELS = {
     "dropout_bwd": dict(
         fn=dropout_bwd, source="incubator_mxnet_tpu_torch/csrc/dropout.cu",
         replaces="incubator_mxnet_tpu/ops/dropout_kernel.py:250"),
+    # the mask and the fused forward with the seed read from device
+    # memory: the entries a captured program's dropout launches
+    "dropout_mask_dev": dict(
+        fn=dropout_mask_dev,
+        source="incubator_mxnet_tpu_torch/csrc/dropout.cu",
+        replaces="incubator_mxnet_tpu/ops/dropout_kernel.py:250"),
+    "dropout_fwd_dev": dict(
+        fn=dropout_fwd_dev,
+        source="incubator_mxnet_tpu_torch/csrc/dropout.cu",
+        replaces="incubator_mxnet_tpu/ops/dropout_kernel.py:250"),
     "xent_forward": dict(
         fn=xent_forward, source="incubator_mxnet_tpu_torch/csrc/xent.cu",
         replaces="incubator_mxnet_tpu/ops/xent_kernel.py:157"),
@@ -316,7 +360,8 @@ SERVING_KERNELS = ("paged_attention", "flash_attention", "paged_attention_q8")
 FLOAT_SERVING = ("paged_attention", "flash_attention")
 QUANT_SERVING = ("paged_attention_q8", "flash_attention")
 TRAINING_KERNELS = ("dropout_mask", "dropout_fwd", "dropout_bwd",
-                    "xent_forward", "xent_backward")
+                    "dropout_mask_dev", "dropout_fwd_dev", "xent_forward",
+                    "xent_backward")
 FLASH_KERNELS = ("flash_attention", "flash_bwd_dkdv", "flash_bwd_dq")
 # the flagship of bench.py: BERT-large, phase-1 shapes, dropout 0.1
 BERT = dict(vocab_size=30522, units=1024, hidden_size=4096, num_layers=24,
@@ -2131,6 +2176,9 @@ def check_decode_graphs(smi: str, res) -> dict:
     with _graphs.eager():
         unpadded = net.generate(prompt[:, :100], N)
     out["bucket_vs_unpadded"] = float((want == unpadded).float().mean())
+    out["bucket_first_token"] = bool(torch.equal(want[:, 100],
+                                                 unpadded[:, 100]))
+    out["bucket_ops"] = probe_bucket_ops(net, prompt[:, :100], 128, N)
     bp = prompt[:BEAM["B"]]
     with _graphs.eager():
         ws, wsc = net.beam_search(bp, N, beam_size=BEAM["K"])
@@ -2143,8 +2191,96 @@ def check_decode_graphs(smi: str, res) -> dict:
         f"128 bucket) and beam (B={BEAM['B']} K={BEAM['K']}) equal to their "
         f"eager bodies at capture and replay; the bucketed tokens equal "
         f"the unpadded ones on {out['bucket_vs_unpadded']:.4f} of "
-        f"positions")
+        f"positions (the first generated token in every row: "
+        f"{out['bucket_first_token']})")
     return out
+
+
+def probe_bucket_ops(net, prompt, Pp, N) -> list:
+    """Where a right-padded ``generate`` first departs from the unpadded
+    one in bf16: its prefill (`generation._prefill`) op by op for
+    ``prompt`` (B, P) and for it padded with zeros to ``Pp``, each op's
+    largest difference over the P real positions (layer 0's ops, then
+    every layer's output); then the first decode step at position P
+    over the caches each prefill leaves (P + N slots against Pp + N),
+    layer 0's cached attention op by op over the real slots, and the
+    step's logits.  Returns (op, max abs difference) in order."""
+    params, _ = gen_mod._gathered(net, None)
+    H = net._layers[0].attn._num_heads
+    acts = tuple(lyr.ffn._act for lyr in net._layers)
+    B, P = prompt.shape
+    padded = torch.cat([prompt, prompt.new_zeros((B, Pp - P))], dim=1)
+    ops = []
+
+    def note(name, a, b):
+        ops.append((name, float((a[:, :P].float()
+                                 - b[:, :P].float()).abs().max())))
+
+    with torch.no_grad():
+        hs = [gen_mod._embed(params, t, torch.arange(
+            t.shape[1], device=DEV)) for t in (prompt, padded)]
+        note("embed", *hs)
+        for li, (lp, act) in enumerate(zip(params["layers"], acts)):
+            steps = []
+            for h in hs:
+                x = gen_mod._ln(h, *lp["ln1"])
+                qkv = gen_mod._dense(x, *lp["qkv"])
+                q, k, v = gen_mod._qkv_heads(qkv, H)
+                a = fa_mod.flash_attention(
+                    q.transpose(1, 2).contiguous(),
+                    k.transpose(1, 2).contiguous(),
+                    v.transpose(1, 2).contiguous(),
+                    causal=True).transpose(1, 2)
+                Tn = h.shape[1]
+                proj = gen_mod._dense(a.reshape(B, Tn, -1), *lp["proj"])
+                h1 = h + proj
+                y = gen_mod._ln(h1, *lp["ln2"])
+                f1 = gen_mod._dense(y, *lp["ffn1"])
+                f2 = gen_mod._dense(gen_mod._activation(f1, act),
+                                    *lp["ffn2"])
+                steps.append((x, qkv, a, proj, h1, y, f1, f2, h1 + f2))
+            if li == 0:
+                for name, a, b in zip(("ln1", "qkv", "attention", "proj",
+                                       "residual1", "ln2", "ffn1", "ffn2",
+                                       "residual2"), *steps):
+                    note(f"layer0.{name}", a, b)
+            hs = [st[-1] for st in steps]
+            note(f"layer{li}.out", *hs)
+        # the first decode step over each prefill's caches
+        vl = torch.tensor([P], dtype=torch.int64, device=DEV)
+        runs = [gen_mod._prefill(params, prompt, acts, H, P + N),
+                gen_mod._prefill(params, padded, acts, H, Pp + N,
+                                 valid_len=vl)]
+        toks = [gen_mod._logits_of(params, h).argmax(-1) for h, _, _ in runs]
+        ops.append(("first token", float((toks[0] != toks[1]).sum())))
+        lp = params["layers"][0]
+        steps = []
+        for (_, kcs, vcs), tok in zip(runs, toks):
+            h = gen_mod._embed(params, tok, vl)
+            x = gen_mod._ln(h, *lp["ln1"])
+            q, k, v = gen_mod._qkv_heads(gen_mod._dense(x, *lp["qkv"]), H)
+            kc, vc = kcs[0].clone(), vcs[0].clone()
+            kc.index_copy_(2, vl, k[:, :, None])
+            vc.index_copy_(2, vl, v[:, :, None])
+            sc = torch.einsum("bhd,bhkd->bhk", q.float(), kc.float()) \
+                / math.sqrt(q.shape[-1])
+            pos = torch.arange(sc.shape[-1], device=DEV)
+            pr = torch.softmax(torch.where(pos <= vl, sc, gen_mod._F32_MIN),
+                               dim=-1)
+            a = torch.einsum("bhk,bhkd->bhd", pr, vc.float())
+            steps.append((sc[..., :P + 1], pr[..., :P + 1], a))
+        for name, a, b in zip(("scores", "softmax", "pv"), *steps):
+            ops.append((f"decode.layer0.{name}",
+                        float((a.float() - b.float()).abs().max())))
+        logits = [gen_mod._decode_token(params, acts, kcs, vcs, tok, vl, H)
+                  for (_, kcs, vcs), tok in zip(runs, toks)]
+        ops.append(("decode.logits",
+                    float((logits[0] - logits[1]).abs().max())))
+    first = next((n for n, d in ops if d > 0.0), None)
+    log(f"pad_to_bucket in bf16, P={P} padded to {Pp}, N={N}: first op "
+        f"whose real rows differ: {first}; max |padded - unpadded| by op: "
+        + ", ".join(f"{n} {d:.3g}" for n, d in ops))
+    return ops
 
 
 def check_weight_writes(smi: str, res) -> dict:
@@ -2264,7 +2400,8 @@ def check_hybridize(smi: str) -> dict:
     (attention through the flash kernel): the capture call and a replay
     bit-identical to the eager forward, the flash kernel launched inside
     the replay; in train mode outside ``record()`` a net with dropout
-    refuses to capture."""
+    runs on a graph whose dropout reads the staged seed table: two
+    calls draw two masks, and re-seeding gives the first again."""
     net = _build_net(torch.bfloat16, 2, seed=3)
     x = torch.from_numpy(np.random.RandomState(3).randint(
         0, MODEL["vocab"], (2, 512))).to(DEV)
@@ -2279,16 +2416,21 @@ def check_hybridize(smi: str) -> dict:
     drop = TransformerLM(**dict(MODEL, num_layers=1), dropout=0.1,
                          device=DEV, seed=3)
     drop.hybridize()
+    n0 = _graphs.launches(dropout_fwd_dev)
     with autograd.train_mode():
-        try:
-            drop(x[:, :16])
-            refused = False
-        except MXNetError:
-            refused = True
-    assert refused, "a train-mode dropout forward was captured"
+        mx_random.seed(5, device=DEV)
+        first, second = drop(x[:, :16]), drop(x[:, :16])
+        mx_random.seed(5, device=DEV)
+        again = drop(x[:, :16])
+    torch.cuda.synchronize()
+    assert not torch.equal(first, second), "a replay drew the same mask"
+    assert torch.equal(first, again), "re-seeding drew another mask"
+    masks = _graphs.launches(dropout_fwd_dev) - n0
     log(f"hybridize [{smi}]: TransformerLM 2x1024 bf16 at (2, 512) "
         f"captured and replayed bit-identical to eager, {flash} flash "
-        f"launches inside the replay; train-mode dropout refused")
+        f"launches inside the replay; in train mode two replays drew two "
+        f"masks and re-seeding the first again ({masks} device-seed "
+        f"dropout launches)")
     return {"flash_in_replay": flash}
 
 # ---------------------------------------------------------------- phase 7
@@ -2305,6 +2447,9 @@ def check_dropout(dtype, shape, rate, seed) -> int:
     assert m.dtype == torch.uint8 and m.shape == x.shape, tag
     assert torch.equal(m, ref), f"{tag}: mask differs from the plain version"
     assert torch.equal(dropout_mask(x, seed, rate), m), f"{tag}: same seed"
+    slot = torch.tensor([seed], dtype=torch.int64, device=DEV)
+    assert torch.equal(dropout_mask_dev(x, slot, rate), m), \
+        f"{tag}: the device-seed mask differs from the by-value one"
     if n >= 4096:
         keep = m.float().mean().item()
         sigma = math.sqrt(rate * (1 - rate) / n)
@@ -2337,7 +2482,10 @@ def check_dropout_fused(dtype, shape, rate, seed, offset=0,
     """The fused forward's mask and y, and the fused backward's dx, equal
     the plain composition's bit for bit, with and without a residual,
     called directly and through ``fused_dropout(_add)``'s autograd
-    Function (y, dx, dres).  ``offset``: x, res and dy are views that
+    Function (y, dx, dres); the device-seed forward and mask
+    (``mx_dropout_fwd_dev``, ``mx_dropout_mask_dev``) give the by-value
+    entries' bits, and so does the plain version given the seed tensor.
+    ``offset``: x, res and dy are views that
     start that many elements into larger buffers (the kernel's scalar
     path when they leave the 16-byte grid).  ``special``: x holds NaN
     and +-Inf on dropped elements, res -0.0 on dropped and on some kept
@@ -2349,6 +2497,7 @@ def check_dropout_fused(dtype, shape, rate, seed, offset=0,
     x, res, dy = (b[offset:].view(shape) for b in bufs)
     ref_mask = mask_reference(n, seed, rate, device=DEV).view(shape)
     keep = ref_mask.bool()
+    slot = torch.tensor([seed], dtype=torch.int64, device=DEV)
     if special:                     # in place: the views keep their offset
         drop = (~keep).view(-1).nonzero()[:, 0]
         kept = keep.view(-1).nonzero()[:9, 0]
@@ -2373,6 +2522,16 @@ def check_dropout_fused(dtype, shape, rate, seed, offset=0,
         assert torch.equal(_bits(dx), _bits(want_dx)), f"{tag}: dx"
         if special:
             assert not _bits(y)[~keep].any(), f"{tag}: dropped y not +0.0"
+        dev_y, dev_mask = dropout_fwd_dev(x, r, slot, rate)
+        plain_y, plain_mask = dropout_fwd_reference(x, r, slot, rate)
+        torch.cuda.synchronize()
+        assert torch.equal(dev_mask, mask) and torch.equal(plain_mask, mask), \
+            f"{tag}: device-seed forward's mask"
+        assert torch.equal(_bits(dev_y), _bits(y)) \
+            and torch.equal(_bits(plain_y), _bits(y)), \
+            f"{tag}: device-seed forward's y"
+        assert torch.equal(dropout_mask_dev(x, slot, rate), ref_mask), \
+            f"{tag}: device-seed mask"
         xr = x.detach().clone().requires_grad_()
         rr = None if r is None else r.detach().clone().requires_grad_()
         fy = dk_mod.fused_dropout(xr, seed, rate) if rr is None \
@@ -2386,7 +2545,7 @@ def check_dropout_fused(dtype, shape, rate, seed, offset=0,
         if rr is not None:
             assert torch.equal(_bits(rr.grad), _bits(want_dres)), \
                 f"{tag}: Function's dres"
-        checks += 7
+        checks += 10
     return checks
 
 
@@ -2463,6 +2622,7 @@ DROPOUT_FUSED_CASES = (
 
 def phase_training_kernels() -> dict:
     errs = {"dropout_mask": {}, "dropout_fwd": {}, "dropout_bwd": {},
+            "dropout_mask_dev": {}, "dropout_fwd_dev": {},
             "xent_forward": {}, "xent_backward": {}}
     checks = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -2474,21 +2634,25 @@ def phase_training_kernels() -> dict:
         for shape, rate, seed, offset, special in DROPOUT_FUSED_CASES:
             checks += check_dropout_fused(dtype, shape, rate, seed, offset,
                                           special)
-        for k in ("dropout_mask", "dropout_fwd", "dropout_bwd"):
+        for k in ("dropout_mask", "dropout_fwd", "dropout_bwd",
+                  "dropout_mask_dev", "dropout_fwd_dev"):
             errs[k][name] = 0.0                   # bit-identical above
     log(f"dropout fused forward and backward: {checks} checks bit-identical "
         f"to the plain composition over {len(DROPOUT_FUSED_CASES)} cases "
-        f"a dtype")
+        f"a dtype, the device-seed entries to the by-value ones and to "
+        f"the plain version on the seed tensor")
     # degenerate rates draw no mask: no launch of any dropout kernel
     x = torch.ones((64, 64), device=DEV)
     n0 = [KERNELS[k]["fn"].launches
-          for k in ("dropout_mask", "dropout_fwd", "dropout_bwd")]
+          for k in ("dropout_mask", "dropout_fwd", "dropout_bwd",
+                    "dropout_mask_dev", "dropout_fwd_dev")]
     assert torch.equal(dk_mod.fused_dropout(x, 1, 0.0), x)
     assert torch.count_nonzero(dk_mod.fused_dropout(x, 1, 1.0)) == 0
     assert torch.equal(dk_mod.fused_dropout_add(x, x, 1, 0.0), 2 * x)
     assert torch.equal(dk_mod.fused_dropout_add(x, x, 1, 1.0), x)
     assert n0 == [KERNELS[k]["fn"].launches for k in
-                  ("dropout_mask", "dropout_fwd", "dropout_bwd")], \
+                  ("dropout_mask", "dropout_fwd", "dropout_bwd",
+                   "dropout_mask_dev", "dropout_fwd_dev")], \
         "a degenerate rate launched"
     for N, V, dtype, eps, scale in XENT_CASES:
         e = check_xent(N, V, dtype, eps, scale)
@@ -2501,6 +2665,8 @@ def phase_training_kernels() -> dict:
         {"name": k, "max_err": v} for k, v in errs.items()],
         "tol": {"dropout_mask": "bit-identical", "dropout_fwd":
                 "bit-identical", "dropout_bwd": "bit-identical",
+                "dropout_mask_dev": "bit-identical",
+                "dropout_fwd_dev": "bit-identical",
                 "xent_forward":
                 f"lse rel {LSE_RTOL}", "xent_backward": {
                     str(dt).replace("torch.", ""):
@@ -2548,20 +2714,34 @@ def _bert_model(cfg, dtype, seed):
 
 
 def _counts():
-    return {n: KERNELS[n]["fn"].launches
+    """Launches so far of each training kernel, inside graph replays
+    included."""
+    return {n: _graphs.launches(KERNELS[n]["fn"])
             for n in TRAINING_KERNELS + FLASH_KERNELS}
 
 
-def _per_step(L, T) -> dict:
+def _zero_counts():
+    for n in TRAINING_KERNELS + FLASH_KERNELS:
+        KERNELS[n]["fn"].launches = 0
+    _graphs.reset_counts()
+
+
+def _per_step(L, T, hybridized=True) -> dict:
     """Launches of each kernel in one training step at sequence length
     T: flash (forward, dK/dV, dQ) once a layer where the model's
     attention takes it (at or above the 512² crossover), else never."""
     flash = L if fa_mod.kernel_active(T, T, DEV) else 0
     # each dropout site (the embedding's, two DropoutAdds a layer) is one
-    # fused forward and one fused backward launch; the mask-only kernel
-    # is off the path
-    return {"dropout_mask": 0, "dropout_fwd": 2 * L + 1,
-            "dropout_bwd": 2 * L + 1, "xent_forward": 1,
+    # fused forward and one fused backward launch: a hybridized block's
+    # recorded forward (graphed or its eager body) reads its seeds from
+    # the program's seed table (the device-seed entry), a block never
+    # hybridized passes them by value; the mask-only kernels are off the
+    # path
+    sites = 2 * L + 1
+    return {"dropout_mask": 0, "dropout_mask_dev": 0,
+            "dropout_fwd": 0 if hybridized else sites,
+            "dropout_fwd_dev": sites if hybridized else 0,
+            "dropout_bwd": sites, "xent_forward": 1,
             "xent_backward": 1, **{n: flash for n in FLASH_KERNELS}}
 
 
@@ -2598,8 +2778,7 @@ def phase_training(smi: str, B: int, T: int) -> dict:
     per_step = _per_step(L, T)
     torch.cuda.reset_peak_memory_stats()
     # the counts start from 0 here and are read right after the phase
-    for name in per_step:
-        KERNELS[name]["fn"].launches = 0
+    _zero_counts()
     with recording(dk_mod, "_fwd_cuda", keep_first_site), \
             recording(dk_mod, "_bwd_cuda", keep_first("dropout_bwd")), \
             recording(xk_mod, "_fwd_cuda", keep_first("fwd")), \
@@ -2612,8 +2791,10 @@ def phase_training(smi: str, B: int, T: int) -> dict:
         with autograd.record():
             loss = model(tokens, labels)
         loss.backward()
+        # where the recorded backward left each gradient (read in
+        # place, no copy)
         unreached = sorted(n for n, p in model.collect_params().items()
-                           if p.requires_grad and p.grad is None)
+                           if p.requires_grad and p.take_grad() is None)
         trainer.step(1)
         losses = [loss.detach()]
         # a bf16 weight near 1 (a LayerNorm gain) need not move in one
@@ -2652,6 +2833,12 @@ def phase_training(smi: str, B: int, T: int) -> dict:
     assert torch.isfinite(loss_vals).all(), f"non-finite loss {loss_vals}"
     for name, n in launches.items():
         assert n == 7 * per_step[name], (name, n)
+    # bench.py's pattern took the captured path: one capture of each
+    # program, then replays
+    progs = ("fwd_record", "bwd_record", "update")
+    assert {k: _graphs.captures[k] for k in progs} == dict.fromkeys(progs, 1) \
+        and {k: _graphs.replays[k] for k in progs} == dict.fromkeys(progs, 6), \
+        (dict(_graphs.captures), dict(_graphs.replays))
     # one more step under the profiler: the card's busy share
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -2669,7 +2856,9 @@ def phase_training(smi: str, B: int, T: int) -> dict:
     peak = PEAK_FLOPS[torch.bfloat16] \
         if "H100" in name and "PCIe" not in name else None
     mfu = tok_s * flops_per_token / peak if peak else None
-    log(f"training main path [{smi}]: B={B} T={T}, step "
+    log(f"training main path [{smi}]: B={B} T={T}, on CUDA graphs "
+        f"(captures {dict(_graphs.captures)}, replays "
+        f"{dict(_graphs.replays)}), step "
         f"{dt * 1e3:.2f} ms (mean of 5 after 2 warm-up), {tok_s:.1f} "
         f"tokens/s, MFU "
         + (f"{mfu:.4f} of {peak / 1e12:.0f} TFLOP/s bf16" if mfu
@@ -2697,6 +2886,237 @@ def phase_training(smi: str, B: int, T: int) -> dict:
             f"{n} {ms:.3f}" for n, ms in busy["top"]))
     return {"launches": launches, "rec": rec, "step_s": dt, "tok_s": tok_s,
             "mfu": mfu, "peak_bytes": peak_bytes, "busy": busy}
+
+
+# ---------------------------------------------------------------- phase 25
+def _mfu(n_params, B, T, dt):
+    """(tokens/s, MFU or None, flop a token): bench.py's FLOP count over
+    the H100 SXM's dense bf16 peak, picked by torch's device name."""
+    L, D, V = BERT["num_layers"], BERT["units"], BERT["vocab_size"]
+    n_embed = V * D + 512 * D + 2 * D
+    flops_per_token = 6 * (n_params - n_embed) + 12 * L * T * D
+    tok_s = B * T / dt
+    name = torch.cuda.get_device_name(0)
+    peak = PEAK_FLOPS[torch.bfloat16] \
+        if "H100" in name and "PCIe" not in name else None
+    return tok_s, (tok_s * flops_per_token / peak if peak else None), \
+        flops_per_token
+
+
+def _captured_run(B, T, mode, smi):
+    """Phase 8's model and batch, ``random.seed(7)``, three steps of
+    bench.py's pattern: on graphs (``graph``), on the programs' eager
+    bodies (``eager``, inside `_graphs.eager()`) or with the block never
+    hybridized (``plain``).  Each step's launches are held to
+    `_per_step`.  Then (not for ``plain``) five timed steps and one
+    profiled step.  Returns the three losses, clones of the f32 masters
+    and momenta after step 3, and the numbers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net, model, trainer = _bert_model(BERT, torch.bfloat16, seed=0)
+    if mode == "plain":
+        model.hybridize(False)
+    tokens, labels = _bert_batch(BERT["vocab_size"], B, T)
+    n_params = sum(p.numel() for p in net.collect_params().values()
+                   if p.grad_req != "null")
+    per_step = _per_step(BERT["num_layers"], T, mode != "plain")
+
+    def step():
+        with autograd.record():
+            loss = model(tokens, labels)
+        loss.backward()
+        trainer.step(1)
+        return loss.detach()
+
+    out = {"mode": mode}
+    _zero_counts()
+    mx_random.seed(7, device=DEV)
+    with _graphs.eager() if mode == "eager" else contextlib.nullcontext():
+        losses = []
+        for _ in range(3):
+            c0 = _counts()
+            losses.append(step())
+            c1 = _counts()
+            assert {n: c1[n] - c0[n] for n in per_step} == per_step, \
+                (mode, c0, c1)
+        states = [trainer._states[i] for i in sorted(trainer._states)]
+        out["losses"] = torch.stack(losses).float().cpu()
+        out["masters"] = [s[0].clone() for s in states]
+        out["moms"] = [s[1].clone() for s in states]
+        out["captures"] = dict(_graphs.captures)
+        out["replays"] = dict(_graphs.replays)
+        out["launches"] = _counts()
+        if mode == "plain":
+            del net, model, trainer, states
+            return out
+        each = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            each.append(time.perf_counter() - t0)
+        dt = sum(each) / 5
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+    out["launches"] = _counts()
+    busy = device_busy(prof, prof_s)
+    tok_s, mfu, fpt = _mfu(n_params, B, T, dt)
+    out.update(step_ms=dt * 1e3, each_ms=[t * 1e3 for t in each],
+               tok_s=tok_s, mfu=mfu,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               prof_ms=prof_s * 1e3, card_ms=busy["busy_s"] * 1e3,
+               busy=busy["busy_share"], kernels=busy["kernels"])
+    log(f"captured training [{smi}] B={B} T={T} {mode}: step "
+        f"{out['step_ms']:.2f} ms (mean of 5 after 3, each synchronised: "
+        f"{', '.join(f'{t:.2f}' for t in out['each_ms'])}), "
+        f"{tok_s:.1f} tokens/s, "
+        f"MFU " + (f"{mfu:.4f}" if mfu else "not measured") + f" ({fpt} "
+        f"flop/token), peak memory {out['peak_gib']:.2f} GiB; one profiled "
+        f"step {out['prof_ms']:.2f} ms wall, card busy {out['card_ms']:.2f} "
+        f"ms = {out['busy']:.3f}, {out['kernels']} kernels")
+    del net, model, trainer, states
+    return out
+
+
+def phase_captured_training(smi: str, B: int, T: int) -> dict:
+    """bench.py's step on CUDA graphs against its eager bodies and
+    against the block never hybridized, at BERT-large width: the same
+    losses, f32 masters and momenta bit for bit over three steps (the
+    plain step draws the same masks by value); one capture of each
+    program (recorded forward and backward, the Trainer's update), then
+    replays; each step's launches as `_per_step` says; the graphed and
+    the eager step timed in the same run."""
+    runs = {}
+    for mode in ("graph", "eager", "plain"):
+        runs[mode] = _captured_run(B, T, mode, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    g = runs["graph"]
+    progs = ("fwd_record", "bwd_record", "update")
+    assert {k: g["captures"].get(k) for k in progs} \
+        == dict.fromkeys(progs, 1) and {k: g["replays"].get(k)
+                                        for k in progs} \
+        == dict.fromkeys(progs, 2), (g["captures"], g["replays"])
+    for mode in ("eager", "plain"):
+        r = runs[mode]
+        assert torch.equal(r["losses"], g["losses"]), \
+            (mode, r["losses"], g["losses"])
+        assert all(torch.equal(a, b) for a, b in zip(r["masters"],
+                                                     g["masters"])), \
+            f"{mode}: f32 masters differ from the graphed step's"
+        assert all(torch.equal(a, b) for a, b in zip(r["moms"], g["moms"])), \
+            f"{mode}: momenta differ from the graphed step's"
+    e = runs["eager"]
+    log(f"captured training [{smi}] B={B} T={T}: 3 steps on graphs, on "
+        f"the eager bodies and never hybridized bit-identical (losses "
+        f"{g['losses'].tolist()}, {len(g['masters'])} f32 masters and "
+        f"momenta); captures {g['captures']}, replays after 3 steps "
+        f"{g['replays']}; step {g['step_ms']:.2f} ms graphed against "
+        f"{e['step_ms']:.2f} ms eager ({e['step_ms'] / g['step_ms']:.2f}x), "
+        f"card busy {g['busy']:.3f} against {e['busy']:.3f}, kernels a "
+        f"step {g['kernels']} against {e['kernels']}")
+    return {"launches": {n: g["launches"][n] + e["launches"][n]
+                         + runs["plain"]["launches"][n]
+                         for n in g["launches"]},
+            "graph": {k: v for k, v in g.items()
+                      if k not in ("masters", "moms")},
+            "eager": {k: v for k, v in e.items()
+                      if k not in ("masters", "moms")}}
+
+
+class _TwoDense(HybridBlock):
+    """``mean(b(relu(a(x)))^2)``, width 1024."""
+
+    def __init__(self, dtype=torch.float32):
+        super().__init__()
+        self.a = Dense(1024, 1024, device=DEV, dtype=dtype)
+        self.b = Dense(1024, 1024, device=DEV, dtype=dtype)
+
+    def forward(self, x):
+        return (self.b(torch.relu(self.a(x))).float() ** 2).mean()
+
+
+def _edge_steps(hybrid, dtype, fuse, x_grad):
+    """Three recorded steps of `_TwoDense` from seed 11 (SGD, lr 0.05,
+    momentum 0.9, wd 1e-4, no f32 masters), a fresh input each: each
+    step's loss, input gradient (``x_grad``) and weights, and the
+    momenta after step 3."""
+    mx_random.seed(11, device=DEV)
+    net = _TwoDense(dtype).initialize()
+    if hybrid:
+        net.hybridize()
+    tr = Trainer(net.collect_params(), "sgd", {
+        "learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4},
+        keep_grads=False, fuse_step=fuse)
+    steps = []
+    for s in range(3):
+        x = torch.from_numpy(np.random.RandomState(20 + s).uniform(
+            -1, 1, (64, 1024)).astype(np.float32)).to(DEV, dtype)
+        if x_grad:
+            x.requires_grad_()
+        with autograd.record():
+            loss = net(x)
+        loss.backward()
+        tr.step(1)
+        steps.append((loss.detach().clone(), x.grad,
+                      [p.detach().clone() for p in
+                       net.collect_params().values()]))
+    torch.cuda.synchronize()
+    return steps, [s for s in tr._states.values() if s is not None]
+
+
+def check_train_step_edges(smi: str) -> dict:
+    """Phase 25's two patterns beside bench.py's (see the module
+    docstring): input gradients through the recorded programs, and the
+    captured update of a bf16 model without f32 masters."""
+    progs = ("fwd_record", "bwd_record", "update")
+    c0 = {k: _graphs.captures.get(k, 0) for k in progs}
+    r0 = {k: _graphs.replays.get(k, 0) for k in progs}
+    graphed, _ = _edge_steps(True, torch.float32, True, True)
+    caps = {k: _graphs.captures.get(k, 0) - c0[k] for k in progs}
+    reps = {k: _graphs.replays.get(k, 0) - r0[k] for k in progs}
+    assert caps == dict.fromkeys(progs, 1) and \
+        reps == dict.fromkeys(progs, 2), (caps, reps)
+    plain, _ = _edge_steps(False, torch.float32, True, True)
+    for i, ((lg, gg, wg), (lp, gp, wp)) in enumerate(zip(graphed, plain)):
+        assert gg is not None and torch.count_nonzero(gg) > 0, i
+        assert torch.equal(lg, lp) and torch.equal(gg, gp), \
+            f"step {i + 1}: the input's gradient differs from eager"
+        assert all(torch.equal(a, b) for a, b in zip(wg, wp)), \
+            f"step {i + 1}: weights differ from the never-hybridized block"
+    fused, mf = _edge_steps(True, torch.bfloat16, True, False)
+    unfused, mu = _edge_steps(True, torch.bfloat16, False, False)
+    for i, ((lf, _, wf), (lu, _, wu)) in enumerate(zip(fused, unfused)):
+        assert all(w.dtype == torch.bfloat16 for w in wf)
+        assert torch.equal(lf, lu) and all(
+            torch.equal(a, b) for a, b in zip(wf, wu)), \
+            f"bf16 step {i + 1}: fused update differs from unfused"
+    assert all(torch.equal(a, b) for a, b in zip(mf, mu)), \
+        "bf16: momenta of the fused update differ from unfused"
+    # the rule's product (f32, rounded once) against torch's own foreach
+    # product with a Python float on a bf16 list, in place and not
+    xs = [t.detach().clone() for t in fused[0][2]]
+    rule = opt_mod._mul(xs, torch.tensor(0.9, device=DEV))
+    own = torch._foreach_mul(xs, 0.9)
+    torch._foreach_mul_(xs, 0.9)
+    agree = (all(torch.equal(a, b) for a, b in zip(rule, own)),
+             all(torch.equal(a, b) for a, b in zip(rule, xs)))
+    log(f"captured training edges [{smi}]: input gradients through the "
+        f"recorded programs over 3 steps equal the never-hybridized "
+        f"block's bit for bit (captures {caps}, replays {reps}); bf16 "
+        f"without f32 masters: the captured update equals fuse_step=False "
+        f"bit for bit over 3 steps (losses "
+        f"{[float(s[0]) for s in fused]}); torch's foreach bf16 product "
+        f"with a Python float equals the rule's f32 product: out of place "
+        f"{agree[0]}, in place {agree[1]}")
+    return {"captures": caps, "replays": reps, "float_product": agree}
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2800,8 +3220,12 @@ def time_dropout(rec) -> dict:
     mask kernel, then the torch apply and add, and autograd's backward of
     them) and a one-call PyTorch yardstick; bounds: the mask kernel's the
     larger of its bytes and its integer multiplies, the fused entries'
-    their bytes."""
-    x, res, seed, rate = rec["dropout_fwd"]
+    their bytes.  The device-seed mask and forward at the same inputs,
+    the seed in the slot the main path's program read, held to the
+    by-value entries and the plain version bit for bit and timed beside
+    them."""
+    x, res, slot, rate = rec["dropout_fwd"]
+    seed = int(slot)
     dy, mask, brate = rec["dropout_bwd"]
     n, e = x.numel(), x.element_size()
     y, m = dropout_fwd(x, res, seed, rate)
@@ -2815,6 +3239,10 @@ def time_dropout(rec) -> dict:
     assert torch.equal(dropout_mask(x, seed, rate).view(-1),
                        mask_reference(n, seed, rate, device=x.device)), \
         "dropout mask at main-path inputs differs"
+    dev_y, dev_m = dropout_fwd_dev(x, res, slot, rate)
+    assert torch.equal(dev_m, m) and torch.equal(_bits(dev_y), _bits(y)) \
+        and torch.equal(dropout_mask_dev(x, slot, rate), m), \
+        "device-seed dropout at main-path inputs differs"
     clock = sm_clock_hz()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     int_peak = sms * INT_MULS_PER_CLOCK_SM * clock
@@ -2843,6 +3271,21 @@ def time_dropout(rec) -> dict:
             x, dropout_mask(x, seed, rate), rate)),
         "library_ms": time_ms(lambda: F.dropout(x, rate) + res),
         "bound_ms": bound, "bound_by": by}
+    # the seed read from device memory: 8 more bytes
+    bound, by = _bound(n * (3 * e + 1) + 8, muls, int_peak)
+    out["dropout_fwd_dev"] = dict(
+        out["dropout_fwd"], bound_ms=bound, bound_by=by,
+        by_value_ms=out["dropout_fwd"]["ms"],
+        ms=time_ms(lambda: dropout_fwd_dev(x, res, slot, rate)),
+        plain_ms=time_ms(lambda: dropout_fwd_reference(x, res, slot, rate)))
+    out["dropout_fwd_dev"].pop("old_ms")
+    bound, by = _bound(n + 8, muls, int_peak)
+    out["dropout_mask_dev"] = dict(
+        out["dropout_mask"], bound_ms=bound, bound_by=by,
+        by_value_ms=out["dropout_mask"]["ms"],
+        ms=time_ms(lambda: dropout_mask_dev(x, slot, rate)),
+        plain_ms=time_ms(lambda: mask_reference(n, slot, rate,
+                                                device=x.device)))
     # the old backward: autograd through the apply and the add
     xr = x.detach().requires_grad_()
     old = res + dk_mod._apply_mask(xr, mask, brate)
@@ -3171,6 +3614,12 @@ def main() -> int:
     timed("training_parity_512", phase_train_parity, 2, 512)
     times.update(timed("training_timing_512", time_flash_training, tres512))
     del tres512["rec"]
+    # bench.py's step on graphs against its eager bodies, both shapes
+    cres = timed("captured_training", phase_captured_training, smi,
+                 *BERT_BATCH)
+    cres512 = timed("captured_training_512", phase_captured_training, smi,
+                    *BERT_BATCH_512)
+    timed("captured_training_edges", check_train_step_edges, smi)
     # the causal callers: long-context shapes and a trainable TransformerLM
     longctx = timed("flash_longctx_timing", time_flash_longctx)
     lres = timed("lm_causal", phase_lm_causal, smi)
@@ -3201,6 +3650,11 @@ def main() -> int:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
             + (f", the old site {r['old_ms']:.4f} ms" if "old_ms" in r
                else "") + f" [{smi}]")
+    for name in ("dropout_fwd_dev", "dropout_mask_dev"):
+        r = times[name]
+        log(f"{name} (the seed read from device memory) {r['shape']}: "
+            f"{r['ms']:.4f} ms against {r['by_value_ms']:.4f} ms by value "
+            f"[{smi}]")
     r = times["dropout_mask"]
     log(f"dropout_mask bound reckonings: {r['bytes_ms']:.5f} ms of bytes, "
         f"{r['ops_ms']:.5f} ms of {PHILOX_MULS} integer multiplies per 4 "
@@ -3217,7 +3671,8 @@ def main() -> int:
     times["paged_attention_q8"] = qtimes["step"]
     # each kernel's launches summed over the main paths that ran it
     launches = {}
-    for path in (res, qres, sres, bres, gres, tres, tres512, lres):
+    for path in (res, qres, sres, bres, gres, tres, tres512, lres, cres,
+                 cres512):
         for name, n in path["launches"].items():
             launches[name] = launches.get(name, 0) + n
     rows = []

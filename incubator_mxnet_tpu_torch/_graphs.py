@@ -19,6 +19,11 @@ buffers, captured once into a CUDA graph and replayed after that.
   raises; nothing runs eagerly on the card in its place.
 * A replay overwrites its outputs (JAX arrays are immutable, CUDA graph
   outputs are not): a caller clones what outlives the call.
+* A body that draws seeds (`random.next_seed`, a dropout mask in train
+  mode) reads them from the program's `random.SeedTable`: each run or
+  replay draws them from the thread's key stream first, as the eager
+  body would, and stages them with one copy, so every replay draws a
+  fresh mask and ``random.seed`` replays the eager masks.
 * On the CPU (the caller asked for it) and inside `eager()` the body runs
   eagerly on the same static buffers: the un-captured program, which is
   the reference a graph is held to bit for bit.
@@ -43,9 +48,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import random as _random
 from .base import MXNetError
 
-__all__ = ["Program", "Pool", "eager", "in_body", "note_launch", "launches",
+__all__ = ["Program", "Pool", "eager", "in_body", "capturing",
+           "note_launch", "launches",
            "captures", "replays", "replayed_launches", "reset_counts",
            "subscribe_captures", "unsubscribe_captures"]
 
@@ -79,6 +86,11 @@ def in_body() -> bool:
     return getattr(_local, "depth", 0) > 0
 
 
+def capturing() -> bool:
+    """Whether this thread is recording a program's body into a graph."""
+    return getattr(_local, "tally", None) is not None
+
+
 @contextlib.contextmanager
 def _body_scope():
     _local.depth = getattr(_local, "depth", 0) + 1
@@ -86,6 +98,9 @@ def _body_scope():
         yield
     finally:
         _local.depth -= 1
+
+
+
 
 
 def note_launch(fn) -> None:
@@ -180,16 +195,24 @@ class Program:
     """One static-shape device program: ``body(**static_inputs)`` returns
     a tuple of tensors.  ``run(sig, **inputs)`` stages the inputs and
     returns the outputs (the static ones after a replay: clone what
-    outlives the call); ``last`` holds the latest run's outputs."""
+    outlives the call); ``last`` holds the latest run's outputs.
 
-    def __init__(self, name: str, body, pool: Pool):
+    ``static_out``: every call on CUDA returns the static outputs, also
+    the call that captures (its warm-up's outputs are copied into them),
+    so a caller may hold on to them as the program's output buffers (the
+    recorded backward's gradients that the Trainer's update reads)."""
+
+    def __init__(self, name: str, body, pool: Pool,
+                 static_out: bool = False):
         self.name = name
         self._body = body
         self._pool = pool
+        self._static_out = static_out
         self._static: Optional[dict] = None
         self._graph = None
         self._out = None
         self._sig = None
+        self.seeds = _random.SeedTable(pool.device)
         self.per_replay: dict = {}
         self.last = None
         # held by a caller across a run and its use of the outputs when
@@ -200,7 +223,40 @@ class Program:
     def captured(self) -> bool:
         return self._graph is not None
 
+    def will_capture(self, sig) -> bool:
+        """Whether `run` with ``sig`` would capture (run the body's
+        warm-up, then record it)."""
+        return (self._pool.device.type == "cuda" and not _eager_depth
+                and (self._graph is None or sig != self._sig))
+
+    @property
+    def device(self) -> torch.device:
+        return self._pool.device
+
+    @property
+    def pool(self) -> Pool:
+        return self._pool
+
+    @property
+    def static_inputs(self) -> Optional[dict]:
+        """The static input buffers by name (None before the first
+        run)."""
+        return self._static
+
+    @property
+    def captured_outputs(self):
+        """The outputs of the captured body (its graph's static
+        outputs), or None."""
+        return self._out
+
+    def _run_body(self):
+        with _body_scope(), _random.seed_table(self.seeds):
+            return self._body(**self._static)
+
+    @torch.no_grad()
     def _stage(self, inputs) -> None:
+        # outside autograd: a static input the body marks as requiring a
+        # gradient stays a leaf, detached from the caller's tensor
         dev = self._pool.device
         if self._static is None:
             self._static = {
@@ -235,10 +291,11 @@ class Program:
         ``sig`` differs from the captured one)."""
         self._stage(inputs)
         if self._pool.device.type != "cuda" or _eager_depth:
-            with _body_scope():
-                self.last = self._body(**self._static)
+            self.seeds.stage()
+            self.last = self._run_body()
             return self.last
         if self._graph is not None and sig == self._sig:
+            self.seeds.stage()
             self._graph.replay()
             replays[self.name] += 1
             for fn, n in self.per_replay.items():
@@ -253,11 +310,14 @@ class Program:
             self._graph = self._out = self._sig = None
             side = self._pool.stream()
             cur = torch.cuda.current_stream(self._pool.device)
+            # this call's seeds (none before a body's first run, which
+            # draws its own and counts them)
+            self.seeds.stage()
             side.wait_stream(cur)
             # the warm-up: lazy initialisation (kernel libraries, cuBLAS
             # workspaces) on the capture stream, and this call's result
-            with torch.cuda.stream(side), _body_scope():
-                out = self._body(**self._static)
+            with torch.cuda.stream(side):
+                out = self._run_body()
             cur.wait_stream(side)
             for t in _tensors(out):
                 t.record_stream(cur)
@@ -267,9 +327,8 @@ class Program:
             try:
                 with torch.cuda.graph(graph, pool=self._pool.handle(),
                                       stream=side,
-                                      capture_error_mode="thread_local"), \
-                        _body_scope():
-                    static_out = self._body(**self._static)
+                                      capture_error_mode="thread_local"):
+                    static_out = self._run_body()
             except Exception as e:
                 raise MXNetError(f"capturing program {self.name!r} failed: "
                                  f"{e}") from e
@@ -278,4 +337,9 @@ class Program:
             self._graph, self._out, self._sig = graph, static_out, sig
             self.per_replay = dict(tally)
         _report_capture(self.name)
+        if self._static_out:
+            outs = _tensors(static_out)
+            if outs:
+                torch._foreach_copy_(outs, _tensors(out))
+            return static_out
         return out

@@ -35,6 +35,17 @@
 // ragged last chunk, and any launch whose operands are not all 16-byte
 // aligned, take a scalar path of the same kernel with the same bits.
 //
+// Seeds in device memory (the `_dev` entries).  A captured CUDA graph
+// replays its launch parameters as they were at capture, so a seed passed
+// by value would give every replay one mask.  The `_dev` entries take a
+// pointer to the int64 seed instead (a slot of the seed table that a
+// captured program stages before each replay, as the JAX kernel reads its
+// seed from SMEM): each thread loads it once, one address for the whole
+// grid, and derives the ten round keys in registers before its loop.  The
+// counter, the keys and the threshold are those of the by-value entries,
+// so a seed gives the same bits through either.  Eager calls outside a
+// program keep the by-value entries and copy nothing to the card.
+//
 // Bit-identical to the torch composition (the plain version): the product
 // x * scale is taken in f32 and rounded to the element type once, then the
 // residual is added in f32 and the sum rounded again; __fmul_rn/__fadd_rn
@@ -73,7 +84,7 @@ struct RoundKeys {
   uint32_t k1[10];
 };
 
-RoundKeys round_keys(unsigned long long seed) {
+__host__ __device__ inline RoundKeys round_keys(unsigned long long seed) {
   RoundKeys rk;
   uint32_t k0 = static_cast<uint32_t>(seed);
   uint32_t k1 = static_cast<uint32_t>(seed >> 32);
@@ -148,12 +159,15 @@ __device__ __forceinline__ T apply(bool keep, T in, T res, float scale) {
 
 // in: x (forward) or dy (backward); res: the residual (kForwardRes);
 // out: y or dx; mask: written (the forward modes) or read (kBackward).
-// vec: every operand is 16-byte aligned.
-template <typename T, int M>
+// vec: every operand is 16-byte aligned.  kDevSeed: the round keys come
+// from the seed at `seed` in device memory, not from `rk`.
+template <typename T, int M, bool kDevSeed>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const T* __restrict__ in, const T* __restrict__ res,
                T* __restrict__ out, uint8_t* __restrict__ mask, int64_t n,
-               RoundKeys rk, uint32_t thresh, float scale, bool vec) {
+               RoundKeys rk, const unsigned long long* __restrict__ seed,
+               uint32_t thresh, float scale, bool vec) {
+  if constexpr (kDevSeed) rk = round_keys(*seed);
   constexpr int kVecs = kChunk * sizeof(T) / 16;  // 16-byte words a chunk
   const int64_t chunks = (n + kChunk - 1) / kChunk;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
@@ -231,10 +245,10 @@ bool aligned16(const void* p) {
 
 // Launch over a grid of as many blocks as the card holds at once (every
 // SM full), fewer when the array is small.
-template <typename T, int M>
+template <typename T, int M, bool kDevSeed = false>
 int launch(const void* in, const void* res, void* out, void* mask,
-           long long n, const RoundKeys& rk, uint32_t thresh, float scale,
-           void* stream) {
+           long long n, const RoundKeys& rk, const void* seed,
+           uint32_t thresh, float scale, void* stream) {
   if (n <= 0) return 0;
   static int resident = 0;  // blocks an SM, per instantiation
   int dev = 0, sms = 0;
@@ -243,7 +257,7 @@ int launch(const void* in, const void* res, void* out, void* mask,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess && resident == 0)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &resident, dropout_kernel<T, M>, kThreads, 0);
+        &resident, dropout_kernel<T, M, kDevSeed>, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long chunks = (n + kChunk - 1) / kChunk;
   const long long need = (chunks + kThreads - 1) / kThreads;
@@ -252,25 +266,26 @@ int launch(const void* in, const void* res, void* out, void* mask,
   const unsigned blocks = static_cast<unsigned>(need < room ? need : room);
   const bool vec = aligned16(in) && aligned16(res) && aligned16(out) &&
                    aligned16(mask);
-  dropout_kernel<T, M><<<blocks, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  dropout_kernel<T, M, kDevSeed><<<blocks, kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(in), static_cast<const T*>(res),
-      static_cast<T*>(out), static_cast<uint8_t*>(mask), n, rk, thresh,
-      scale, vec);
+      static_cast<T*>(out), static_cast<uint8_t*>(mask), n, rk,
+      static_cast<const unsigned long long*>(seed), thresh, scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int M>
+template <int M, bool kDevSeed = false>
 int launch_typed(int dtype, const void* in, const void* res, void* out,
                  void* mask, long long n, const RoundKeys& rk,
-                 uint32_t thresh, float scale, void* stream) {
+                 const void* seed, uint32_t thresh, float scale,
+                 void* stream) {
   switch (dtype) {
     case 0:
-      return launch<float, M>(in, res, out, mask, n, rk, thresh, scale,
-                              stream);
+      return launch<float, M, kDevSeed>(in, res, out, mask, n, rk, seed,
+                                        thresh, scale, stream);
     case 1:
-      return launch<__nv_bfloat16, M>(in, res, out, mask, n, rk, thresh,
-                                      scale, stream);
+      return launch<__nv_bfloat16, M, kDevSeed>(in, res, out, mask, n, rk,
+                                                seed, thresh, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -280,15 +295,26 @@ int launch_typed(int dtype, const void* in, const void* res, void* out,
 
 // Every entry launches on `stream` (PyTorch's current stream) and returns
 // cudaGetLastError() after the launch.  seed: the 64-bit Philox key (low
-// word first); thresh: keep iff word >= thresh; scale: 1 / (1 - rate)
-// rounded to the element type; dtype: 0 float32, 1 bfloat16.  Any pointer
-// alignment is taken (16-byte aligned operands take the vector path).
+// word first), by value or (the `_dev` entries) as a pointer to it in
+// device memory, 8-byte aligned; thresh: keep iff word >= thresh; scale:
+// 1 / (1 - rate) rounded to the element type; dtype: 0 float32,
+// 1 bfloat16.  Any pointer alignment of the operands is taken (16-byte
+// aligned operands take the vector path).
 
 // The keep-mask alone: mask uint8 (n,).
 extern "C" int mx_dropout_mask(void* mask, long long n, unsigned long long seed,
                                unsigned int thresh, void* stream) {
   return launch<float, kMaskOnly>(nullptr, nullptr, nullptr, mask, n,
-                                  round_keys(seed), thresh, 0.0f, stream);
+                                  round_keys(seed), nullptr, thresh, 0.0f,
+                                  stream);
+}
+
+// mx_dropout_mask with the seed read from device memory.
+extern "C" int mx_dropout_mask_dev(void* mask, long long n, const void* seed,
+                                   unsigned int thresh, void* stream) {
+  return launch<float, kMaskOnly, true>(nullptr, nullptr, nullptr, mask, n,
+                                        RoundKeys{}, seed, thresh, 0.0f,
+                                        stream);
 }
 
 // Forward: reads x (n,) and res (n,) unless it is null; writes the mask
@@ -299,10 +325,24 @@ extern "C" int mx_dropout_fwd(const void* x, const void* res, void* y,
                               void* stream) {
   const RoundKeys rk = round_keys(seed);
   if (res == nullptr)
-    return launch_typed<kForward>(dtype, x, nullptr, y, mask, n, rk, thresh,
-                                  scale, stream);
-  return launch_typed<kForwardRes>(dtype, x, res, y, mask, n, rk, thresh,
-                                   scale, stream);
+    return launch_typed<kForward>(dtype, x, nullptr, y, mask, n, rk, nullptr,
+                                  thresh, scale, stream);
+  return launch_typed<kForwardRes>(dtype, x, res, y, mask, n, rk, nullptr,
+                                   thresh, scale, stream);
+}
+
+// mx_dropout_fwd with the seed read from device memory.
+extern "C" int mx_dropout_fwd_dev(const void* x, const void* res, void* y,
+                                  void* mask, long long n, const void* seed,
+                                  unsigned int thresh, float scale, int dtype,
+                                  void* stream) {
+  if (res == nullptr)
+    return launch_typed<kForward, true>(dtype, x, nullptr, y, mask, n,
+                                        RoundKeys{}, seed, thresh, scale,
+                                        stream);
+  return launch_typed<kForwardRes, true>(dtype, x, res, y, mask, n,
+                                         RoundKeys{}, seed, thresh, scale,
+                                         stream);
 }
 
 // Backward: reads dy (n,) and the saved mask (n,); writes
@@ -311,6 +351,6 @@ extern "C" int mx_dropout_bwd(const void* dy, const void* mask, void* dx,
                               long long n, float scale, int dtype,
                               void* stream) {
   return launch_typed<kBackward>(dtype, dy, nullptr, dx,
-                                 const_cast<void*>(mask), n, RoundKeys{}, 0u,
-                                 scale, stream);
+                                 const_cast<void*>(mask), n, RoundKeys{},
+                                 nullptr, 0u, scale, stream);
 }

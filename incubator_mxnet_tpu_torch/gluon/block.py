@@ -10,14 +10,16 @@ across packages by name (`convert.load_jax_params`).
 
 Calling a block follows `autograd`'s recording flag: outside
 ``autograd.record()`` the forward runs under `torch.no_grad` and builds
-no graph.  A hybridized block's inference call replays a captured
-program (`HybridBlock.hybridize`).
+no graph.  A hybridized block's call replays captured programs, its
+inference forward and, under ``record()``, its recorded forward and
+backward (`HybridBlock.hybridize`).
 """
 from __future__ import annotations
 
 import itertools
 import os
 import re
+import weakref
 from collections import OrderedDict
 from typing import Optional
 
@@ -26,7 +28,7 @@ from torch import nn
 
 from .. import _graphs, autograd
 from ..base import MXNetError
-from .parameter import ParameterDict, new_parameter
+from .parameter import Parameter, ParameterDict, new_parameter
 
 # per-block LRU cap of captured programs, one per input signature (the
 # JAX package's aval-spec cache cap)
@@ -66,11 +68,15 @@ class Block(nn.Module):
     # hybridized (`HybridBlock.hybridize`), and its captured programs
     _hybrid = False
     _graph_cache = None
+    # a weak reference to the output of the recorded call awaiting its
+    # backward (`_call_recorded`)
+    _recorded_pending = None
 
     def __call__(self, *args, **kwargs):
-        if self._hybrid and not autograd.is_recording() \
-                and not _graphs.in_body():
-            return self._call_cached_op(args, kwargs)
+        if self._hybrid and not _graphs.in_body():
+            if not autograd.is_recording():
+                return self._call_cached_op(args, kwargs)
+            return self._call_recorded(args, kwargs)
         if torch.is_grad_enabled() and not autograd.is_recording():
             with torch.no_grad():
                 return super().__call__(*args, **kwargs)
@@ -100,6 +106,9 @@ class Block(nn.Module):
         keeps them.  Each parameter's ``_casts`` counts the casts, so a
         cache keyed on it (the int8 decode copies) sees a round trip
         whose new storage reuses the old address."""
+        for p in self.parameters():
+            if isinstance(p, Parameter):
+                p._grad_consumed = False    # a cast reads every gradient
         self.to(dtype=getattr(torch, dtype)
                 if isinstance(dtype, str) else dtype)
         for p in self.parameters():
@@ -121,36 +130,79 @@ class Block(nn.Module):
         """Drop every captured program of this block."""
         self._graph_cache = OrderedDict()
 
+    def _key(self, args, kwargs, *flags):
+        """A program's key: the input signature (shapes, dtypes, device,
+        the other arguments), the training flag and ``flags``."""
+        return (tuple(_arg_key(a) for a in args),
+                tuple((k, _arg_key(v)) for k, v in sorted(kwargs.items())),
+                autograd.is_training()) + flags
+
+    def _cached(self, key, make):
+        cache = self._graph_cache
+        if cache is None:
+            cache = self._graph_cache = OrderedDict()
+        entry = _lru_hit(cache, key)
+        if entry is None:
+            entry = _lru_store(cache, key, make(), _AVAL_CACHE_CAP)
+        return entry
+
+    def _sig(self):
+        """What a program reads besides its inputs: the weights' and
+        buffers' addresses and dtypes."""
+        return tuple((t.data_ptr(), t.dtype) for t in
+                     itertools.chain(self.parameters(), self.buffers()))
+
     def _call_cached_op(self, args, kwargs):
         """The hybridized inference call: the program for this input
         signature (shapes, dtypes, device, the other arguments, the
         training flag), from the block's LRU, replayed; outputs are
-        copies, since the next replay overwrites the program's."""
-        key = (tuple(_arg_key(a) for a in args),
-               tuple((k, _arg_key(v)) for k, v in sorted(kwargs.items())),
-               autograd.is_training())
-        cache = self._graph_cache
-        if cache is None:
-            cache = self._graph_cache = OrderedDict()
-        prog = _lru_hit(cache, key)
-        if prog is None:
-            prog = _lru_store(cache, key, self._program(args, kwargs),
-                              _AVAL_CACHE_CAP)
-        inputs = {f"a{i}": a for i, a in enumerate(args)
-                  if isinstance(a, torch.Tensor)}
-        inputs.update((f"k_{k}", v) for k, v in kwargs.items()
-                      if isinstance(v, torch.Tensor))
-        sig = tuple((t.data_ptr(), t.dtype) for t in
-                    itertools.chain(self.parameters(), self.buffers()))
+        copies on every device, since the next run overwrites the
+        program's (and on the CPU an output may be a view of its static
+        input)."""
+        prog = self._cached(self._key(args, kwargs),
+                            lambda: self._program(args, kwargs))
         with prog.lock, torch.no_grad():
-            out = prog.run(sig, **inputs)
-            if self._graph_pool.device.type == "cuda":
-                out = tuple(t.clone() for t in out)
+            out = prog.run(self._sig(), **_inputs(args, kwargs))
+            out = tuple(t.clone() for t in out)
         return out[0] if prog.single else out
 
-    def _program(self, args, kwargs):
+    def _call_recorded(self, args, kwargs):
+        """The hybridized call under ``record()``: `_Recorded`'s forward
+        program for this signature, its outputs copies tied to the
+        autograd graph by one `_RecordedFn` node whose backward replays
+        the backward program.  Raises `MXNetError` while the output of
+        an earlier recorded call of this block is alive and awaits its
+        backward: the forward's replay would overwrite the activations
+        that backward reads."""
+        if self._recorded_pending is not None \
+                and self._recorded_pending() is not None:
+            raise MXNetError(
+                f"a hybridized {type(self).__name__} was called under "
+                f"autograd.record() while the output of its previous "
+                f"recorded call awaits backward(): its program's next run "
+                f"would overwrite the activations that backward reads; "
+                f"call backward() (or drop that output) first, or call "
+                f"the block outside record() or under autograd.pause()")
+        need = tuple(i for i, a in enumerate(args)
+                     if isinstance(a, torch.Tensor) and a.requires_grad)
+        need_kw = tuple(sorted(k for k, v in kwargs.items()
+                               if isinstance(v, torch.Tensor)
+                               and v.requires_grad))
+        targets = tuple(p.requires_grad for p in self.parameters())
+        rec = self._cached(
+            self._key(args, kwargs, "record", need, need_kw, targets),
+            lambda: _Recorded(self, args, kwargs, need, need_kw))
+        grad_in = [args[i] for i in need] + [kwargs[k] for k in need_kw]
+        with rec.fwd.lock:
+            out = _RecordedFn.apply(rec.anchor, rec, self._sig(),
+                                    _inputs(args, kwargs), *grad_in)
+        self._recorded_pending = weakref.ref(out[0])
+        return out[0] if rec.fwd.single else out
+
+    def _program(self, args, kwargs, name="raw_fn", need=(), need_kw=()):
         """A `_graphs.Program` running ``forward`` on static copies of
-        the tensor arguments (the others fixed by the signature)."""
+        the tensor arguments (the others fixed by the signature); the
+        static copies at ``need`` and ``need_kw`` require a gradient."""
         dev = next((a.device for a in itertools.chain(args, kwargs.values())
                     if isinstance(a, torch.Tensor)), None)
         if dev is None:
@@ -163,7 +215,11 @@ class Block(nn.Module):
         fixed_kw = {k: v for k, v in kwargs.items()
                     if not isinstance(v, torch.Tensor)}
 
+        grad_keys = [f"a{i}" for i in need] + [f"k_{k}" for k in need_kw]
+
         def raw_fn(**static):
+            for k in grad_keys:
+                static[k].requires_grad_(True)
             call = [static[f"a{i}"] if a is None and f"a{i}" in static
                     else a for i, a in enumerate(fixed)]
             kw = dict(fixed_kw)
@@ -179,32 +235,161 @@ class Block(nn.Module):
             raise MXNetError(f"a hybridized {type(self).__name__} must "
                              f"return a tensor or a tuple of tensors")
 
-        prog = _graphs.Program("raw_fn", raw_fn, pool)
+        prog = _graphs.Program(name, raw_fn, pool)
         prog.single = False             # forward returns one tensor
+        prog.grad_keys = grad_keys
         return prog
+
+
+def _inputs(args, kwargs) -> dict:
+    """A program's tensor inputs by name: ``a<i>`` for positional,
+    ``k_<name>`` for keyword arguments."""
+    inputs = {f"a{i}": a for i, a in enumerate(args)
+              if isinstance(a, torch.Tensor)}
+    inputs.update((f"k_{k}", v) for k, v in kwargs.items()
+                  if isinstance(v, torch.Tensor))
+    return inputs
+
+
+class _Recorded:
+    """A hybridized block's recorded call for one signature: program F
+    (``fwd_record``), the forward captured with autograd on, so its
+    activations, saved tensors and dropout masks live in the block's
+    graph pool; and program B (``bwd_record``), the backward over F's
+    autograd graph from static head gradients into static gradient
+    buffers (the pattern of `torch.cuda.make_graphed_callables`).
+
+    B differentiates the outputs of the F run it follows: the warm-up's
+    graph when F was just captured (the first call's result), the
+    eager body's outside graphs, and F's captured graph when it records
+    itself, which it keeps (``retain_graph``) so that memory stays the
+    activations' for every replay.  Parameter gradients stay in B's
+    buffers (`Parameter.set_program_grad`): no copy through torch's
+    gradient accumulation; ``grad_req="add"`` parameters add them in
+    with one foreach add."""
+
+    def __init__(self, block, args, kwargs, need, need_kw):
+        self.block = block
+        self.fwd = block._program(args, kwargs, "fwd_record", need, need_kw)
+        self.params = [p for p in block.parameters() if p.requires_grad]
+        self.bwd = None
+        self.pending = None         # the outputs B differentiates next
+        self.used = None            # which targets the backward reaches
+        # the leaf that ties the outputs to the autograd graph; its own
+        # gradient is never written
+        self.anchor = torch.empty(0, device=self.fwd.device,
+                                  requires_grad=True)
+
+    def backward_program(self):
+        """B, made at the first backward: its static inputs are one head
+        gradient for each output of F."""
+        if self.bwd is not None:
+            return self.bwd
+        fwd = self.fwd
+
+        def bwd_record(**cot):
+            outs = fwd.captured_outputs if _graphs.capturing() \
+                else self.pending
+            heads = [(o, cot[f"c{i}"]) for i, o in enumerate(outs)
+                     if o.requires_grad]
+            inputs = [fwd.static_inputs[k] for k in fwd.grad_keys]
+            grads = torch.autograd.grad(
+                [o for o, _ in heads], self.params + inputs,
+                grad_outputs=[c for _, c in heads], allow_unused=True,
+                retain_graph=outs is fwd.captured_outputs)
+            used = tuple(g is not None for g in grads)
+            if self.used is None:
+                self.used = used
+            elif used != self.used:
+                raise MXNetError("a recorded backward reached other "
+                                 "parameters than its first run")
+            return tuple(g for g in grads if g is not None)
+
+        self.bwd = _graphs.Program("bwd_record", bwd_record, fwd._pool,
+                                   static_out=True)
+        return self.bwd
+
+
+class _RecordedFn(torch.autograd.Function):
+    """One node for a hybridized block's recorded call: the forward runs
+    F and returns copies of its outputs; the backward stages the head
+    gradients (zeros for an output without one), runs B, leaves the
+    parameters' gradients in B's buffers and returns the inputs'."""
+
+    @staticmethod
+    def forward(ctx, anchor, rec, sig, inputs, *grad_in):
+        with torch.enable_grad():
+            outs = rec.fwd.run(sig, **inputs)
+        rec.pending = outs
+        ctx.rec, ctx.sig = rec, sig
+        ctx.shapes = [(o.shape, o.dtype, o.device) for o in outs]
+        return tuple(o.detach().clone() for o in outs)
+
+    @staticmethod
+    def backward(ctx, *heads):
+        rec = ctx.rec
+        bwd = rec.backward_program()
+        cot = {f"c{i}": h if h is not None else
+               torch.zeros(s, dtype=dt, device=dev)
+               for i, (h, (s, dt, dev)) in enumerate(zip(heads, ctx.shapes))}
+        with bwd.lock:
+            grads = bwd.run(ctx.sig, **cot)
+        rec.pending = None
+        rec.block._recorded_pending = None
+        it = iter(grads)
+        got = [next(it) if u else None for u in rec.used]
+        n_p = len(rec.params)
+        adds = []
+        for p, g in zip(rec.params, got[:n_p]):
+            if g is None:
+                continue
+            if isinstance(p, Parameter) and p._req == "write":
+                p.set_program_grad(g, bwd.pool)
+            else:
+                adds.append((p, g))
+        _accumulate(adds)
+        return (None, None, None, None) + tuple(
+            None if g is None else g.clone() for g in got[n_p:])
+
+
+def _accumulate(pairs) -> None:
+    """``grad_req="add"``: add each program gradient into the
+    parameter's own, with one foreach add."""
+    have = [(p, g) for p, g in pairs if p.grad is not None]
+    if have:
+        torch._foreach_add_([p.grad for p, _ in have], [g for _, g in have])
+    for p, g in pairs:
+        if p.grad is None:
+            p.grad = g.clone()
 
 
 class HybridBlock(Block):
     """Gluon's hybridizable block; see `HybridBlock.hybridize`."""
 
     def hybridize(self, active: bool = True, **kwargs) -> "HybridBlock":
-        """Capture this block's inference forward (the JAX package's
-        `jax.jit` cache, its CachedOp).  Recurses into the children and
-        drops every program captured before; ``cast`` drops them too.
+        """Capture this block's forward and, under ``autograd.record()``,
+        its backward (the JAX package's `jax.jit` cache, its CachedOp).
+        Recurses into the children and drops every program captured
+        before; ``cast`` drops them too.
 
-        Hybridized, a call outside ``autograd.record()`` runs a
-        `_graphs.Program` keyed on its input signature (shapes, dtypes,
-        device, the non-tensor arguments and the training flag), from an
-        LRU of 64 per block: on CUDA the program is captured into a CUDA
-        graph at its first call and replayed after that; on the CPU it
-        runs eagerly on the same static buffers.  The children run
-        inside the captured forward, not as programs of their own.
-        Under ``record()`` the forward stays eager (captured training
-        needs the dropout seed on the card first).  A forward that would
-        draw a dropout mask inside a program (train mode without
-        ``record()``) raises instead of fixing one mask for every
-        replay.  ``kwargs`` (static_alloc, static_shape, ...) are
-        accepted for Gluon's signature."""
+        Hybridized, a call runs `_graphs.Program`s keyed on its input
+        signature (shapes, dtypes, device, the non-tensor arguments and
+        the training flag), from an LRU of 64 per block: on CUDA each is
+        captured into a CUDA graph at its first call and replayed after
+        that; on the CPU it runs eagerly on the same static buffers.
+        Outside ``record()`` that is the forward alone; under it, the
+        recorded forward and, at ``backward()``, the backward over it,
+        which leaves the parameters' gradients in static buffers that
+        the Trainer's update reads (`_Recorded`), and which returns the
+        gradients of tensor inputs that require one.  A recorded call
+        while the previous one's output awaits its backward raises.  The
+        children run inside the captured programs, not as programs of
+        their own.  Dropout in train mode (under ``record()`` or in
+        ``autograd.train_mode()``) draws its seeds from the program's
+        seed table, staged before every run: a fresh mask each call, the
+        masks of the eager forward for the same ``random.seed``.
+        ``kwargs`` (static_alloc, static_shape, ...) are accepted for
+        Gluon's signature."""
         self._hybrid = bool(active)
         self._invalidate_cached_program()
         super().hybridize(active, **kwargs)

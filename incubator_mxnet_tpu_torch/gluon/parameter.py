@@ -14,6 +14,16 @@ touch no gradient but their own.  (`torch.autograd.grad`, which stores
 no gradient, runs the hook too; the port's API never calls it on a
 parameter.)
 
+A hybridized block's recorded backward (`gluon.block`) does not go
+through torch's gradient accumulation: it leaves each ``"write"``
+parameter's gradient in its captured program's static buffer (the
+parameter's ``_grad_src``), which the Trainer's update reads in place.
+Reading ``p.grad`` then gives a copy of that buffer, made at the first
+read after the backward, so a gradient held by Python never changes
+under a later replay.  After a ``Trainer(..., keep_grads=False)`` step
+has consumed such a gradient, reading it raises `MXNetError`, as the
+JAX package's never-materialized gradient does.
+
 Parameters are allocated when their block is built (no deferred
 shapes: every port layer is given its input width) and filled by
 ``initialize()``.
@@ -32,14 +42,27 @@ from ..base import MXNetError
 __all__ = ["Parameter", "ParameterDict", "new_parameter"]
 
 _REQS = ("write", "add", "null")
+_grad = torch.Tensor.grad           # torch's own gradient slot
+
+
+def _grads_not_kept():
+    raise MXNetError(
+        "This gradient was consumed inside a fused Trainer step and never "
+        "materialized (Trainer(..., keep_grads=False)). Construct the "
+        "Trainer with keep_grads=True to read p.grad() after step().")
 
 
 def _write_hook(ref, grad):
     """Before torch adds ``grad`` to the parameter's gradient: under
-    ``"write"``, drop the old gradient so that ``grad`` replaces it."""
+    ``"write"``, drop the old gradient so that ``grad`` replaces it; a
+    recorded program's gradient is replaced too."""
     p = ref()
-    if p is not None and p._req == "write" and p.grad is not None:
-        p.grad = None
+    if p is None:
+        return
+    p._grad_src = None
+    p._grad_consumed = False
+    if p._req == "write" and _grad.__get__(p) is not None:
+        _grad.__set__(p, None)
 
 
 class Parameter(nn.Parameter):
@@ -50,6 +73,9 @@ class Parameter(nn.Parameter):
         p = super().__new__(cls, data, requires_grad=True)
         p._req = "add" if grad_req == "add" else "write"
         p._initialized = False
+        p._grad_src = None          # a recorded program's gradient buffer
+        p._grad_pool = None         # and that program's graph pool
+        p._grad_consumed = False    # taken by a keep_grads=False step
         # a weak reference: the hook must not keep its parameter alive.
         # torch takes hooks only while the tensor requires grad, and
         # keeps them when grad_req turns it off and on again
@@ -69,6 +95,52 @@ class Parameter(nn.Parameter):
         with torch.no_grad():
             self.copy_(src.to(device=self.device, dtype=self.dtype))
         self._initialized = True
+
+    @property
+    def grad(self):
+        """The gradient (torch's ``.grad``); after a recorded program's
+        backward, a copy of its gradient buffer (made once)."""
+        src = self._grad_src
+        if src is not None and _grad.__get__(self) is None:
+            _grad.__set__(self, src.detach().clone())
+        g = _grad.__get__(self)
+        if g is None and self._grad_consumed:
+            _grads_not_kept()
+        return g
+
+    @grad.setter
+    def grad(self, value) -> None:
+        self._grad_src = None
+        self._grad_consumed = False
+        _grad.__set__(self, value)
+
+    def set_program_grad(self, buf, pool=None) -> None:
+        """A recorded program's backward left this parameter's gradient
+        in ``buf`` (its static buffer; ``pool`` that program's graph
+        pool, which an update reading ``buf`` may share): it replaces
+        the gradient."""
+        _grad.__set__(self, None)
+        self._grad_consumed = False
+        self._grad_src = buf
+        self._grad_pool = pool
+
+    def take_grad(self):
+        """The gradient an update reads, without copying: the program's
+        buffer, else torch's gradient (None when there is none)."""
+        g = _grad.__get__(self)
+        return self._grad_src if g is None else g
+
+    def consume_grad(self, keep: bool) -> None:
+        """After an update read the gradient: with ``keep`` a copy that
+        outlives the next backward, else gone (a program's gradient then
+        raises on reading, as in the JAX package)."""
+        if keep:
+            self.grad      # materialize the program's buffer
+            self._grad_src = None
+        else:
+            self._grad_consumed = self._grad_src is not None
+            self._grad_src = None
+            _grad.__set__(self, None)
 
     @property
     def grad_req(self) -> str:
@@ -110,6 +182,8 @@ class ParameterDict(dict):
 
     def zero_grad(self) -> None:
         for p in self.values():
+            if isinstance(p, Parameter) and p._grad_consumed:
+                continue
             if p.grad is not None:
                 p.grad.zero_()
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .. import _graphs, autograd
+from .. import autograd
 from .. import random as _random
 from ..base import MXNetError
 from ..ops.dropout_kernel import fused_dropout, fused_dropout_add
@@ -91,14 +91,15 @@ def Dropout(data, p: float = 0.5, axes=()):
     """Dropout with the port's keep-mask kernel, active in `autograd`'s
     train mode (on inside ``record()``, off outside), not by
     `torch.nn.Module.training`.  Each active call draws a fresh seed
-    from `random.next_seed`.  The ``axes`` (shared-mask) form is not
-    ported."""
+    from `random.next_seed`: a Python int passed by value, or inside a
+    captured program's body a slot of its seed table, which the `_dev`
+    kernels read on the card, so each replay draws a fresh mask.  The
+    ``axes`` (shared-mask) form is not ported."""
     if axes:
         raise MXNetError("Dropout with axes (a mask shared along axes) is "
                          "not ported")
     if not (autograd.is_training() and p > 0.0):
         return data
-    _refuse_in_program()
     return fused_dropout(data, _random.next_seed(), float(p))
 
 
@@ -107,16 +108,4 @@ def DropoutAdd(data, residual, p: float = 0.5):
     `Dropout`; the plain sum when dropout is inactive."""
     if not (autograd.is_training() and p > 0.0):
         return data + residual
-    _refuse_in_program()
     return fused_dropout_add(data, residual, _random.next_seed(), float(p))
-
-
-def _refuse_in_program() -> None:
-    """An active dropout inside a captured program would replay one
-    mask forever: its seed is drawn on the host and passed by value."""
-    if _graphs.in_body():
-        raise MXNetError(
-            "dropout in train mode inside a captured program (a hybridized "
-            "block called in train mode outside autograd.record()): the "
-            "mask's seed is fixed at capture; call it under record() or in "
-            "predict mode")

@@ -18,6 +18,14 @@ entry points, each with its plain PyTorch version:
 * `dropout_bwd` — ``where(mask, dy, 0) * scale`` (``mx_dropout_bwd``);
   plain version `dropout_bwd_reference`.
 
+The mask and the forward also take their seed from device memory:
+`dropout_mask_dev` (``mx_dropout_mask_dev``) and `dropout_fwd_dev`
+(``mx_dropout_fwd_dev``) take an int64 tensor of one element on the
+card, a slot of the seed table a captured program stages before each
+replay (`random.next_seed` inside a program body), so each replay draws
+a fresh mask; the plain versions take the same tensor.  Eager dropout
+outside a program passes its seed by value and copies nothing.
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain version for CPU tensors.  `fused_dropout` and
 `fused_dropout_add` on CUDA tensors run `_DropoutApply`, an autograd
@@ -43,7 +51,8 @@ from .. import _build, _graphs
 from ..base import MXNetError
 
 __all__ = ["fused_dropout", "fused_dropout_add", "dropout_mask",
-           "dropout_fwd", "dropout_bwd", "dropout_fwd_reference",
+           "dropout_fwd", "dropout_bwd", "dropout_mask_dev",
+           "dropout_fwd_dev", "dropout_fwd_reference",
            "dropout_bwd_reference", "mask_reference", "philox4x32_10",
            "threshold"]
 
@@ -60,6 +69,9 @@ _ARGTYPES = {
                        ctypes.c_int, _P],
     "mx_dropout_bwd": [_P, _P, _P, ctypes.c_longlong, ctypes.c_float,
                        ctypes.c_int, _P],
+    "mx_dropout_mask_dev": [_P, ctypes.c_longlong, _P, ctypes.c_uint, _P],
+    "mx_dropout_fwd_dev": [_P, _P, _P, _P, ctypes.c_longlong, _P,
+                           ctypes.c_uint, ctypes.c_float, ctypes.c_int, _P],
 }
 _bound: dict = {}                         # entry name -> (library, function)
 
@@ -95,12 +107,18 @@ def philox4x32_10(ctr, key):
     return c0, c1, c2, c3
 
 
-def mask_reference(numel: int, seed: int, rate: float,
+def mask_reference(numel: int, seed, rate: float,
                    device=None) -> torch.Tensor:
-    """The keep-mask, uint8 (numel,), computed with tensor ops."""
+    """The keep-mask, uint8 (numel,), computed with tensor ops.  ``seed``
+    is an int or an int64 tensor of one element holding a seed in
+    [0, 2**63) (a seed-table slot; read on its device, never on the
+    host, so a capture records the read)."""
     t = torch.arange((numel + 3) // 4, dtype=torch.int64, device=device)
     zero = torch.zeros_like(t)
-    seed = int(seed) & ((1 << 64) - 1)
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(()).to(t.device)
+    else:
+        seed = int(seed) & ((1 << 64) - 1)
     words = philox4x32_10((t & _U32, t >> 32, zero, zero),
                           (seed & _U32, seed >> 32))
     bits = torch.stack(words, dim=1).reshape(-1)[:numel]
@@ -118,9 +136,10 @@ def _apply_mask(x, mask, rate):
     return torch.where(mask.view(torch.bool), x * _scale(rate, x.dtype), 0.0)
 
 
-def dropout_fwd_reference(x, res, seed: int, rate: float):
+def dropout_fwd_reference(x, res, seed, rate: float):
     """Plain version of the fused forward: (``[res +] where(keep,
-    x * scale, 0)``, the uint8 keep-mask shaped like ``x``)."""
+    x * scale, 0)``, the uint8 keep-mask shaped like ``x``); ``seed`` an
+    int or a seed-table slot, as `mask_reference` takes it."""
     mask = mask_reference(x.numel(), seed, rate, device=x.device)
     mask = mask.view(x.shape)
     y = _apply_mask(x, mask, rate)
@@ -158,15 +177,34 @@ def _seed64(seed: int) -> int:
     return int(seed) & ((1 << 64) - 1)
 
 
-def _mask_cuda(numel: int, seed: int, rate: float, device) -> torch.Tensor:
-    """Launch ``mx_dropout_mask``: the keep-mask, uint8 (numel,)."""
+def _seed_slot(seed: torch.Tensor, device) -> torch.Tensor:
+    """A seed in device memory, checked: one int64 on ``device``."""
+    if seed.dtype != torch.int64 or seed.numel() != 1 \
+            or seed.device != torch.device(device):
+        raise MXNetError(f"dropout: a device seed is one int64 on {device}, "
+                         f"got {tuple(seed.shape)} {seed.dtype} on "
+                         f"{seed.device}")
+    return seed
+
+
+def _mask_cuda(numel: int, seed, rate: float, device) -> torch.Tensor:
+    """Launch ``mx_dropout_mask`` (an int seed) or ``mx_dropout_mask_dev``
+    (a seed in device memory): the keep-mask, uint8 (numel,)."""
     mask = torch.empty(numel, dtype=torch.uint8, device=device)
     if numel == 0:
         return mask
-    err = _entry("mx_dropout_mask")(mask.data_ptr(), numel, _seed64(seed),
-                                    threshold(rate), _build.stream(device))
+    if isinstance(seed, torch.Tensor):
+        err = _entry("mx_dropout_mask_dev")(
+            mask.data_ptr(), numel, _seed_slot(seed, device).data_ptr(),
+            threshold(rate), _build.stream(device))
+        fn = dropout_mask_dev
+    else:
+        err = _entry("mx_dropout_mask")(mask.data_ptr(), numel,
+                                        _seed64(seed), threshold(rate),
+                                        _build.stream(device))
+        fn = dropout_mask
     _raise_on(err, "mask")
-    _graphs.note_launch(dropout_mask)
+    _graphs.note_launch(fn)
     return mask
 
 
@@ -189,8 +227,9 @@ def _dtype_code(t: torch.Tensor) -> int:
     return code
 
 
-def _fwd_cuda(x, res, seed: int, rate: float):
-    """Launch ``mx_dropout_fwd``: (y, uint8 mask), both shaped like x."""
+def _fwd_cuda(x, res, seed, rate: float):
+    """Launch ``mx_dropout_fwd`` (an int seed) or ``mx_dropout_fwd_dev``
+    (a seed in device memory): (y, uint8 mask), both shaped like x."""
     code = _dtype_code(x)
     x = x.contiguous()
     if res is not None:
@@ -199,12 +238,15 @@ def _fwd_cuda(x, res, seed: int, rate: float):
     mask = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     if x.numel() == 0:
         return y, mask
-    err = _entry("mx_dropout_fwd")(
+    dev = isinstance(seed, torch.Tensor)
+    err = _entry("mx_dropout_fwd_dev" if dev else "mx_dropout_fwd")(
         x.data_ptr(), None if res is None else res.data_ptr(), y.data_ptr(),
-        mask.data_ptr(), x.numel(), _seed64(seed), threshold(rate),
-        _scale(rate, x.dtype), code, _build.stream(x.device))
+        mask.data_ptr(), x.numel(),
+        _seed_slot(seed, x.device).data_ptr() if dev else _seed64(seed),
+        threshold(rate), _scale(rate, x.dtype), code,
+        _build.stream(x.device))
     _raise_on(err, "forward")
-    _graphs.note_launch(dropout_fwd)
+    _graphs.note_launch(dropout_fwd_dev if dev else dropout_fwd)
     return y, mask
 
 
@@ -242,15 +284,37 @@ def dropout_mask(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     """The uint8 keep-mask for ``x`` (same shape; a function of seed,
     numel and rate only)."""
     if _on_cuda(x):
-        m = _mask_cuda(x.numel(), seed, rate, x.device)
+        m = _mask_cuda(x.numel(), int(seed), rate, x.device)
     else:
         m = mask_reference(x.numel(), seed, rate)
+    return m.view(x.shape)
+
+
+def dropout_mask_dev(x: torch.Tensor, seed: torch.Tensor,
+                     rate: float) -> torch.Tensor:
+    """`dropout_mask` with the seed read from device memory: ``seed`` an
+    int64 tensor of one element on x's device; the same bits as
+    ``dropout_mask(x, int(seed), rate)``."""
+    if _on_cuda(x):
+        m = _mask_cuda(x.numel(), _seed_slot(seed, x.device), rate, x.device)
+    else:
+        m = mask_reference(x.numel(), _seed_slot(seed, x.device), rate)
     return m.view(x.shape)
 
 
 def dropout_fwd(x, res, seed: int, rate: float):
     """(``[res +] where(keep, x * scale, 0)``, uint8 keep-mask) in one
     pass; ``res`` may be None."""
+    if _on_cuda(x):
+        return _fwd_cuda(x, res, int(seed), rate)
+    return dropout_fwd_reference(x, res, seed, rate)
+
+
+def dropout_fwd_dev(x, res, seed: torch.Tensor, rate: float):
+    """`dropout_fwd` with the seed read from device memory (``seed`` as
+    `dropout_mask_dev` takes it); the same bits as ``dropout_fwd(x, res,
+    int(seed), rate)``."""
+    seed = _seed_slot(seed, x.device)
     if _on_cuda(x):
         return _fwd_cuda(x, res, seed, rate)
     return dropout_fwd_reference(x, res, seed, rate)
@@ -267,6 +331,18 @@ def dropout_bwd(dy, mask, rate: float):
 dropout_mask.launches = 0
 dropout_fwd.launches = 0
 dropout_bwd.launches = 0
+dropout_mask_dev.launches = 0
+dropout_fwd_dev.launches = 0
+
+
+def _fwd_of(seed):
+    """The forward wrapper for ``seed``: by value, or in device memory."""
+    return dropout_fwd_dev if isinstance(seed, torch.Tensor) else dropout_fwd
+
+
+def _mask_of(seed):
+    return dropout_mask_dev if isinstance(seed, torch.Tensor) \
+        else dropout_mask
 
 
 class _DropoutApply(torch.autograd.Function):
@@ -276,7 +352,7 @@ class _DropoutApply(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, res, seed, rate):
-        y, mask = dropout_fwd(x, res, seed, rate)
+        y, mask = _fwd_of(seed)(x, res, seed, rate)
         ctx.save_for_backward(mask)
         ctx.rate = rate
         return y
@@ -289,20 +365,21 @@ class _DropoutApply(torch.autograd.Function):
         return dx, dy if ctx.needs_input_grad[1] else None, None, None
 
 
-def fused_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """Dropout of ``x`` with the mask of (``seed``, numel, ``rate``).
-    rate >= 1 gives zeros; rate <= 0 or an empty ``x`` gives ``x``; no
-    mask is drawn in either case."""
+def fused_dropout(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
+    """Dropout of ``x`` with the mask of (``seed``, numel, ``rate``);
+    ``seed`` an int or a seed-table slot on x's device (inside a
+    captured program).  rate >= 1 gives zeros; rate <= 0 or an empty
+    ``x`` gives ``x``; no mask is drawn in either case."""
     if rate >= 1.0:
         return torch.zeros_like(x)
     if rate <= 0.0 or x.numel() == 0:
         return x
     if _on_cuda(x):
         return _DropoutApply.apply(x, None, seed, rate)
-    return _apply_mask(x, dropout_mask(x, seed, rate), rate)
+    return _apply_mask(x, _mask_of(seed)(x, seed, rate), rate)
 
 
-def fused_dropout_add(x, res, seed: int, rate: float) -> torch.Tensor:
+def fused_dropout_add(x, res, seed, rate: float) -> torch.Tensor:
     """``res + dropout(x)`` — the transformer post-sublayer pattern, as
     ``res + fused_dropout(...)`` in the JAX package; on CUDA one kernel
     draws the mask, applies it and adds ``res``."""
@@ -310,4 +387,4 @@ def fused_dropout_add(x, res, seed: int, rate: float) -> torch.Tensor:
         return res + fused_dropout(x, seed, rate)
     if _on_cuda(x):
         return _DropoutApply.apply(x, res, seed, rate)
-    return res + _apply_mask(x, dropout_mask(x, seed, rate), rate)
+    return res + _apply_mask(x, _mask_of(seed)(x, seed, rate), rate)

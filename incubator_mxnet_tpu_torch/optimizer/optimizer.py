@@ -13,6 +13,17 @@ Updates are in place.
 Multi-precision (``multi_precision=True``) keeps an f32 master copy of
 each bf16/fp16 weight in its state, updates the master and writes it
 back rounded to the weight's dtype.
+
+The scalars of a rule (learning rate, gradient rescale, weight decay,
+momentum) come from ``hyper``: Python floats from the optimizer's
+attributes by default, or 0-d tensors on the weights' device that the
+Trainer's update program stages each step (`hyper_values`), as the JAX
+step passes ``lr``, ``wd`` and ``rescale`` as arguments — so a captured
+update reads this step's values and a new learning rate or batch size
+needs no new capture.  Which terms the rule has (a weight decay, a
+momentum, a clip) is fixed by `structure`, which keys the program.  Both
+give the same bits: every product with a scalar is taken in f32 and
+rounded once to the tensor's dtype (`_mul`).
 """
 from __future__ import annotations
 
@@ -27,6 +38,27 @@ __all__ = ["Optimizer", "SGD", "create", "register"]
 
 _REG: Dict[str, type] = {}
 _LOW = (torch.float16, torch.bfloat16)
+
+
+def _mul(xs, s) -> list:
+    """``[x * s for x in xs]``, each product taken in f32 (or wider) and
+    rounded once to the tensor's dtype, for a Python float ``s`` and a
+    tensor ``s`` alike.  torch's own foreach product on a bf16/fp16 list
+    may round ``s`` to the list's dtype first (a tensor ``s``; a float
+    ``s`` in place on the CPU), so such lists go through f32."""
+    if all(x.dtype not in _LOW for x in xs):
+        return torch._foreach_mul(xs, s)
+    out = torch._foreach_mul([x.float() if x.dtype in _LOW else x
+                              for x in xs], s)
+    return [o.to(x.dtype) for o, x in zip(out, xs)]
+
+
+def _mul_(xs, s) -> None:
+    """``x *= s`` for every tensor of ``xs``, as `_mul`."""
+    if all(x.dtype not in _LOW for x in xs):
+        torch._foreach_mul_(xs, s)
+    else:
+        torch._foreach_copy_(xs, _mul(xs, s))
 
 
 def register(cls):
@@ -47,7 +79,11 @@ def create(name, **kwargs) -> "Optimizer":
 
 class Optimizer:
     """Base optimizer: learning rate, weight decay, gradient rescale and
-    clipping, multi-precision state."""
+    clipping, multi-precision state.  ``num_update`` counts the steps
+    taken (`update_all` calls)."""
+
+    # the scalars a rule reads from ``hyper``, in `hyper_values` order
+    HYPER = ("lr", "rescale_grad", "wd")
 
     def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
                  learning_rate=0.01, lr_scheduler=None,
@@ -59,6 +95,33 @@ class Optimizer:
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.multi_precision = multi_precision
+        self.num_update = 0
+
+    @property
+    def learning_rate(self) -> float:
+        return self.lr
+
+    def set_learning_rate(self, lr) -> None:
+        self.lr = lr
+
+    def hyper_values(self) -> list:
+        """This step's scalars, in `HYPER` order."""
+        return [float(getattr(self, k)) for k in self.HYPER]
+
+    def _clip(self):
+        clip = self.clip_gradient
+        return None if clip is None or math.isinf(clip) else float(clip)
+
+    def structure(self) -> tuple:
+        """What the rule computes besides its scalars' values (which
+        terms it has, the clip bound): a captured update is keyed on
+        it."""
+        return (type(self), self.wd != 0.0, self._clip())
+
+    def _hyper(self, hyper):
+        """``hyper`` (name -> value), or the attributes as floats."""
+        return hyper if hyper is not None else dict(
+            zip(self.HYPER, self.hyper_values()))
 
     # -- state ---------------------------------------------------------- #
     def create_state(self, index, weight: torch.Tensor):
@@ -76,35 +139,36 @@ class Optimizer:
         return self.create_state(index, weight)
 
     # -- update --------------------------------------------------------- #
-    def _prep(self, grads: List[torch.Tensor],
-              weights: List[torch.Tensor]) -> List[torch.Tensor]:
+    def _prep(self, grads: List[torch.Tensor], weights: List[torch.Tensor],
+              hyper) -> List[torch.Tensor]:
         """``clip(g.astype(w) * rescale) + wd * w`` for every pair, in
         fresh f32 (or weight-dtype) tensors."""
         gs = [g.to(w.dtype, copy=True) for g, w in zip(grads, weights)]
-        if self.rescale_grad != 1.0:
-            torch._foreach_mul_(gs, float(self.rescale_grad))
-        clip = self.clip_gradient
-        if clip is not None and not math.isinf(clip):
-            torch._foreach_clamp_min_(gs, -float(clip))
-            torch._foreach_clamp_max_(gs, float(clip))
+        rescale = hyper["rescale_grad"]
+        if isinstance(rescale, torch.Tensor) or rescale != 1.0:
+            _mul_(gs, rescale)
+        clip = self._clip()
+        if clip is not None:
+            torch._foreach_clamp_min_(gs, -clip)
+            torch._foreach_clamp_max_(gs, clip)
         if self.wd != 0.0:
-            torch._foreach_add_(gs, torch._foreach_mul(weights,
-                                                       float(self.wd)))
+            torch._foreach_add_(gs, _mul(weights, hyper["wd"]))
         return gs
 
-    def update_many(self, weights, grads, states) -> None:
+    def update_many(self, weights, grads, states, hyper=None) -> None:
         """Update ``weights`` (and their states) in place from
-        ``grads``; one rule over lists."""
+        ``grads``; one rule over lists, its scalars from ``hyper``."""
         raise NotImplementedError
 
     @torch.no_grad()
-    def update_all(self, weights, grads, states) -> None:
+    def update_all(self, weights, grads, states, hyper=None) -> None:
         """One step over ``weights``: master weights here, the rule in
-        `update_many`."""
+        `update_many`; ``hyper`` maps `HYPER` to this step's scalars
+        (default: the attributes, as floats)."""
         mp = [self._mp(w) for w in weights]
         ws = [s[0] if m else w for w, s, m in zip(weights, states, mp)]
         ss = [s[1] if m else s for s, m in zip(states, mp)]
-        self.update_many(ws, grads, ss)
+        self.update_many(ws, grads, ss, self._hyper(hyper))
         low = [(w, s[0]) for w, s, m in zip(weights, states, mp) if m]
         if low:
             torch._foreach_copy_([w for w, _ in low], [m for _, m in low])
@@ -113,6 +177,7 @@ class Optimizer:
         """Reference API: one parameter, through its f32 master when
         `create_state_multi_precision` gave it one."""
         self.update_all([weight], [grad], [state])
+        self.num_update += 1
 
     def __repr__(self):
         return f"{type(self).__name__}(lr={self.lr})"
@@ -123,6 +188,8 @@ class SGD(Optimizer):
     """SGD with momentum: ``mom = momentum·mom - lr·g; w += mom``
     (``w -= lr·g`` without momentum), g as `Optimizer._prep` makes it."""
 
+    HYPER = Optimizer.HYPER + ("momentum",)
+
     def __init__(self, momentum=0.0, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
@@ -132,12 +199,16 @@ class SGD(Optimizer):
             return torch.zeros_like(weight)
         return None
 
-    def update_many(self, weights, grads, states):
-        gs = self._prep(grads, weights)
-        torch._foreach_mul_(gs, -float(self.lr))              # -lr·g
+    def structure(self) -> tuple:
+        return super().structure() + (self.momentum != 0.0,)
+
+    def update_many(self, weights, grads, states, hyper=None):
+        hyper = self._hyper(hyper)
+        gs = self._prep(grads, weights, hyper)
+        _mul_(gs, -hyper["lr"])                               # -lr·g
         if self.momentum == 0.0:
             torch._foreach_add_(weights, gs)
             return
-        torch._foreach_mul_(states, float(self.momentum))
+        _mul_(states, hyper["momentum"])
         torch._foreach_add_(states, gs)                       # new mom
         torch._foreach_add_(weights, states)

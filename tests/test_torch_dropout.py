@@ -363,6 +363,7 @@ _SHIM_RUNTIME = r"""
 #include <cstring>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__

@@ -210,6 +210,7 @@ def _launchers():
     scale = torch.ones((3, 2, 8))
     table = torch.ones((1, 2), dtype=torch.int32)
     pos = torch.full((1,), 9, dtype=torch.int32)
+    slot = torch.full((1,), 7, dtype=torch.int64)
     return {
         "paged": (lambda: pa._launch(pq, pool, pool, table, pos),
                   pa.paged_attention),
@@ -223,6 +224,11 @@ def _launchers():
         "dropout": (lambda: dk._mask_cuda(2400, 7, 0.1, x.device),
                     dk.dropout_mask),
         "dropout_fwd": (lambda: dk._fwd_cuda(x, x, 7, 0.1), dk.dropout_fwd),
+        "dropout_mask_dev": (lambda: dk._mask_cuda(2400, slot, 0.1,
+                                                   x.device),
+                             dk.dropout_mask_dev),
+        "dropout_fwd_dev": (lambda: dk._fwd_cuda(x, x, slot, 0.1),
+                            dk.dropout_fwd_dev),
         "dropout_bwd": (lambda: dk._bwd_cuda(
             x, torch.ones(x.shape, dtype=torch.uint8), 0.1), dk.dropout_bwd),
         "xent_forward": (lambda: xk._fwd_cuda(x, False), xk.xent_forward),
@@ -232,8 +238,9 @@ def _launchers():
     }
 
 
-KERNELS = ["dropout", "dropout_fwd", "dropout_bwd", "xent_forward",
-           "xent_backward", "flash_forward",
+KERNELS = ["dropout", "dropout_fwd", "dropout_bwd", "dropout_mask_dev",
+           "dropout_fwd_dev", "xent_forward", "xent_backward",
+           "flash_forward",
            "flash_dkdv", "flash_dq", "paged", "paged_q8"]
 
 
@@ -339,6 +346,7 @@ def test_chip_smoke_names_the_int8_paged_kernel():
                                   "flash_attention", "flash_bwd_dkdv",
                                   "flash_bwd_dq", "dropout_mask",
                                   "dropout_fwd", "dropout_bwd",
+                                  "dropout_mask_dev", "dropout_fwd_dev",
                                   "xent_forward", "xent_backward"])
 def test_chip_smoke_rows_point_at_pallas_calls(name):
     """Each kernel row's ``replaces`` names a line of the JAX package
