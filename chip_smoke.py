@@ -230,7 +230,44 @@ The captured training step (after phase 13):
    captured update's staged f32 scalars equal to ``fuse_step=False``
    bit for bit over three steps; whether torch's own foreach product
    with a Python float on the card agrees with the rule's f32 product
-   is printed).
+   is printed); and two recorded calls of a hybridized block before
+   one backward of their sum: a second set of programs captured, the
+   gradients of the block never hybridized bit for bit.
+
+The NMT family (after phase 13's long-context checks):
+
+26. NMT training — `transformer_big` (V=32000 shared, D=1024, FFN 4096,
+   H=16, 6+6 layers, dropout 0.1: 44 dropout sites a step) in bf16 over
+   f32 masters from seed 0, `NMTWithLoss` (label smoothing 0.1), Adam
+   (0.9, 0.98) under ``InvSqrtScheduler(4000)`` at d^-0.5, B=16 S=T=256,
+   half the rows' sources padded (``src_valid_length``) and their
+   targets ignored past it: three steps on CUDA graphs and three never
+   hybridized from ``random.seed(7)`` give the same losses, f32 masters
+   and Adam moments bit for bit; one capture of each program, then
+   replays; each step launches the device-seed dropout forward (by value
+   never hybridized) and the backward 44 times, the causal flash
+   forward, dK/dV and dQ 6 times and the smoothed cross-entropy forward
+   (with the row sum) and backward (eps 0.1) once; step time, target
+   tokens/s, MFU (train_transformer.py's 6·(N - N_embed) + 12·T·D·3L a
+   target token over 989 TFLOP/s), peak memory, one profiled step's
+   busy share and kernel time by name; then the flash kernels at the
+   decoder's causal (16, 16, 256, 64) and the smoothed cross-entropy at
+   (4096, 32000) bf16, at the step's inputs, held to their plain
+   versions and timed beside SDPA ``is_causal`` and
+   ``F.cross_entropy(label_smoothing=0.1)`` (forward and autograd
+   backward) and the bound;
+27. NMT parity — 2+2 layers at that width in f32, dropout 0, B=4
+   S=T=256: the hybridized step through the kernels against the same
+   step on the plain versions (loss within 1e-5 relative, every gradient
+   within 1e-4·|ref| + 1e-5·max|ref|), and greedy ``translate`` on the
+   programs equal to their eager bodies;
+28. NMT translation — phase 26's trained net in bf16: greedy (B=8,
+   S=128, max_len 128, no eos), beam (K=4 at B=2, alpha 0.6) and greedy
+   on the int8 decoder (`quantize_for_decode`), each a capturing call, a
+   second call of the same signature (replays, no capture) and the
+   eager bodies, tokens (and beam scores) equal; tok/s, captures and
+   replays of ``nmt_start`` and ``nmt_step``, the decode weight bytes
+   float and int8.
 
 The line before the last is a JSON object with every kernel's launches
 (summed over the main paths that ran it, launches inside graph replays
@@ -265,7 +302,10 @@ from incubator_mxnet_tpu_torch.gluon import HybridBlock, Trainer
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.gluon.nn import Dense
 from incubator_mxnet_tpu_torch.optimizer import optimizer as opt_mod
-from incubator_mxnet_tpu_torch.models import BERTForPretraining, TransformerLM
+from incubator_mxnet_tpu_torch.lr_scheduler import InvSqrtScheduler
+from incubator_mxnet_tpu_torch.models import (BERTForPretraining,
+                                              LabelSmoothedCELoss,
+                                              Transformer, TransformerLM)
 from incubator_mxnet_tpu_torch.models import generation as gen_mod
 from incubator_mxnet_tpu_torch.ops import flash_attention as _fa_fn
 from incubator_mxnet_tpu_torch.ops import paged_attention as _pa_fn
@@ -2693,6 +2733,21 @@ class PretrainWithLoss(HybridBlock):
         return mlm - nsp_logp[:, 0].mean()
 
 
+class NMTWithLoss(HybridBlock):
+    """examples/nlp/train_transformer.py's step: the Transformer's logits
+    for the shifted target, then the label-smoothed cross-entropy over
+    the rows whose label is not ``ignore_index`` (the streamed smoothed
+    cross-entropy kernels at a wide vocabulary)."""
+
+    def __init__(self, net, smoothing=0.1):
+        super().__init__()
+        self.net = net
+        self.loss = LabelSmoothedCELoss(smoothing)
+
+    def forward(self, src, tgt_in, tgt_out, src_valid_length):
+        return self.loss(self.net(src, tgt_in, src_valid_length), tgt_out)
+
+
 def _bert_batch(V, B, T, seed=0):
     g = torch.Generator().manual_seed(seed)
     tokens = torch.randint(0, V, (B, T), generator=g)
@@ -3117,6 +3172,475 @@ def check_train_step_edges(smi: str) -> dict:
         f"with a Python float equals the rule's f32 product: out of place "
         f"{agree[0]}, in place {agree[1]}")
     return {"captures": caps, "replays": reps, "float_product": agree}
+
+
+# ---------------------------------------------------------------- phase 26
+# BASELINE config #4: Transformer-big on WMT En-De as
+# examples/nlp/train_transformer.py trains it (bf16 over f32 masters,
+# Adam 0.9/0.98 under the inverse-sqrt schedule, label smoothing 0.1),
+# B=16 at T=256 (BASELINE.md, "Transformer-big train"); 6+6 layers,
+# nothing cut
+NMT = dict(src_vocab=32000, tgt_vocab=32000, units=1024, hidden_size=4096,
+           num_layers=6, num_heads=16)
+NMT_BATCH = (16, 256)
+NMT_SMOOTHING = 0.1
+# the Noam schedule's rate: d_model^-0.5 · min(t^-0.5, t · warmup^-1.5)
+NMT_ADAM = {"learning_rate": NMT["units"] ** -0.5, "beta1": 0.9,
+            "beta2": 0.98, "multi_precision": True}
+NMT_WARMUP = 4000
+
+
+def _nmt_model(cfg, dtype, seed, dropout=DROPOUT, hybrid=True):
+    """A Transformer from ``seed``, cast to ``dtype``, inside
+    `NMTWithLoss`, hybridized or not at all (the loss hybridizes itself
+    otherwise), and its Adam Trainer under a fresh inverse-sqrt
+    schedule."""
+    mx_random.seed(seed, device=DEV)
+    net = Transformer(**cfg, dropout=dropout, max_length=512, device=DEV)
+    net.initialize()
+    if dtype != torch.float32:
+        net.cast(dtype)
+    model = NMTWithLoss(net, NMT_SMOOTHING)
+    model.hybridize(hybrid)
+    trainer = Trainer(model.collect_params(), "adam", dict(
+        NMT_ADAM, lr_scheduler=InvSqrtScheduler(NMT_WARMUP)),
+        keep_grads=False)
+    return net, model, trainer
+
+
+def _nmt_batch(V, B, S, T, seed=0):
+    """Source, shifted target in and out, source lengths: half the rows
+    padded (length S/2..S-1, their targets ignored past it), on DEV."""
+    g = torch.Generator().manual_seed(seed)
+    src = torch.randint(1, V, (B, S), generator=g)
+    tgt = torch.randint(1, V, (B, T + 1), generator=g)
+    vl = torch.full((B,), S)
+    vl[:B // 2] = torch.randint(S // 2, S, (B // 2,), generator=g)
+    out = tgt[:, 1:].clone()
+    out[torch.arange(T)[None, :] >= vl[:, None]] = -1
+    return tuple(t.to(DEV) for t in (src, tgt[:, :-1].contiguous(), out, vl))
+
+
+def _nmt_per_step(L, hybridized=True) -> dict:
+    """Launches of each kernel in one NMT training step: 2 embedding
+    dropouts, 3 a encoder layer and 4 a decoder layer (the FFN's own
+    and the residual adds), each one fused forward and one backward;
+    the decoder's causal flash forward, dK/dV and dQ once a layer (the
+    encoder's self-attention is masked: torch ops); the smoothed
+    cross-entropy's forward and backward once."""
+    sites = 2 + 3 * L + 4 * L
+    return {"dropout_mask": 0, "dropout_mask_dev": 0,
+            "dropout_fwd": 0 if hybridized else sites,
+            "dropout_fwd_dev": sites if hybridized else 0,
+            "dropout_bwd": sites, "xent_forward": 1, "xent_backward": 1,
+            **{n: L for n in FLASH_KERNELS}}
+
+
+def _nmt_mfu(n_params, n_embed, T, dt, tokens):
+    """(tokens/s, MFU or None, flop a token): train_transformer.py's
+    count, 6·(N - N_embed) + 12·T·D·3L a target token (encoder and
+    decoder matmuls; encoder self, decoder self and cross attention),
+    over the H100 SXM's dense bf16 peak."""
+    fpt = 6 * (n_params - n_embed) \
+        + 12 * T * NMT["units"] * 3 * NMT["num_layers"]
+    tok_s = tokens / dt
+    name = torch.cuda.get_device_name(0)
+    peak = PEAK_FLOPS[torch.bfloat16] \
+        if "H100" in name and "PCIe" not in name else None
+    return tok_s, (tok_s * fpt / peak if peak else None), fpt
+
+
+def _nmt_run(mode, smi, rec=None):
+    """`transformer_big` bf16, seed 0, ``random.seed(7)``: three steps
+    of the NMT step on CUDA graphs (``graph``: the hybridized block's
+    recorded forward and backward, the Trainer's update program) or
+    never hybridized (``plain``), each step's launches held to
+    `_nmt_per_step`; then five timed steps and one profiled step.
+    Returns the losses, clones of the f32 masters and Adam moments after
+    step 3, the numbers, and for ``graph`` the trained net."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hybrid = mode == "graph"
+    t0 = time.perf_counter()
+    net, model, trainer = _nmt_model(NMT, torch.bfloat16, 0, hybrid=hybrid)
+    B, T = NMT_BATCH
+    src, tin, tout, vl = _nmt_batch(NMT["src_vocab"], B, T, T)
+    n_params = sum(p.numel() for p in net.collect_params().values()
+                   if p.grad_req != "null")
+    n_embed = net.src_embed.weight.numel()
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    per_step = _nmt_per_step(NMT["num_layers"], hybrid)
+
+    def step():
+        with autograd.record():
+            loss = model(src, tin, tout, vl)
+        loss.backward()
+        trainer.step(1)
+        return loss.detach()
+
+    def keep_first(key):
+        def keep(args, kw):
+            if rec is not None:
+                rec.setdefault(key, args)
+        return keep
+
+    out = {"mode": mode}
+    _zero_counts()
+    mx_random.seed(7, device=DEV)
+    with recording(xk_mod, "_fwd_cuda", keep_first("fwd")), \
+            recording(xk_mod, "_bwd_cuda", keep_first("bwd")), \
+            recording(fa_mod, "_flash_bwd_core", keep_first("flash_bwd")):
+        losses = []
+        for _ in range(3):
+            c0 = _counts()
+            losses.append(step())
+            c1 = _counts()
+            assert {n: c1[n] - c0[n] for n in per_step} == per_step, \
+                (mode, c0, c1)
+    states = [trainer._states[i] for i in sorted(trainer._states)]
+    out["losses"] = torch.stack(losses).float().cpu()
+    out["masters"] = [s[0].clone() for s in states]
+    out["moments"] = [t.clone() for s in states for t in s[1]]
+    out["captures"] = dict(_graphs.captures)
+    out["replays"] = dict(_graphs.replays)
+    lrs = trainer.learning_rate
+    each = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        each.append(time.perf_counter() - t0)
+    dt = sum(each) / 5
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    out["launches"] = _counts()
+    busy = device_busy(prof, prof_s)
+    tok_s, mfu, fpt = _nmt_mfu(n_params, n_embed, T, dt, B * T)
+
+    def share(*keys):
+        ms = sum(v for n, v in busy["by_name"].items()
+                 if any(k in n for k in keys))
+        return ms, ms / max(busy["busy_s"] * 1e3, 1e-9)
+
+    out.update(step_ms=dt * 1e3, each_ms=[t * 1e3 for t in each],
+               tok_s=tok_s, mfu=mfu,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               prof_ms=prof_s * 1e3, card_ms=busy["busy_s"] * 1e3,
+               busy=busy["busy_share"], kernels=busy["kernels"],
+               top=busy["top"], n_params=n_params,
+               shares={"flash forward": share("tc::fwd_kernel",
+                                              "flash_fwd_kernel"),
+                       "flash backward": share("dkdv_kernel", "dq_kernel"),
+                       "dropout": share("dropout_kernel"),
+                       "xent": share("xent_"),
+                       "gemm": share("gemm", "nvjet", "cutlass", "sm90_"),
+                       "foreach": share("multi_tensor_apply")})
+    log(f"NMT training [{smi}] {mode}: transformer_big {NMT} bf16 + f32 "
+        f"masters, {n_params} trainable parameters (built in "
+        f"{built_s:.1f} s), B={B} S=T={T}, Adam {NMT_ADAM} under "
+        f"InvSqrtScheduler({NMT_WARMUP}) (lr {lrs:.3e} at step 3), label "
+        f"smoothing {NMT_SMOOTHING}; losses {out['losses'].tolist()}; step "
+        f"{out['step_ms']:.2f} ms (mean of 5 after 3, each synchronised: "
+        f"{', '.join(f'{t:.2f}' for t in out['each_ms'])}), "
+        f"{tok_s:.1f} target tokens/s, MFU "
+        + (f"{mfu:.4f}" if mfu else "not measured") + f" ({fpt} flop a "
+        f"target token), peak memory {out['peak_gib']:.2f} GiB; captures "
+        f"{out['captures']}, replays after 3 steps {out['replays']}; "
+        f"launches a step {per_step}")
+    log(f"NMT one profiled step [{smi}] {mode}: {out['prof_ms']:.2f} ms "
+        f"wall, card busy {out['card_ms']:.2f} ms = {out['busy']:.3f} (idle "
+        f"{1 - out['busy']:.3f}), {out['kernels']} kernels; shares of the "
+        f"card time: " + "; ".join(f"{k} {ms:.3f} ms = {sh:.3f}"
+                                   for k, (ms, sh) in out["shares"].items())
+        + "; device ms by kernel: " + "; ".join(
+            f"{n} {ms:.3f}" for n, ms in busy["top"]))
+    del model, trainer, states
+    if hybrid:
+        out["net"] = net
+    return out
+
+
+def phase_nmt_training(smi: str) -> dict:
+    """Phase 26 (see the module docstring): the NMT step on graphs and
+    never hybridized, bit for bit over three steps, each timed; the
+    kernels' inputs of the graphed run's first step are kept for
+    `time_nmt_kernels`."""
+    rec = {}
+    plain = _nmt_run("plain", smi)
+    graph = _nmt_run("graph", smi, rec)
+    progs = ("fwd_record", "bwd_record", "update")
+    assert {k: graph["captures"].get(k) for k in progs} \
+        == dict.fromkeys(progs, 1) and {k: graph["replays"].get(k)
+                                        for k in progs} \
+        == dict.fromkeys(progs, 2), (graph["captures"], graph["replays"])
+    assert torch.isfinite(graph["losses"]).all(), graph["losses"]
+    assert torch.equal(plain["losses"], graph["losses"]), \
+        (plain["losses"], graph["losses"])
+    assert all(torch.equal(a, b) for a, b in zip(plain["masters"],
+                                                 graph["masters"])), \
+        "NMT: f32 masters differ between graphs and never hybridized"
+    assert all(torch.equal(a, b) for a, b in zip(plain["moments"],
+                                                 graph["moments"])), \
+        "NMT: Adam moments differ between graphs and never hybridized"
+    x2, want_sum = rec["fwd"]
+    bx, labels, lse, g, eps = rec["bwd"]
+    assert want_sum and eps == NMT_SMOOTHING, (want_sum, eps)
+    log(f"NMT training [{smi}]: 3 steps on graphs and never hybridized "
+        f"bit-identical (losses, {len(graph['masters'])} f32 masters, "
+        f"{len(graph['moments'])} Adam moments); the smoothed "
+        f"cross-entropy ran with the row sum (forward) and eps "
+        f"{eps} (backward) at {tuple(x2.shape)} {x2.dtype}; step "
+        f"{graph['step_ms']:.2f} ms graphed against {plain['step_ms']:.2f} "
+        f"ms never hybridized ({plain['step_ms'] / graph['step_ms']:.2f}x), "
+        f"card busy {graph['busy']:.3f} against {plain['busy']:.3f}")
+    for r in (plain, graph):
+        del r["masters"], r["moments"]
+    return {"launches": {n: plain["launches"][n] + graph["launches"][n]
+                         for n in plain["launches"]},
+            "rec": rec, "net": graph.pop("net"), "graph": graph,
+            "plain": plain}
+
+
+def time_nmt_kernels(nres) -> dict:
+    """The NMT path's kernels at the inputs its graphed run's first step
+    gave them: the flash forward, dK/dV and dQ at the decoder's causal
+    self-attention (the first backward call: the last decoder layer),
+    beside SDPA ``is_causal=True``'s forward or backward; the smoothed
+    cross-entropy forward (lse and the row sum) and backward (eps 0.1),
+    held to the plain versions and timed beside
+    ``F.cross_entropy(label_smoothing=0.1)`` and its autograd backward.
+    Bounds: bytes (the logits read once, each output written once) or
+    operations, as the other rows."""
+    q, k, v, do, lse, delta, causal, scale = nres["rec"]["flash_bwd"]
+    q, k, v = (t.detach() for t in (q, k, v))
+    assert causal, "the decoder's flash call was not causal"
+    out = {"flash_attention": time_flash_fwd(q, k, v, causal, scale,
+                                             "NMT decoder")}
+    out.update(time_flash_bwd(q, k, v, do, lse, delta, causal, scale,
+                              "NMT decoder"))
+    (x2, want_sum), (bx, labels, blse, g, eps) = nres["rec"]["fwd"], \
+        nres["rec"]["bwd"]
+    N, V = x2.shape
+    ref_lse, ref_sum = stats_reference(x2, want_sum)
+    got_lse, got_sum = xent_forward(x2, want_sum)
+    err = ((got_lse - ref_lse).abs() / ref_lse.abs().clamp(min=1)).max().item()
+    assert err <= LSE_RTOL, f"smoothed xent forward: lse err {err}"
+    l1 = x2.float().abs().sum(-1).clamp(min=1)
+    sum_err = ((got_sum - ref_sum).abs() / l1).max().item()
+    assert sum_err <= SUM_RTOL, f"smoothed xent forward: sum err {sum_err}"
+    bound, by = _bound(x2.numel() * x2.element_size() + N * 8, 5 * N * V,
+                       PEAK_FLOPS[torch.float32])
+    out["xent_forward"] = {
+        "shape": f"({N}, {V}) {x2.dtype} with the row sum",
+        "max_abs_err": err, "sum_err": sum_err,
+        "ms": time_ms(lambda: xent_forward(x2, want_sum)),
+        "plain_ms": time_ms(lambda: stats_reference(x2, want_sum)),
+        "library_ms": time_ms(lambda: F.cross_entropy(
+            x2, labels, label_smoothing=eps, reduction="none")),
+        "bound_ms": bound, "bound_by": by}
+    err = check_dlogits(xent_backward(bx, labels, blse, g, eps),
+                        dlogits_reference(bx, labels, blse, g, eps), bx,
+                        labels, g, eps, "smoothed xent backward at NMT inputs")
+    xr = bx.detach().requires_grad_()
+    ce = F.cross_entropy(xr, labels, label_smoothing=eps, reduction="none")
+    bound, by = _bound(2 * bx.numel() * bx.element_size() + N * 12,
+                       4 * N * V, PEAK_FLOPS[torch.float32])
+    out["xent_backward"] = {
+        "shape": f"({N}, {V}) {bx.dtype} eps={eps}", "max_abs_err": err,
+        "ms": time_ms(lambda: xent_backward(bx, labels, blse, g, eps)),
+        "plain_ms": time_ms(lambda: dlogits_reference(bx, labels, blse, g,
+                                                      eps)),
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            ce, xr, g.to(ce.dtype), retain_graph=True)),
+        "bound_ms": bound, "bound_by": by}
+    return out
+
+
+# ---------------------------------------------------------------- phase 27
+NMT_GRAD_TOL = BWD_TOL[torch.float32]
+
+
+def _nmt_one_step(cfg, B, T, plain: bool):
+    net, model, trainer = _nmt_model(cfg, torch.float32, 1, dropout=0.0)
+    batch = _nmt_batch(cfg["src_vocab"], B, T, T, seed=1)
+    c0 = _counts()
+    with plain_kernels() if plain else contextlib.nullcontext():
+        with autograd.record():
+            loss = model(*batch)
+        loss.backward()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.collect_params().items()
+                 if p.grad is not None}
+        trainer.step(1)
+    torch.cuda.synchronize()
+    c1 = _counts()
+    L = cfg["num_layers"]
+    want = {n: 0 if plain or n.startswith("dropout") else k
+            for n, k in _nmt_per_step(L).items()}
+    assert {n: c1[n] - c0[n] for n in c1} == want, (plain, c0, c1)
+    return float(loss.detach()), grads, net
+
+
+def phase_nmt_parity() -> dict:
+    """Phase 27: 2+2 layers at full width in f32, dropout off, B=4,
+    S=T=256: the hybridized step through the kernels against the same
+    step with every kernel swapped for its plain version (loss within
+    1e-5 relative, each gradient within rtol·|ref| + atol·max|ref|,
+    `NMT_GRAD_TOL`); then greedy ``translate`` on the programs against
+    their eager bodies, token for token."""
+    cfg = dict(NMT, num_layers=2)
+    loss_k, grads_k, net = _nmt_one_step(cfg, 4, 256, plain=False)
+    loss_p, grads_p, _ = _nmt_one_step(cfg, 4, 256, plain=True)
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), (loss_k, loss_p)
+    assert grads_k.keys() == grads_p.keys()
+    worst = max(_excess(grads_k[n], grads_p[n], NMT_GRAD_TOL)
+                for n in grads_p)
+    assert worst <= 1.0, f"NMT parity: a gradient at {worst:.3g}x its bound"
+    src = torch.randint(1, cfg["src_vocab"], (4, 64),
+                        generator=torch.Generator().manual_seed(3)).to(DEV)
+    vl = torch.tensor([64, 40, 64, 17], device=DEV)
+    graphed = net.translate(src, 32, src_valid_length=vl)
+    again = net.translate(src, 32, src_valid_length=vl)
+    with _graphs.eager():
+        eager = net.translate(src, 32, src_valid_length=vl)
+    assert torch.equal(graphed, eager) and torch.equal(again, eager), \
+        (graphed, eager)
+    log(f"NMT parity (f32, 2+2 layers, width {NMT['units']}, B=4 S=T=256, "
+        f"dropout 0): loss {loss_k:.7f} kernels vs {loss_p:.7f} plain; "
+        f"every gradient within {worst:.3g} of its allowance (rtol "
+        f"{NMT_GRAD_TOL[0]} of |ref| + atol {NMT_GRAD_TOL[1]} of max|ref|) "
+        f"over {len(grads_p)} tensors; greedy translate (B=4, S=64, "
+        f"max_len 32, masked) on graphs equals the eager bodies token for "
+        f"token")
+    return {"loss_err": abs(loss_k - loss_p) / abs(loss_p), "grad": worst}
+
+
+# ---------------------------------------------------------------- phase 28
+def _translate_runs(net, smi, tag, src, max_len, **kw):
+    """One signature of ``net.translate``: the capturing call, a second
+    call (replays only: no capture), and the eager bodies; the tokens
+    of all three equal.  Returns the numbers."""
+    progs = ("nmt_start", "nmt_step")
+    c0 = {p: _graphs.captures.get(p, 0) for p in progs}
+    r0 = {p: _graphs.replays.get(p, 0) for p in progs}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = net.translate(src, max_len, **kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    c1 = {p: _graphs.captures.get(p, 0) for p in progs}
+    t0 = time.perf_counter()
+    second = net.translate(src, max_len, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c2 = {p: _graphs.captures.get(p, 0) for p in progs}
+    r2 = {p: _graphs.replays.get(p, 0) - r0[p] for p in progs}
+    with _graphs.eager():
+        t0 = time.perf_counter()
+        eager = net.translate(src, max_len, **kw)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    caps = {p: c1[p] - c0[p] for p in progs}
+    assert caps == dict.fromkeys(progs, 1), (tag, caps)
+    assert c2 == c1, f"{tag}: the repeated signature captured again"
+    # the first call: the step's warm-up runs, then N-2 replays; the
+    # second: one start replay and N-1 step replays
+    assert r2 == {"nmt_start": 1, "nmt_step": 2 * max_len - 3}, (tag, r2)
+    beams = isinstance(first, tuple)
+    toks = (lambda r: r[0]) if beams else (lambda r: r)
+    assert torch.equal(toks(first), toks(second)) and \
+        torch.equal(toks(first), toks(eager)), f"{tag}: tokens differ"
+    if beams:
+        assert torch.equal(first[1], eager[1]), f"{tag}: scores differ"
+    B = src.shape[0]
+    K = kw.get("beam_size", 1)
+    out = {"tag": tag, "first_s": first_s, "replay_s": dt,
+           "eager_s": eager_s, "tok_s": B * max_len / dt,
+           "beam_tok_s": B * K * max_len / dt,
+           "eager_tok_s": B * max_len / eager_s,
+           "captures": caps, "replays": r2}
+    log(f"NMT translate [{smi}] {tag}: B={B} S={src.shape[1]} "
+        f"max_len={max_len} {kw}: second call {dt * 1e3:.1f} ms = "
+        f"{out['tok_s']:.1f} output tok/s"
+        + (f" ({out['beam_tok_s']:.1f} beam-token steps/s)" if beams else "")
+        + f", the capturing call {first_s * 1e3:.1f} ms, the eager bodies "
+        f"{eager_s * 1e3:.1f} ms ({out['eager_tok_s']:.1f} tok/s); "
+        f"captures {caps}, replays over both graphed calls {r2}; tokens "
+        f"equal three ways")
+    return out
+
+
+def phase_nmt_translate(smi: str, net) -> dict:
+    """Phase 28: phase 26's trained transformer_big in bf16: greedy B=8,
+    S=128, max_len 128 with no eos (every step runs); beam K=4 at B=2
+    with alpha 0.6; greedy on the int8 decoder (`quantize_for_decode`);
+    each a capturing call, a replayed call and the eager bodies
+    (`_translate_runs`); the decode weight bytes, float and int8."""
+    g = torch.Generator().manual_seed(5)
+    V = NMT["src_vocab"]
+    src = torch.randint(1, V, (8, 128), generator=g).to(DEV)
+    out = {"greedy": _translate_runs(net, smi, "greedy", src, 128,
+                                     eos_id=-1)}
+    out["beam"] = _translate_runs(net, smi, "beam", src[:2], 128,
+                                  beam_size=4, alpha=0.6)
+    fbytes = gen_mod._weight_nbytes(gen_mod._gather_nmt_params(net))
+    net.quantize_for_decode()
+    try:
+        qbytes = gen_mod._weight_nbytes(gen_mod._gather_nmt_params(
+            net, net._decode_quant))
+        out["int8"] = _translate_runs(net, smi, "greedy int8 decoder", src,
+                                      128, eos_id=-1)
+    finally:
+        net.dequantize_decode()
+    out["weight_bytes"] = {"float": fbytes, "int8": qbytes}
+    log(f"NMT translate [{smi}]: decode weight bytes a step float {fbytes} "
+        f"against int8 {qbytes} ({qbytes / fbytes:.3f}); greedy "
+        f"{out['greedy']['tok_s']:.1f} tok/s float against "
+        f"{out['int8']['tok_s']:.1f} int8")
+    return out
+
+
+def check_two_pending_calls(smi: str) -> dict:
+    """Two recorded calls of a hybridized block before one backward
+    (`_TwoDense`, width 1024, f32): on graphs the second call captures
+    programs of its own, the backward of their sum gives the gradients
+    of the block never hybridized bit for bit, and a third call after
+    it replays the first programs."""
+    xs = [torch.from_numpy(np.random.RandomState(30 + i).uniform(
+        -1, 1, (64, 1024)).astype(np.float32)).to(DEV) for i in range(2)]
+    got = []
+    progs = ("fwd_record", "bwd_record")
+    c0 = {k: _graphs.captures.get(k, 0) for k in progs}
+    for hybrid in (True, False):
+        mx_random.seed(12, device=DEV)
+        net = _TwoDense().initialize()
+        if hybrid:
+            net.hybridize()
+        with autograd.record():
+            total = net(xs[0]) + net(xs[1])
+        total.backward()
+        got.append([p.grad.clone() for p in net.collect_params().values()])
+        if hybrid:
+            with autograd.record():
+                net(xs[0]).backward()
+            caps = {k: _graphs.captures.get(k, 0) - c0[k] for k in progs}
+    torch.cuda.synchronize()
+    assert caps == dict.fromkeys(progs, 2), caps
+    assert all(torch.equal(a, b) for a, b in zip(*got)), \
+        "two pending recorded calls: gradients differ from never hybridized"
+    log(f"two recorded calls before one backward [{smi}]: gradients equal "
+        f"the never-hybridized block's bit for bit over {len(got[0])} "
+        f"tensors; captures {caps} (two instances), the third call "
+        f"replayed the first")
+    return {"captures": caps}
 
 
 # ---------------------------------------------------------------- phase 9
@@ -3620,9 +4144,19 @@ def main() -> int:
     cres512 = timed("captured_training_512", phase_captured_training, smi,
                     *BERT_BATCH_512)
     timed("captured_training_edges", check_train_step_edges, smi)
+    timed("two_pending_calls", check_two_pending_calls, smi)
     # the causal callers: long-context shapes and a trainable TransformerLM
     longctx = timed("flash_longctx_timing", time_flash_longctx)
     lres = timed("lm_causal", phase_lm_causal, smi)
+    # the NMT family: transformer_big training on graphs, its kernels at
+    # the step's inputs, parity at 2+2 layers, translation
+    gc.collect()
+    torch.cuda.empty_cache()
+    nres = timed("nmt_training", phase_nmt_training, smi)
+    ntimes = timed("nmt_timing", time_nmt_kernels, nres)
+    del nres["rec"]
+    timed("nmt_parity", phase_nmt_parity)
+    timed("nmt_translate", phase_nmt_translate, smi, nres.pop("net"))
     log(f"phases took {time.perf_counter() - t_start:.1f} s: "
         + json.dumps(took))
     for kind in ("step", "chunk"):
@@ -3667,12 +4201,19 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms, sdpa is_causal {half} "
             f"{r['library_ms']:.4f} ms, causal bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) [{smi}]")
+    for name, r in ntimes.items():
+        log(f"{name} at the NMT step's inputs {r['shape']}: {r['ms']:.4f} "
+            f"ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {nres['launches'][name]} launches on "
+            f"phase 26's path ({_nmt_per_step(NMT['num_layers'])[name]} a "
+            f"step) [{smi}]")
     times["paged_attention"] = times["step"]
     times["paged_attention_q8"] = qtimes["step"]
     # each kernel's launches summed over the main paths that ran it
     launches = {}
     for path in (res, qres, sres, bres, gres, tres, tres512, lres, cres,
-                 cres512):
+                 cres512, nres):
         for name, n in path["launches"].items():
             launches[name] = launches.get(name, 0) + n
     rows = []
@@ -3682,7 +4223,8 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"], "launches": launches[name],
-            "max_abs_err": max(max(errs[name].values()), t["max_abs_err"]),
+            "max_abs_err": max(max(errs[name].values()), t["max_abs_err"],
+                               ntimes.get(name, {}).get("max_abs_err", 0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms")})

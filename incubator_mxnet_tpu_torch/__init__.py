@@ -7,11 +7,11 @@ JAX and nothing of the JAX package.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.
 """
 from . import (autograd, context, contrib, convert, gluon, initializer,
-               models, optimizer, ops, random, serving)
+               lr_scheduler, models, optimizer, ops, random, serving)
 from . import ndarray as nd
 from .base import MXNetError
 from .context import cpu, gpu, num_gpus
 
 __all__ = ["MXNetError", "autograd", "context", "contrib", "convert", "cpu",
-           "gluon", "gpu", "initializer", "models", "nd", "num_gpus", "ops",
-           "optimizer", "random", "serving"]
+           "gluon", "gpu", "initializer", "lr_scheduler", "models", "nd",
+           "num_gpus", "ops", "optimizer", "random", "serving"]

@@ -10,7 +10,8 @@ of `incubator_mxnet_tpu/contrib/quantization.py`).
 * `DecodeQuantConfig`, `quantize_for_decode`, `dequantize_decode` — the
   weight-only int8 state of the decode stack (`models.generation`):
   per-output-channel int8 weights and f32 scales for the transformer
-  matmuls, the scale applied in the matmul epilogue.
+  matmuls (a `TransformerLM`'s, or a `Transformer`'s decoder), the
+  scale applied in the matmul epilogue.
 
 The post-training quantization half of the JAX module (`quantize_net`,
 `QuantizedDense`/`QuantizedConv`, `calibrate`) is not ported yet.
@@ -149,32 +150,46 @@ class DecodeQuantConfig:
 
 
 def _decode_target_denses(net, quantize_head: bool):
-    """The Dense layers the decode programs multiply by:
-    `models.TransformerLM`'s QKV and output projections and FFN layers,
-    and its logits head with ``quantize_head``.  The encoder-decoder
-    `Transformer` is not ported yet: any other net raises TypeError."""
-    from ..models.transformer import TransformerLM
+    """The Dense layers the decode programs multiply by, per model family
+    (`contrib/quantization.py:439-462` of the JAX package):
+    `models.TransformerLM`'s QKV and output projections and FFN layers;
+    `models.Transformer`'s decoder, its self-attention's two, the
+    cross-attention's three and the FFN's two a layer; and the logits
+    head (``head``, ``out_proj``) with ``quantize_head``.  Any other net
+    raises TypeError."""
+    from ..models.transformer import Transformer, TransformerLM
 
-    if not isinstance(net, TransformerLM):
-        raise TypeError(f"quantize_for_decode supports models.TransformerLM, "
-                        f"got {type(net).__name__}")
     out = []
-    for lyr in net._layers:
-        out += [lyr.attn.qkv, lyr.attn.proj,
-                lyr.ffn.ffn_dense1, lyr.ffn.ffn_dense2]
+    if isinstance(net, TransformerLM):
+        for lyr in net._layers:
+            out += [lyr.attn.qkv, lyr.attn.proj,
+                    lyr.ffn.ffn_dense1, lyr.ffn.ffn_dense2]
+        head = net.head
+    elif isinstance(net, Transformer):
+        for lyr in net.decoder._layers:
+            out += [lyr.self_attn.qkv, lyr.self_attn.proj,
+                    lyr.cross_attn.q_proj, lyr.cross_attn.kv_proj,
+                    lyr.cross_attn.proj,
+                    lyr.ffn.ffn_dense1, lyr.ffn.ffn_dense2]
+        head = net.out_proj
+    else:
+        raise TypeError(f"quantize_for_decode supports models.TransformerLM "
+                        f"and models.Transformer, got {type(net).__name__}")
     if quantize_head:
-        out.append(net.head)
+        out.append(head)
     return out
 
 
 def quantize_for_decode(net, *, act_quant: str = "auto",
                         quantize_head: bool = False):
-    """Mark ``net`` (a `models.TransformerLM`) for weight-quantized
-    decode: its transformer matmul weights (QKV and output projections,
-    FFN; the logits head only with ``quantize_head=True``) become
-    per-channel int8 plus f32 scales, and every later ``generate``,
-    ``score`` and serving engine consumes them with the scale in the
-    matmul epilogue.  Embeddings, LayerNorms and biases stay float.
+    """Mark ``net`` (a `models.TransformerLM` or a `models.Transformer`)
+    for weight-quantized decode: its transformer matmul weights (QKV and
+    output projections, FFN; for the Transformer the decoder's, with its
+    cross-attention's, the encoder staying float; the logits head only
+    with ``quantize_head=True``) become per-channel int8 plus f32
+    scales, and every later ``generate``, ``score``, ``translate`` and
+    serving engine consumes them with the scale in the matmul epilogue.
+    Embeddings, LayerNorms and biases stay float.
 
     The transform is runtime-only: the parameters keep their float
     values, and an update to them is re-quantized lazily.  Use
@@ -193,7 +208,7 @@ def quantize_for_decode(net, *, act_quant: str = "auto",
     """
     targets = _decode_target_denses(net, quantize_head)
     cfg = DecodeQuantConfig(act_quant, quantize_head,
-                            device=net.embed.weight.device)
+                            device=next(net.parameters()).device)
     for dense in targets:
         cfg.add_target(dense)
     cfg.refresh()

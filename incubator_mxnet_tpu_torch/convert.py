@@ -8,6 +8,11 @@ writes (``embed.weight``, ``layer0.attn.qkv.weight``,
 same names and layouts (`Dense` weight (out, in), `LayerNorm`
 gamma/beta), so the copy is one-to-one; each array is cast to the
 parameter's dtype and moved to its device.
+
+A parameter shared by two blocks (the `Transformer`'s tied source and
+target embedding) has one name in the port (``named_parameters()``
+gives it once) and every name in the JAX package's dict: the other
+names are aliases, taken when their array equals the parameter's.
 """
 from __future__ import annotations
 
@@ -24,11 +29,17 @@ __all__ = ["load_jax_params"]
 @torch.no_grad()
 def load_jax_params(net, arrays: Mapping[str, np.ndarray]):
     """Copy ``arrays`` (structural name -> numpy array) into ``net``'s
-    parameters; raises `MXNetError` on a missing key, an extra key or a
-    shape mismatch, before any parameter is written.  Returns ``net``."""
+    parameters; raises `MXNetError` on a missing key, an extra key, an
+    alias of a shared parameter whose array differs from the
+    parameter's, or a shape mismatch, before any parameter is written.
+    Returns ``net``."""
     params = dict(net.named_parameters())
+    owner = {id(p): n for n, p in params.items()}
+    aliases = {n: owner[id(p)] for n, p in
+               net.named_parameters(remove_duplicate=False)
+               if n not in params}
     missing = sorted(set(params) - set(arrays))
-    extra = sorted(set(arrays) - set(params))
+    extra = sorted(set(arrays) - set(params) - set(aliases))
     if missing or extra:
         raise MXNetError(f"load_jax_params: missing keys {missing}, "
                          f"extra keys {extra}")
@@ -37,6 +48,11 @@ def load_jax_params(net, arrays: Mapping[str, np.ndarray]):
         if shape != tuple(p.shape):
             raise MXNetError(f"load_jax_params: {name} has shape {shape}, "
                              f"the model expects {tuple(p.shape)}")
+    for alias, name in aliases.items():
+        if alias in arrays and not np.array_equal(arrays[alias],
+                                                  arrays[name]):
+            raise MXNetError(f"load_jax_params: {alias} names the parameter "
+                             f"{name}, but its array differs")
     for name, p in params.items():
         src = torch.from_numpy(np.array(arrays[name], np.float32))
         p.copy_(src.to(device=p.device, dtype=p.dtype))

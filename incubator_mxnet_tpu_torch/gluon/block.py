@@ -68,9 +68,6 @@ class Block(nn.Module):
     # hybridized (`HybridBlock.hybridize`), and its captured programs
     _hybrid = False
     _graph_cache = None
-    # a weak reference to the output of the recorded call awaiting its
-    # backward (`_call_recorded`)
-    _recorded_pending = None
 
     def __call__(self, *args, **kwargs):
         if self._hybrid and not _graphs.in_body():
@@ -167,49 +164,51 @@ class Block(nn.Module):
         return out[0] if prog.single else out
 
     def _call_recorded(self, args, kwargs):
-        """The hybridized call under ``record()``: `_Recorded`'s forward
+        """The hybridized call under ``record()``: a `_Recorded` forward
         program for this signature, its outputs copies tied to the
         autograd graph by one `_RecordedFn` node whose backward replays
-        the backward program.  Raises `MXNetError` while the output of
-        an earlier recorded call of this block is alive and awaits its
-        backward: the forward's replay would overwrite the activations
-        that backward reads."""
-        if self._recorded_pending is not None \
-                and self._recorded_pending() is not None:
-            raise MXNetError(
-                f"a hybridized {type(self).__name__} was called under "
-                f"autograd.record() while the output of its previous "
-                f"recorded call awaits backward(): its program's next run "
-                f"would overwrite the activations that backward reads; "
-                f"call backward() (or drop that output) first, or call "
-                f"the block outside record() or under autograd.pause()")
+        the backward program.  The signature keeps a set of them: a call
+        takes one whose earlier call's backward has run or whose graph
+        is gone, and captures a new one (its own static buffers and
+        graph pool) only while every one awaits a backward, so that no
+        replay overwrites activations a pending backward reads.  A
+        training loop (call, backward, step) keeps using the first."""
         need = tuple(i for i, a in enumerate(args)
                      if isinstance(a, torch.Tensor) and a.requires_grad)
         need_kw = tuple(sorted(k for k, v in kwargs.items()
                                if isinstance(v, torch.Tensor)
                                and v.requires_grad))
         targets = tuple(p.requires_grad for p in self.parameters())
-        rec = self._cached(
-            self._key(args, kwargs, "record", need, need_kw, targets),
-            lambda: _Recorded(self, args, kwargs, need, need_kw))
+        recs = self._cached(
+            self._key(args, kwargs, "record", need, need_kw, targets), list)
+        rec = next((r for r in recs if not r.busy()), None)
+        if rec is None:
+            rec = _Recorded(self, args, kwargs, need, need_kw,
+                            own_pool=bool(recs))
+            recs.append(rec)
         grad_in = [args[i] for i in need] + [kwargs[k] for k in need_kw]
         with rec.fwd.lock:
             out = _RecordedFn.apply(rec.anchor, rec, self._sig(),
                                     _inputs(args, kwargs), *grad_in)
-        self._recorded_pending = weakref.ref(out[0])
+        rec.node = weakref.ref(out[0].grad_fn)
         return out[0] if rec.fwd.single else out
 
-    def _program(self, args, kwargs, name="raw_fn", need=(), need_kw=()):
+    def _program(self, args, kwargs, name="raw_fn", need=(), need_kw=(),
+                 own_pool=False):
         """A `_graphs.Program` running ``forward`` on static copies of
         the tensor arguments (the others fixed by the signature); the
-        static copies at ``need`` and ``need_kw`` require a gradient."""
+        static copies at ``need`` and ``need_kw`` require a gradient.
+        It captures into the block's graph pool, or with ``own_pool``
+        into a new one."""
         dev = next((a.device for a in itertools.chain(args, kwargs.values())
                     if isinstance(a, torch.Tensor)), None)
         if dev is None:
             raise MXNetError("a hybridized block takes at least one tensor "
                              "argument")
         pool = getattr(self, "_graph_pool", None)
-        if pool is None or pool.device != dev:
+        if own_pool:
+            pool = _graphs.Pool(dev)
+        elif pool is None or pool.device != dev:
             pool = self._graph_pool = _graphs.Pool(dev)
         fixed = [None if isinstance(a, torch.Tensor) else a for a in args]
         fixed_kw = {k: v for k, v in kwargs.items()
@@ -266,19 +265,31 @@ class _Recorded:
     activations' for every replay.  Parameter gradients stay in B's
     buffers (`Parameter.set_program_grad`): no copy through torch's
     gradient accumulation; ``grad_req="add"`` parameters add them in
-    with one foreach add."""
+    with one foreach add.  Where two recorded calls meet in one
+    backward, the second to reach a ``"write"`` parameter adds its
+    gradient to the first's, as torch's accumulation does for a block
+    never hybridized."""
 
-    def __init__(self, block, args, kwargs, need, need_kw):
+    def __init__(self, block, args, kwargs, need, need_kw, own_pool=False):
         self.block = block
-        self.fwd = block._program(args, kwargs, "fwd_record", need, need_kw)
+        self.fwd = block._program(args, kwargs, "fwd_record", need, need_kw,
+                                  own_pool)
         self.params = [p for p in block.parameters() if p.requires_grad]
         self.bwd = None
         self.pending = None         # the outputs B differentiates next
+        self.node = None            # a weak reference to their graph node
         self.used = None            # which targets the backward reaches
         # the leaf that ties the outputs to the autograd graph; its own
         # gradient is never written
         self.anchor = torch.empty(0, device=self.fwd.device,
                                   requires_grad=True)
+
+    def busy(self) -> bool:
+        """Whether the output of this instance's last call awaits its
+        backward: F's next run would overwrite what that backward
+        reads."""
+        return self.pending is not None and self.node is not None \
+            and self.node() is not None
 
     def backward_program(self):
         """B, made at the first backward: its static inputs are one head
@@ -332,10 +343,14 @@ class _RecordedFn(torch.autograd.Function):
         cot = {f"c{i}": h if h is not None else
                torch.zeros(s, dtype=dt, device=dev)
                for i, (h, (s, dt, dev)) in enumerate(zip(heads, ctx.shapes))}
+        # what another recorded call of this backward left (B's body
+        # runs the parameters' hooks, which forget it)
+        task = torch._C._current_graph_task_id()
+        earlier = {id(p): p.take_grad() for p in rec.params
+                   if task >= 0 and getattr(p, "_grad_task", -1) == task}
         with bwd.lock:
             grads = bwd.run(ctx.sig, **cot)
         rec.pending = None
-        rec.block._recorded_pending = None
         it = iter(grads)
         got = [next(it) if u else None for u in rec.used]
         n_p = len(rec.params)
@@ -343,10 +358,13 @@ class _RecordedFn(torch.autograd.Function):
         for p, g in zip(rec.params, got[:n_p]):
             if g is None:
                 continue
-            if isinstance(p, Parameter) and p._req == "write":
-                p.set_program_grad(g, bwd.pool)
-            else:
+            if not isinstance(p, Parameter) or p._req != "write":
                 adds.append((p, g))
+            elif earlier.get(id(p)) is not None:
+                p.grad = earlier[id(p)] + g
+                p._grad_task = task
+            else:
+                p.set_program_grad(g, bwd.pool, task)
         _accumulate(adds)
         return (None, None, None, None) + tuple(
             None if g is None else g.clone() for g in got[n_p:])
@@ -382,9 +400,10 @@ class HybridBlock(Block):
         which leaves the parameters' gradients in static buffers that
         the Trainer's update reads (`_Recorded`), and which returns the
         gradients of tensor inputs that require one.  A recorded call
-        while the previous one's output awaits its backward raises.  The
-        children run inside the captured programs, not as programs of
-        their own.  Dropout in train mode (under ``record()`` or in
+        while an earlier one's output awaits its backward runs programs
+        of its own (`_call_recorded`), and the backwards' gradients add
+        up.  The children run inside the captured programs, not as
+        programs of their own.  Dropout in train mode (under ``record()`` or in
         ``autograd.train_mode()``) draws its seeds from the program's
         seed table, staged before every run: a fresh mask each call, the
         masks of the eager forward for the same ``random.seed``.

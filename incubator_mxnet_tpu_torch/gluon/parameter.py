@@ -75,6 +75,7 @@ class Parameter(nn.Parameter):
         p._initialized = False
         p._grad_src = None          # a recorded program's gradient buffer
         p._grad_pool = None         # and that program's graph pool
+        p._grad_task = -1           # the backward that set it
         p._grad_consumed = False    # taken by a keep_grads=False step
         # a weak reference: the hook must not keep its parameter alive.
         # torch takes hooks only while the tensor requires grad, and
@@ -114,15 +115,17 @@ class Parameter(nn.Parameter):
         self._grad_consumed = False
         _grad.__set__(self, value)
 
-    def set_program_grad(self, buf, pool=None) -> None:
+    def set_program_grad(self, buf, pool=None, task=-1) -> None:
         """A recorded program's backward left this parameter's gradient
         in ``buf`` (its static buffer; ``pool`` that program's graph
-        pool, which an update reading ``buf`` may share): it replaces
-        the gradient."""
+        pool, which an update reading ``buf`` may share; ``task`` the
+        autograd graph task of that backward): it replaces the
+        gradient."""
         _grad.__set__(self, None)
         self._grad_consumed = False
         self._grad_src = buf
         self._grad_pool = pool
+        self._grad_task = task
 
     def take_grad(self):
         """The gradient an update reads, without copying: the program's

@@ -9,8 +9,9 @@ trainable parameter at once, as ``torch._foreach_*`` ops
 the update program U, a `_graphs.Program` captured into a CUDA graph at
 its first step and replayed after that (run eagerly on the CPU and
 inside `_graphs.eager()`): its scalars (learning rate, rescale, weight
-decay, momentum) are staged into it each step with one copy, so
-`set_learning_rate` or a new batch size takes effect without a new
+decay, momentum; Adam's bias-corrected rate) are staged into it each
+step with one copy, so `set_learning_rate`, a learning-rate schedule,
+Adam's step count or a new batch size takes effect without a new
 capture.  It reads the gradients in place where hybridized blocks'
 recorded backwards left them (`gluon.block._Recorded`), and captures
 into that backward's graph pool where there is one.  Other gradients (a block never hybridized,
@@ -116,13 +117,20 @@ class Trainer:
         grads = [_take_grad(w) for w in weights]
         pools = _recorded_pools(weights, grads) if self._fuse_step \
             else None
-        if pools:
-            self._fused(idxs, weights, grads, states, pools)
-        elif weights:
-            opt.update_all(weights, [
-                g if g is not None else torch.zeros_like(w)
-                for w, g in zip(weights, grads)], states)
+        # the update count (and with it the schedule's rate and Adam's
+        # bias corrections) advances first, as in the JAX package; a
+        # step that raises leaves it as it was
         opt.num_update += 1
+        try:
+            if pools:
+                self._fused(idxs, weights, grads, states, pools)
+            elif weights:
+                opt.update_all(weights, [
+                    g if g is not None else torch.zeros_like(w)
+                    for w, g in zip(weights, grads)], states)
+        except Exception:
+            opt.num_update -= 1
+            raise
         for w in weights:
             if hasattr(w, "consume_grad"):
                 w.consume_grad(self._keep_grads)
@@ -182,6 +190,15 @@ def _recorded_pools(weights, grads):
     return pools
 
 
+def _state_tensors(state):
+    """The tensors of an optimizer state (nested tuples, None)."""
+    if isinstance(state, torch.Tensor):
+        yield state
+    elif isinstance(state, tuple):
+        for s in state:
+            yield from _state_tensors(s)
+
+
 class _Update:
     """Update program U over one list of weights: the optimizer's rule
     (`Optimizer.update_all`) with this step's scalars read from a staged
@@ -197,10 +214,8 @@ class _Update:
         self._zeros = {}
         self.grads = None
         # what a step writes: the weights and every state tensor
-        self.targets = list(weights) + [
-            t for s in states for t in
-            (s if isinstance(s, tuple) else (s,))
-            if isinstance(t, torch.Tensor)]
+        self.targets = list(weights) + [t for s in states
+                                        for t in _state_tensors(s)]
 
         def update(hyper):
             opt.update_all(weights, self.grads, states,

@@ -11,18 +11,18 @@ crossover (`ops.flash_attention.kernel_active`; always on the CPU) the
 heads stay in (B, T, H, D) and `attention_bthd` runs as torch ops,
 which autograd differentiates; at or above it (T >= 512) the flash
 kernels run, and under ``autograd.record()`` the backward goes through
-the flash dK/dV and dQ kernels (`ops.flash_attention`).  Padding masks
-(``valid_length``) are not ported and raise: in the JAX package they
-take the XLA path, not flash.
+the flash dK/dV and dQ kernels (`ops.flash_attention`).  A padding
+mask (``valid_length``) always takes torch ops, at every T, as it takes
+the XLA path in the JAX package (`masked_attention`).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from .. import ndarray as nd
-from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dense, Dropout, DropoutAdd, Embedding, LayerNorm
@@ -32,7 +32,32 @@ from .generation import _qkv_heads
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "BERTLayer",
            "BERTEncoder", "BERTModel", "BERTForPretraining", "bert_base",
-           "bert_large"]
+           "bert_large", "masked_attention", "valid_mask"]
+
+_F32_MIN = torch.finfo(torch.float32).min
+
+
+def masked_attention(q, k, v, mask):
+    """Attention of (B, H, Tq, D) queries over (B, H, Tk, D) keys and
+    values where ``mask`` (B, Tk) is nonzero: f32 scores, masked keys at
+    ``finfo(f32).min``, f32 softmax and P·V product, cast back to q's
+    dtype (the masked branch of the JAX package's
+    `MultiHeadAttention.forward`, `models/bert.py:119-127`, and of its
+    `_CrossAttention`, `models/transformer.py:84-98`)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
+        / math.sqrt(q.shape[-1])
+    if mask is not None:
+        m = mask.reshape(mask.shape[0], 1, 1, mask.shape[-1]).bool()
+        s = torch.where(m, s, _F32_MIN)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def valid_mask(valid_length, T, device):
+    """(B, T) f32 mask, 1 where the position is below the row's valid
+    length (the JAX package's ``arange(T) < valid_length``)."""
+    vl = torch.as_tensor(valid_length, device=device).reshape(-1, 1)
+    return (torch.arange(T, device=device)[None, :] < vl).float()
 
 
 class MultiHeadAttention(HybridBlock):
@@ -52,10 +77,12 @@ class MultiHeadAttention(HybridBlock):
         self.proj = Dense(units, units, device=device, dtype=dtype)
 
     def forward(self, x, mask=None):
-        if mask is not None:
-            raise MXNetError("attention padding masks are not ported")
         B, T, C = x.shape
         q, k, v = _qkv_heads(self.qkv(x), self._num_heads)   # (B, T, H, D)
+        if mask is not None:
+            out = masked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), mask)
+            return self.proj(out.transpose(1, 2).reshape(B, T, C))
         if not kernel_active(T, T, x.device):
             return self.proj(attention_bthd(q, k, v).reshape(B, T, C))
         out = flash_attention(q.transpose(1, 2).contiguous(),
@@ -146,16 +173,15 @@ class BERTModel(HybridBlock):
         self.pooler = Dense(units, units, activation="tanh", **kw)
 
     def forward(self, inputs, token_types=None, valid_length=None):
-        if valid_length is not None:
-            raise MXNetError("valid_length (attention padding masks) is not "
-                             "ported")
         B, T = inputs.shape
         pos = torch.arange(T, device=inputs.device).expand(B, T)
         emb = self.word_embed(inputs) + self.position_embed(pos)
         if token_types is not None:
             emb = emb + self.token_type_embed(token_types)
         emb = self.embed_drop(self.embed_ln(emb))
-        seq = self.encoder(emb)
+        mask = None if valid_length is None \
+            else valid_mask(valid_length, T, inputs.device)
+        seq = self.encoder(emb, mask)
         return seq, self.pooler(seq[:, 0])
 
 

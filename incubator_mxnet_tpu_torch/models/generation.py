@@ -75,7 +75,7 @@ from ..ops.flash_attention import flash_attention
 from ..random import counter_seed
 
 __all__ = ["lm_generate", "lm_beam_search", "lm_score", "lm_stream",
-           "bucket_length"]
+           "nmt_translate", "bucket_length"]
 
 _F32_MIN = torch.finfo(torch.float32).min
 
@@ -187,7 +187,7 @@ def _gather_params(net, qc=None):
             "layers": layers}
 
 
-def _params_fingerprint(net, qc=None):
+def _params_fingerprint(net, qc=None, tensors=None):
     """Key over the tensors `_gather_params` reads.  The JAX package keys
     on buffer identity, because its updates replace buffers; PyTorch
     writes in place and ``cast()`` may reuse an address, so each tensor
@@ -200,7 +200,7 @@ def _params_fingerprint(net, qc=None):
     the layers `_gather_params` reads (a third of the cost of
     ``net.parameters()``)."""
     return (tuple((t.data_ptr(), t._version, getattr(t, "_casts", 0),
-                   t.dtype) for t in _param_tensors(net)),
+                   t.dtype) for t in (tensors or _param_tensors)(net)),
             None if qc is None else qc.cache_key())
 
 
@@ -237,19 +237,21 @@ def _params_sig(params):
                  for t in _leaves(params))
 
 
-def _gathered(net, qc):
+def _gathered(net, qc, gather=None, tensors=None):
     """(`_gather_params(net, qc)`, its `_params_sig`), gathered once per
     `_params_fingerprint` and cached on the net per weight path (the JAX
-    package's ``PagedPrograms.gather_params``)."""
+    package's ``PagedPrograms.gather_params``); ``gather`` and
+    ``tensors`` name another model family's gather and the tensors it
+    reads (`_gather_nmt_params`, `_nmt_param_tensors`)."""
     with _gather_lock:
         cache = getattr(net, "_gen_params", None)
         if cache is None:
             cache = net._gen_params = OrderedDict()
         qkey = None if qc is None else qc.cache_key()
-        fp = _params_fingerprint(net, qc)
+        fp = _params_fingerprint(net, qc, tensors)
         ent = _lru_touch(cache, qkey)
         if ent is None or ent[0] != fp:
-            params = _gather_params(net, qc)
+            params = (gather or _gather_params)(net, qc)
             ent = _lru_put(cache, qkey, (fp, params, _params_sig(params)),
                            _PARAMS_CACHE_CAP)
         return ent[1], ent[2]
@@ -284,9 +286,9 @@ def _cache_program(net, sig, prog):
 
 
 def _net_pool(net):
-    """The graph pool of the net's ``generate``/``beam_search``
-    programs."""
-    dev = net.embed.weight.device
+    """The graph pool of the net's ``generate``/``beam_search`` (or
+    ``translate``) programs."""
+    dev = next(net.parameters()).device
     pool = getattr(net, "_graph_pool", None)
     if pool is None or pool.device != dev:
         pool = net._graph_pool = _graphs.Pool(dev)
@@ -442,7 +444,151 @@ def _make_pick(temperature, top_k):
     return pick
 
 
-class _GenerateProgram:
+# the score of a finished beam's non-eos continuations
+_NEG = -1e9
+
+
+def _top_k_by_index(x, k):
+    """The k largest entries of each row of ``x`` and their indices,
+    ties to the lower index (``jax.lax.top_k``'s order; `torch.topk`
+    promises none, and finished beams tie at ``_NEG`` by the
+    thousand)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class _DecodeLoop:
+    """The token loop shared by the decode programs (`_GenerateProgram`,
+    `_BeamProgram`, `_TranslateProgram`): the greedy pick inside a step's
+    graph, the sampled loop between replays, and the beam state, its
+    first expansion, its step and its backtrack.  A subclass holds the
+    static state these read (``_tok``, ``_done``, ``_out``, ``_t``,
+    ``_i``, ``_eos``, ``_N``; for beams ``_B``, ``_K``, ``_V``,
+    ``_alpha`` and the self-attention caches ``_kcs``/``_vcs``)."""
+
+    def _greedy_advance(self, logits) -> None:
+        """A greedy step's pick inside its graph: argmax, the eos
+        freeze, the token written at the device index ``_i`` of the
+        output and fed to the next step."""
+        nxt = logits.argmax(dim=-1)
+        if self._eos >= 0:
+            nxt = torch.where(self._done, torch.full_like(nxt, self._eos),
+                              nxt)
+            self._done.copy_(self._done | (nxt == self._eos))
+        self._out.index_copy_(1, self._i, nxt[:, None])
+        self._tok.copy_(nxt)
+        self._i.add_(1)
+
+    def _sample_loop(self, psig, first, t0, seed):
+        """A sampled decode: the pick at position ``t0 - 1`` from the
+        first logits, then one step replay a token, each pick between
+        replays from the host-seeded stream of ``(seed, t)``; returns
+        (B, N) tokens."""
+        tok = self._pick(first, t0 - 1, seed)
+        done = tok == self._eos
+        out = [tok]
+        for t in range(t0, t0 + self._N - 1):
+            self._tok.copy_(tok)
+            (logits,) = self._step_prog.run(psig)
+            nxt = self._pick(logits, t, seed)
+            if self._eos >= 0:
+                nxt = torch.where(done, torch.full_like(nxt, self._eos),
+                                  nxt)
+                done = done | (nxt == self._eos)
+            out.append(nxt)
+            tok = nxt
+        return torch.stack(out, dim=1)
+
+    def _beam_state(self, dev) -> None:
+        """A beam program's static state besides its caches: scores,
+        tokens, finished flags and lengths (B, K), the (token, parent)
+        trace of the N-1 steps, the device position and step index."""
+        B, K = self._B, self._K
+        long = dict(dtype=torch.long, device=dev)
+        self._scores = torch.zeros((B, K), dtype=torch.float32, device=dev)
+        self._tok = torch.zeros((B, K), **long)
+        self._tok0 = torch.zeros((B, K), **long)
+        self._done = torch.zeros((B, K), dtype=torch.bool, device=dev)
+        self._lens = torch.zeros((B, K), **long)
+        steps = max(self._N - 1, 1)
+        self._toks = torch.zeros((steps, B, K), **long)
+        self._parents = torch.zeros((steps, B, K), **long)
+        self._t = torch.zeros((1,), **long)
+        self._i = torch.zeros((1,), **long)
+        self._base = torch.arange(B, device=dev)[:, None] * K
+        self._frozen = None
+        if self._eos >= 0:
+            # a finished beam may only extend with eos, at no cost: its
+            # score and length freeze
+            self._frozen = torch.full((self._V,), _NEG, device=dev)
+            self._frozen[self._eos] = 0.0
+
+    def _beam_start(self, logits0, t0):
+        """The first K expansions from the (B, V) logits at position
+        ``t0 - 1``; the steps continue at ``t0``."""
+        logp0 = torch.log_softmax(logits0, dim=-1)
+        scores, tok = _top_k_by_index(logp0, self._K)
+        self._scores.copy_(scores)
+        self._tok.copy_(tok)
+        self._tok0.copy_(tok)
+        self._done.copy_(tok == self._eos if self._eos >= 0
+                         else torch.zeros_like(self._done))
+        self._lens.fill_(1)
+        self._t.fill_(t0)
+        self._i.zero_()
+        return (scores,)
+
+    def _beam_advance(self, logits):
+        """One beam step from the (B·K, V) logits: the K·V candidate
+        expansion, the caches reordered by beam parent in place, the
+        (token, parent) trace written at the device step index."""
+        B, K, V = self._B, self._K, self._V
+        logp = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
+        if self._frozen is not None:
+            logp = torch.where(self._done[..., None], self._frozen, logp)
+        cand = self._scores[..., None] + logp                 # (B, K, V)
+        scores, idx = _top_k_by_index(cand.reshape(B, K * V), K)
+        parent = idx // V
+        tok = idx % V
+        gidx = (self._base + parent).reshape(B * K)
+        for c in self._kcs + self._vcs:
+            c.copy_(c.index_select(0, gidx))
+        pdone = self._done.gather(1, parent)
+        plens = self._lens.gather(1, parent)
+        if self._eos >= 0:
+            self._done.copy_(pdone | (tok == self._eos))
+            self._lens.copy_(torch.where(pdone, plens, plens + 1))
+        else:
+            self._done.copy_(pdone)
+            self._lens.copy_(plens + 1)
+        self._scores.copy_(scores)
+        self._tok.copy_(tok)
+        self._toks.index_copy_(0, self._i, tok[None])
+        self._parents.index_copy_(0, self._i, parent[None])
+        self._t.add_(1)
+        self._i.add_(1)
+        return (scores,)
+
+    def _beam_finish(self):
+        """(gen (B, K, N) best-first, normalized scores (B, K)) from the
+        trace: follow the parent pointers from the final beams back to
+        the first expansion, then rank by the GNMT length penalty."""
+        B, K, N = self._B, self._K, self._N
+        ptr = torch.arange(K, device=self._tok.device).expand(B, K)
+        rest = []
+        for s in reversed(range(N - 1)):
+            rest.append(self._toks[s].gather(1, ptr))
+            ptr = self._parents[s].gather(1, ptr)
+        gen = torch.stack([self._tok0.gather(1, ptr)] + rest[::-1], dim=2)
+        scores, alpha = self._scores, self._alpha
+        norm = scores / (((5.0 + self._lens.float()) / 6.0) ** alpha) \
+            if alpha > 0.0 else scores
+        order = torch.sort(-norm, dim=1, stable=True).indices
+        gen = gen.gather(1, order[..., None].expand_as(gen))
+        return gen, norm.gather(1, order)
+
+
+class _GenerateProgram(_DecodeLoop):
     """`lm_generate`'s programs for one signature (B, Pp, N, sampling,
     eos, weight path, bucketing): ``decode_prefill`` runs the (padded)
     prompt through the flash kernel into static per-layer caches
@@ -508,16 +654,8 @@ class _GenerateProgram:
         logits = _decode_token(self._params, self._acts, self._kcs,
                                self._vcs, self._tok, self._t, self._H)
         self._t.add_(1)
-        if not self._greedy:
-            return (logits,)
-        nxt = logits.argmax(dim=-1)
-        if self._eos >= 0:
-            nxt = torch.where(self._done, torch.full_like(nxt, self._eos),
-                              nxt)
-            self._done.copy_(self._done | (nxt == self._eos))
-        self._out.index_copy_(1, self._i, nxt[:, None])
-        self._tok.copy_(nxt)
-        self._i.add_(1)
+        if self._greedy:
+            self._greedy_advance(logits)
         return (logits,)
 
     def __call__(self, params, psig, prompt, P, seed):
@@ -531,21 +669,7 @@ class _GenerateProgram:
                 for _ in range(self._N - 1):
                     self._step_prog.run(psig)
                 return self._out.clone()
-            tok = self._pick(first, P - 1, seed)
-            done = tok == self._eos
-            out = [tok]
-            for t in range(P, P + self._N - 1):
-                self._tok.copy_(tok)
-                (logits,) = self._step_prog.run(psig)
-                nxt = self._pick(logits, t, seed)
-                if self._eos >= 0:
-                    nxt = torch.where(done, torch.full_like(nxt, self._eos),
-                                      nxt)
-                    done = done | (nxt == self._eos)
-                out.append(nxt)
-                tok = nxt
-            return torch.stack(out, dim=1)
-
+            return self._sample_loop(psig, first, P, seed)
 
 
 def _as_tokens(prompt, device):
@@ -659,20 +783,7 @@ def lm_stream(net, prompt, max_new_tokens: int, *, engine=None,
                       seed=seed).stream()
 
 
-# the score of a finished beam's non-eos continuations
-_NEG = -1e9
-
-
-def _top_k_by_index(x, k):
-    """The k largest entries of each row of ``x`` and their indices,
-    ties to the lower index (``jax.lax.top_k``'s order; `torch.topk`
-    promises none, and finished beams tie at ``_NEG`` by the
-    thousand)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
-class _BeamProgram:
+class _BeamProgram(_DecodeLoop):
     """`lm_beam_search`'s programs for one signature (B, P, N, K, eos,
     alpha, weight path): ``beam_prefill`` runs the prompt through the
     flash kernel into static caches of B·K rows (each row K-fold) and
@@ -702,29 +813,11 @@ class _BeamProgram:
             return
         emb = params["embed"]
         B, K, H = self._B, self._K, self._H
-        BK, dev = B * K, emb.device
-        shape = (BK, H, self._P + self._N, emb.shape[1] // H)
+        shape = (B * K, H, self._P + self._N, emb.shape[1] // H)
         L = len(params["layers"])
         self._kcs = [emb.new_zeros(shape) for _ in range(L)]
         self._vcs = [emb.new_zeros(shape) for _ in range(L)]
-        long = dict(dtype=torch.long, device=dev)
-        self._scores = torch.zeros((B, K), dtype=torch.float32, device=dev)
-        self._tok = torch.zeros((B, K), **long)
-        self._tok0 = torch.zeros((B, K), **long)
-        self._done = torch.zeros((B, K), dtype=torch.bool, device=dev)
-        self._lens = torch.zeros((B, K), **long)
-        steps = max(self._N - 1, 1)
-        self._toks = torch.zeros((steps, B, K), **long)
-        self._parents = torch.zeros((steps, B, K), **long)
-        self._t = torch.zeros((1,), **long)
-        self._i = torch.zeros((1,), **long)
-        self._base = torch.arange(B, device=dev)[:, None] * K
-        self._frozen = None
-        if self._eos >= 0:
-            # a finished beam may only extend with eos, at no cost: its
-            # score and length freeze
-            self._frozen = torch.full((self._V,), _NEG, device=dev)
-            self._frozen[self._eos] = 0.0
+        self._beam_state(emb.device)
         self._psig = psig
 
     def _prefill_body(self, prompt):
@@ -732,67 +825,14 @@ class _BeamProgram:
         h_last, _, _ = _prefill(params, prompt, self._acts, self._H,
                                 self._P + self._N,
                                 caches=(self._kcs, self._vcs))
-        logp0 = torch.log_softmax(_logits_of(params, h_last), dim=-1)
-        scores, tok = _top_k_by_index(logp0, self._K)
-        self._scores.copy_(scores)
-        self._tok.copy_(tok)
-        self._tok0.copy_(tok)
-        self._done.copy_(tok == self._eos if self._eos >= 0
-                         else torch.zeros_like(self._done))
-        self._lens.fill_(1)
-        self._t.fill_(self._P)
-        self._i.zero_()
-        return (scores,)
+        return self._beam_start(_logits_of(params, h_last), self._P)
 
     def _step_body(self):
         B, K = self._B, self._K
         logits = _decode_token(self._params, self._acts, self._kcs,
                                self._vcs, self._tok.reshape(B * K), self._t,
                                self._H)
-        V = self._V
-        logp = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
-        if self._frozen is not None:
-            logp = torch.where(self._done[..., None], self._frozen, logp)
-        cand = self._scores[..., None] + logp                 # (B, K, V)
-        scores, idx = _top_k_by_index(cand.reshape(B, K * V), K)
-        parent = idx // V
-        tok = idx % V
-        gidx = (self._base + parent).reshape(B * K)
-        for c in self._kcs + self._vcs:
-            c.copy_(c.index_select(0, gidx))
-        pdone = self._done.gather(1, parent)
-        plens = self._lens.gather(1, parent)
-        if self._eos >= 0:
-            self._done.copy_(pdone | (tok == self._eos))
-            self._lens.copy_(torch.where(pdone, plens, plens + 1))
-        else:
-            self._done.copy_(pdone)
-            self._lens.copy_(plens + 1)
-        self._scores.copy_(scores)
-        self._tok.copy_(tok)
-        self._toks.index_copy_(0, self._i, tok[None])
-        self._parents.index_copy_(0, self._i, parent[None])
-        self._t.add_(1)
-        self._i.add_(1)
-        return (scores,)
-
-    def _finish(self):
-        """(gen (B, K, N) best-first, normalized scores (B, K)) from the
-        trace: follow the parent pointers from the final beams back to
-        the first expansion, then rank by the GNMT length penalty."""
-        B, K, N = self._B, self._K, self._N
-        ptr = torch.arange(K, device=self._tok.device).expand(B, K)
-        rest = []
-        for s in reversed(range(N - 1)):
-            rest.append(self._toks[s].gather(1, ptr))
-            ptr = self._parents[s].gather(1, ptr)
-        gen = torch.stack([self._tok0.gather(1, ptr)] + rest[::-1], dim=2)
-        scores, alpha = self._scores, self._alpha
-        norm = scores / (((5.0 + self._lens.float()) / 6.0) ** alpha) \
-            if alpha > 0.0 else scores
-        order = torch.sort(-norm, dim=1, stable=True).indices
-        gen = gen.gather(1, order[..., None].expand_as(gen))
-        return gen, norm.gather(1, order)
+        return self._beam_advance(logits)
 
     def __call__(self, params, psig, prompt):
         with self._lock:
@@ -800,7 +840,7 @@ class _BeamProgram:
             self._prefill_prog.run(psig, prompt=prompt)
             for _ in range(self._N - 1):
                 self._step_prog.run(psig)
-            return self._finish()
+            return self._beam_finish()
 
 
 @torch.no_grad()
@@ -843,3 +883,291 @@ def lm_beam_search(net, prompt, max_new_tokens: int, *, beam_size: int = 4,
     gen, norm = prog(params, psig, prompt)
     seqs = torch.cat([prompt[:, None].expand(B, K, P), gen], dim=2)
     return seqs.to(torch.int32), norm
+
+
+# --------------------------------------------------------------------- #
+# NMT (encoder-decoder Transformer) translation
+# --------------------------------------------------------------------- #
+def _gather_nmt_params(net, qc=None):
+    """The decoder side of a `models.Transformer` in the JAX package's
+    layout (`_gather_nmt_params`, `models/generation.py:831-865`): the
+    encoder runs through the public blocks outside the decode programs.
+    With a `DecodeQuantConfig` ``qc`` its target layers come out as
+    int8 + scale dicts (see `_dense`)."""
+    def wb(layer):
+        if qc is not None:
+            packed = qc.packed(layer)
+            if packed is not None:
+                return packed, layer.bias
+        return layer.weight, layer.bias
+
+    layers = [{"ln1": (lyr.ln1.gamma, lyr.ln1.beta),
+               "qkv": wb(lyr.self_attn.qkv),
+               "proj": wb(lyr.self_attn.proj),
+               "ln2": (lyr.ln2.gamma, lyr.ln2.beta),
+               "xq": wb(lyr.cross_attn.q_proj),
+               "xkv": wb(lyr.cross_attn.kv_proj),
+               "xproj": wb(lyr.cross_attn.proj),
+               "ln3": (lyr.ln3.gamma, lyr.ln3.beta),
+               "ffn1": wb(lyr.ffn.ffn_dense1),
+               "ffn2": wb(lyr.ffn.ffn_dense2)} for lyr in net.decoder._layers]
+    return {"embed": net.tgt_embed.weight, "pe": net._pe,
+            "ln": (net.decoder.ln.gamma, net.decoder.ln.beta),
+            "head": wb(net.out_proj), "layers": layers}
+
+
+def _nmt_param_tensors(net):
+    """The tensors `_gather_nmt_params` reads (the fingerprint's)."""
+    ts = [net.tgt_embed.weight, net._pe, net.out_proj.weight,
+          net.out_proj.bias] + list(net.decoder.parameters())
+    return [t for t in ts if t is not None]
+
+
+def _weight_nbytes(params) -> int:
+    """Bytes of the weights a decode step streams through its matmuls:
+    layer matmul weights and biases, LayerNorms, the final LayerNorm and
+    the head (int8 + scales where quantized); the embedding is a row
+    gather and is left out, as in the JAX package's ``_weight_nbytes``."""
+    def size(v):
+        if isinstance(v, dict):
+            return v["w8"].nbytes + v["s"].nbytes
+        return 0 if v is None else v.nbytes
+
+    total = sum(size(t) for t in params["ln"])
+    total += sum(size(t) for t in params["head"])
+    for lp in params["layers"]:
+        total += sum(size(t) for v in lp.values() for t in v)
+    return total
+
+
+def _cross_kv(params, mem, H):
+    """Every decoder layer's cross-attention K and V, (B, H, S, D) each,
+    from the encoder memory (B, S, C)."""
+    B, S, C = mem.shape
+    D = C // H
+    out = []
+    for lp in params["layers"]:
+        kx, vx = _dense(mem.to(params["embed"].dtype),
+                        *lp["xkv"]).split(C, dim=-1)
+        out.append((kx.reshape(B, S, H, D).transpose(1, 2),
+                    vx.reshape(B, S, H, D).transpose(1, 2)))
+    return out
+
+
+def _nmt_decode_token(params, acts, kcaches, vcaches, xks, xvs, mem_mask,
+                      tok, t, H):
+    """One decoder step for target tokens ``tok`` at position ``t`` ((1,)
+    int64 on the card; `models/generation.py:868-901` of the JAX
+    package): pre-LN self-attention against the caches
+    (`_cached_self_attn`), cross-attention over the precomputed memory
+    K/V with f32 scores and softmax (the training path's numerics) and
+    the memory's padding mask, FFN; f32 logits (B', V)."""
+    h = _embed(params, tok, t)
+    Bp, C = h.shape
+    D = C // H
+    for li, (lp, act) in enumerate(zip(params["layers"], acts)):
+        h = _cached_self_attn(lp, h, kcaches[li], vcaches[li], t, H)
+        qx = _dense(_ln(h, *lp["ln2"]), *lp["xq"]).reshape(Bp, H, D)
+        s = torch.einsum("bhd,bhkd->bhk", qx.float(),
+                         xks[li].float()) / math.sqrt(D)
+        if mem_mask is not None:
+            s = torch.where(mem_mask[:, None, :].bool(), s, _F32_MIN)
+        p = torch.softmax(s, dim=-1)
+        a = torch.einsum("bhk,bhkd->bhd", p, xvs[li].float()).to(h.dtype)
+        h = h + _dense(a.reshape(Bp, C), *lp["xproj"])
+        h = h + _ffn_fwd(_ln(h, *lp["ln3"]), lp, act)
+    return _logits_of(params, h)
+
+
+class _TranslateProgram(_DecodeLoop):
+    """`nmt_translate`'s programs for one signature (B, S, N, K, eos,
+    bos, alpha, sampling, mask, weight path), the JAX package's
+    `_build_nmt_program` as two `_graphs.Program`s:
+
+    * ``nmt_start`` — every layer's cross-attention K/V from the encoder
+      memory into static buffers, the BOS step at position 0 at batch B,
+      then the greedy first token (written into the static output), or
+      for beams the caches, the cross K/V and the mask tiled K-fold once
+      (per-beam constants) and the first K expansions;
+    * ``nmt_step`` — one target position at batch B·K against the
+      static self-attention caches (B·K, H, N+1, D), its position a
+      device scalar it advances itself; greedy, the argmax and the eos
+      freeze run inside it, for beams the K·V expansion and the cache
+      reorder by parent (`_beam_advance`).  Replayed N-1 times.
+
+    Sampled, the pick runs between step replays from the host-seeded
+    streams, as in `lm_generate` (`_sample_loop`).  Calls are
+    serialised: the caches are the program's state."""
+
+    def __init__(self, net, B, S, N, K, eos_id, bos_id, alpha,
+                 temperature, top_k, masked):
+        self._B, self._S, self._N, self._K = B, S, N, K
+        layers = net.decoder._layers
+        self._H = layers[0].self_attn._num_heads
+        self._acts = tuple(lyr.ffn._act for lyr in layers)
+        self._V = net.out_proj.weight.shape[0]
+        self._eos, self._bos, self._alpha = eos_id, bos_id, alpha
+        self._greedy = temperature <= 0.0
+        self._pick = _make_pick(temperature, top_k)
+        self._masked = masked
+        self._lock = threading.Lock()
+        pool = _net_pool(net)
+        self._start_prog = _graphs.Program("nmt_start", self._start_body,
+                                           pool)
+        self._step_prog = _graphs.Program("nmt_step", self._step_body, pool)
+        self._psig = None
+
+    def _bind(self, params, psig):
+        self._params = params
+        if psig == self._psig:
+            return
+        emb = params["embed"]
+        dev = emb.device
+        B, K, H = self._B, self._K, self._H
+        D = emb.shape[1] // H
+        L = len(params["layers"])
+        cache = (B * K, H, self._N + 1, D)
+        cross = (B * K, H, self._S, D)
+        self._kcs = [emb.new_zeros(cache) for _ in range(L)]
+        self._vcs = [emb.new_zeros(cache) for _ in range(L)]
+        self._xks = [emb.new_zeros(cross) for _ in range(L)]
+        self._xvs = [emb.new_zeros(cross) for _ in range(L)]
+        self._mask = torch.ones((B * K, self._S), device=dev)
+        if K > 1:
+            self._beam_state(dev)
+        else:
+            long = dict(dtype=torch.long, device=dev)
+            self._tok = torch.zeros((B,), **long)
+            self._done = torch.zeros((B,), dtype=torch.bool, device=dev)
+            self._t = torch.zeros((1,), **long)
+            self._i = torch.zeros((1,), **long)
+            self._out = torch.zeros((B, self._N), **long)
+        self._psig = psig
+
+    def _start_body(self, mem, mem_mask):
+        params, B, K = self._params, self._B, self._K
+        xkv = _cross_kv(params, mem, self._H)
+        xks, xvs = [k for k, _ in xkv], [v for _, v in xkv]
+        mask = mem_mask if self._masked else None
+        dev = mem.device
+        bos = torch.full((B,), self._bos, dtype=torch.long, device=dev)
+        t0 = torch.zeros((1,), dtype=torch.long, device=dev)
+        if K > 1:
+            kc0 = [c.new_zeros((B,) + c.shape[1:]) for c in self._kcs]
+            vc0 = [c.new_zeros((B,) + c.shape[1:]) for c in self._vcs]
+            logits = _nmt_decode_token(params, self._acts, kc0, vc0, xks,
+                                       xvs, mask, bos, t0, self._H)
+            for src, dst in zip(kc0 + vc0 + xks + xvs, self._kcs + self._vcs
+                                + self._xks + self._xvs):
+                dst.copy_(src.repeat_interleave(K, dim=0))
+            self._mask.copy_(mem_mask.repeat_interleave(K, dim=0))
+            return self._beam_start(logits, 1)
+        for src, dst in zip(xks + xvs, self._xks + self._xvs):
+            dst.copy_(src)
+        self._mask.copy_(mem_mask)
+        for c in self._kcs + self._vcs:
+            c.zero_()
+        logits = _nmt_decode_token(params, self._acts, self._kcs, self._vcs,
+                                   self._xks, self._xvs, mask, bos, t0,
+                                   self._H)
+        self._t.fill_(1)
+        if self._greedy:
+            first = logits.argmax(dim=-1)
+            self._tok.copy_(first)
+            self._done.copy_(first == self._eos)
+            self._out[:, 0] = first
+            self._i.fill_(1)
+        return (logits,)
+
+    def _step_body(self):
+        logits = _nmt_decode_token(
+            self._params, self._acts, self._kcs, self._vcs, self._xks,
+            self._xvs, self._mask if self._masked else None,
+            self._tok.reshape(-1), self._t, self._H)
+        if self._K > 1:
+            return self._beam_advance(logits)
+        self._t.add_(1)
+        if self._greedy:
+            self._greedy_advance(logits)
+        return (logits,)
+
+    def __call__(self, params, psig, mem, mem_mask, seed):
+        with self._lock:
+            self._bind(params, psig)
+            (first,) = self._start_prog.run(psig, mem=mem, mem_mask=mem_mask)
+            if self._K == 1 and not self._greedy:
+                return self._sample_loop(psig, first, 1, seed)
+            for _ in range(self._N - 1):
+                self._step_prog.run(psig)
+            if self._K > 1:
+                return self._beam_finish()
+            return self._out.clone()
+
+
+@torch.no_grad()
+def nmt_translate(net, src, max_len: int, *, beam_size: int = 1,
+                  eos_id: int = -1, bos_id: int = 0, alpha: float = 0.0,
+                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                  src_valid_length=None, quantized=None):
+    """Translate ``src`` (int (B, S)) with the `models.Transformer`
+    ``net`` on the net's device (`models/generation.py:967-1055` of the
+    JAX package): the encoder runs through the public blocks (the
+    training numerics), the decoder through `_TranslateProgram`'s
+    captured programs, cached on the net per signature like
+    `lm_generate`'s (LRU of 32).  Greedy (or sampled: ``temperature``,
+    ``top_k``, ``seed``, torch's streams, not JAX's) when ``beam_size``
+    is 1: int32 (B, max_len) target tokens, BOS excluded.  K-beam
+    otherwise: (sequences int32 (B, K, max_len), scores f32 (B, K))
+    best-first, the GNMT length penalty by ``alpha``.
+
+    ``bos_id`` seeds the decoder; ``eos_id >= 0`` freezes finished rows
+    or beams; ``src_valid_length`` masks the source's padding in the
+    encoder and the cross-attention; ``quantized`` selects the int8
+    decoder as in `lm_generate` (the encoder stays float).  ``max_len``
+    and the source length are each at most the model's ``max_length``,
+    ``beam_size`` at most the vocabulary, and a beam search takes no
+    sampling arguments."""
+    dev = net.src_embed.weight.device
+    src = _as_tokens(src, dev)
+    B, S = src.shape
+    N = int(max_len)
+    K = int(beam_size)
+    if N < 1:
+        raise ValueError(f"max_len must be >= 1, got {N}")
+    if K < 1:
+        raise ValueError(f"beam_size must be >= 1, got {K}")
+    if N > net._max_length:
+        raise ValueError(f"max_len {N} exceeds the model's max_length "
+                         f"{net._max_length}")
+    if S > net._max_length:
+        raise ValueError(f"src length {S} exceeds the model's max_length "
+                         f"{net._max_length}")
+    V = net.out_proj.weight.shape[0]
+    if K > V:
+        raise ValueError(f"beam_size {K} exceeds vocab {V}")
+    if K > 1 and (temperature > 0.0 or top_k > 0):
+        raise ValueError("beam search is deterministic — temperature/top_k "
+                         "only apply at beam_size=1")
+    from .bert import valid_mask
+
+    qc = _quant_config(net, quantized)
+    masked = src_valid_length is not None
+    mem_mask = valid_mask(src_valid_length, S, dev) if masked \
+        else torch.ones((B, S), device=dev)
+    mem = net.encoder(net._embed(net.src_embed, src),
+                      mem_mask if masked else None)
+    # sampling arguments are inert for beams: kept out of their key
+    samp = (float(temperature), int(top_k)) if K == 1 else (0.0, 0)
+    sig = ("nmt", B, S, N, K, int(eos_id), int(bos_id), float(alpha), samp,
+           masked, qc.cache_key() if qc is not None else None)
+    prog = _lru_touch(_program_cache(net), sig)
+    if prog is None:
+        prog = _cache_program(net, sig, _TranslateProgram(
+            net, B, S, N, K, int(eos_id), int(bos_id), float(alpha),
+            samp[0], samp[1], masked))
+    params, psig = _gathered(net, qc, _gather_nmt_params, _nmt_param_tensors)
+    out = prog(params, psig, mem, mem_mask, int(seed))
+    if K == 1:
+        return out.to(torch.int32)
+    gen, scores = out
+    return gen.to(torch.int32), scores

@@ -13,14 +13,20 @@ import math
 
 import torch
 
+import torch.nn.functional as F
+
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
-from ..gluon.nn import DropoutAdd, Embedding, LayerNorm, Dense
+from ..gluon.nn import Dense, Dropout, DropoutAdd, Embedding, LayerNorm
 from ..ops.flash_attention import flash_attention
-from .bert import MultiHeadAttention, PositionwiseFFN
+from ..ops.xent_kernel import fused_smoothed_xent, should_fuse
+from .bert import (MultiHeadAttention, PositionwiseFFN, masked_attention,
+                   valid_mask)
 from .generation import _qkv_heads
 
-__all__ = ["TransformerLM", "positional_encoding"]
+__all__ = ["TransformerLM", "Transformer", "TransformerEncoder",
+           "TransformerDecoder", "LabelSmoothedCELoss", "transformer_base",
+           "transformer_big", "positional_encoding"]
 
 # std of the normal initialization of weight matrices and embeddings
 _INIT_STD = 0.02
@@ -179,3 +185,253 @@ class TransformerLM(HybridBlock):
         from ..contrib.quantization import dequantize_decode
 
         return dequantize_decode(self)
+
+
+# --------------------------------------------------------------------- #
+# the encoder-decoder Transformer (WMT En-De)
+# --------------------------------------------------------------------- #
+class _CrossAttention(HybridBlock):
+    """Attention of the decoder's states over the encoder memory
+    (`models/transformer.py:67-104` of the JAX package): ``q_proj`` on
+    the queries, ``kv_proj`` on the memory, f32 scores and softmax with
+    the memory's padding mask, ``proj`` out."""
+
+    def __init__(self, units, num_heads, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self._units = units
+        self._num_heads = num_heads
+        self.q_proj = Dense(units, units, **kw)
+        self.kv_proj = Dense(2 * units, units, **kw)
+        self.proj = Dense(units, units, **kw)
+
+    def forward(self, x, mem, mem_mask=None):
+        B, Tq, C = x.shape
+        Tk = mem.shape[1]
+        H = self._num_heads
+        D = C // H
+        q = self.q_proj(x).reshape(B, Tq, H, D).transpose(1, 2)
+        k, v = self.kv_proj(mem).split(C, dim=-1)
+        out = masked_attention(q, k.reshape(B, Tk, H, D).transpose(1, 2),
+                               v.reshape(B, Tk, H, D).transpose(1, 2),
+                               mem_mask)
+        return self.proj(out.transpose(1, 2).reshape(B, Tq, C))
+
+
+class _EncoderLayer(HybridBlock):
+    """Pre-LN encoder layer (`:107-119`): ``x + drop(attn(ln1(x)))``,
+    then ``x + drop(ffn(ln2(x)))``; the FFN drops its output itself
+    first."""
+
+    def __init__(self, units, hidden_size, num_heads, dropout, *, device,
+                 dtype):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.ln1 = LayerNorm(units, **kw)
+        self.attn = MultiHeadAttention(units, num_heads, dropout, **kw)
+        self.ln2 = LayerNorm(units, **kw)
+        self.ffn = PositionwiseFFN(units, hidden_size, dropout,
+                                   activation="relu", **kw)
+        self.drop_add = DropoutAdd(dropout)
+
+    def forward(self, x, mask=None):
+        x = self.drop_add(self.attn(self.ln1(x), mask), x)
+        return self.drop_add(self.ffn(self.ln2(x)), x)
+
+
+class _DecoderLayer(HybridBlock):
+    """Pre-LN decoder layer (`:122-137`): causal self-attention (the
+    flash kernels), cross-attention over the memory, FFN, each added
+    back through ``drop_add``."""
+
+    def __init__(self, units, hidden_size, num_heads, dropout, *, device,
+                 dtype):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.ln1 = LayerNorm(units, **kw)
+        self.self_attn = _CausalSelfAttention(units, num_heads, dropout, **kw)
+        self.ln2 = LayerNorm(units, **kw)
+        self.cross_attn = _CrossAttention(units, num_heads, **kw)
+        self.ln3 = LayerNorm(units, **kw)
+        self.ffn = PositionwiseFFN(units, hidden_size, dropout,
+                                   activation="relu", **kw)
+        self.drop_add = DropoutAdd(dropout)
+
+    def forward(self, x, mem, mem_mask=None):
+        x = self.drop_add(self.self_attn(self.ln1(x)), x)
+        x = self.drop_add(self.cross_attn(self.ln2(x), mem, mem_mask), x)
+        return self.drop_add(self.ffn(self.ln3(x)), x)
+
+
+class TransformerEncoder(HybridBlock):
+    """``num_layers`` `_EncoderLayer`s (``layer0``, ...), then ``ln``
+    (`:140-153`)."""
+
+    def __init__(self, num_layers, units, hidden_size, num_heads, dropout,
+                 *, device=None, dtype=torch.float32):
+        super().__init__()
+        self._num_layers = num_layers
+        for i in range(num_layers):
+            setattr(self, f"layer{i}", _EncoderLayer(
+                units, hidden_size, num_heads, dropout, device=device,
+                dtype=dtype))
+        self.ln = LayerNorm(units, device=device, dtype=dtype)
+
+    @property
+    def _layers(self):
+        return [getattr(self, f"layer{i}") for i in range(self._num_layers)]
+
+    def forward(self, x, mask=None):
+        for lyr in self._layers:
+            x = lyr(x, mask)
+        return self.ln(x)
+
+
+class TransformerDecoder(HybridBlock):
+    """``num_layers`` `_DecoderLayer`s, then ``ln`` (`:156-169`)."""
+
+    def __init__(self, num_layers, units, hidden_size, num_heads, dropout,
+                 *, device=None, dtype=torch.float32):
+        super().__init__()
+        self._num_layers = num_layers
+        for i in range(num_layers):
+            setattr(self, f"layer{i}", _DecoderLayer(
+                units, hidden_size, num_heads, dropout, device=device,
+                dtype=dtype))
+        self.ln = LayerNorm(units, device=device, dtype=dtype)
+
+    @property
+    def _layers(self):
+        return [getattr(self, f"layer{i}") for i in range(self._num_layers)]
+
+    def forward(self, x, mem, mem_mask=None):
+        for lyr in self._layers:
+            x = lyr(x, mem, mem_mask)
+        return self.ln(x)
+
+
+class Transformer(HybridBlock):
+    """Encoder-decoder Transformer (`:291-351` of the JAX package):
+    ``forward(src_tokens, tgt_tokens, src_valid_length=None)`` gives the
+    (B, T, tgt_vocab) logits of the target given the source, the
+    source's padding mask from ``src_valid_length`` applied in the
+    encoder's self-attention and the decoder's cross-attention.
+
+    With ``share_embed`` and one vocabulary, ``tgt_embed`` is
+    ``src_embed`` (one parameter, ``src_embed.weight``; the JAX package
+    also names it ``tgt_embed.weight``, which `convert.load_jax_params`
+    takes as an alias).  ``device`` defaults to ``cuda`` (`MXNetError`
+    without a GPU unless ``device="cpu"``); ``initialize()`` fills the
+    weights.  The positional table is added in the embedding's dtype
+    (the JAX package adds an f32 table, which turns a bf16 model's
+    residual stream f32; in f32 the two are the same)."""
+
+    def __init__(self, src_vocab=32000, tgt_vocab=32000, units=512,
+                 hidden_size=2048, num_layers=6, num_heads=8, dropout=0.1,
+                 max_length=1024, share_embed=True, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        kw = {"device": dev, "dtype": dtype}
+        self._units = units
+        self._max_length = max_length
+        self.src_embed = Embedding(src_vocab, units, **kw)
+        self.tgt_embed = self.src_embed \
+            if share_embed and src_vocab == tgt_vocab \
+            else Embedding(tgt_vocab, units, **kw)
+        self.encoder = TransformerEncoder(num_layers, units, hidden_size,
+                                          num_heads, dropout, **kw)
+        self.decoder = TransformerDecoder(num_layers, units, hidden_size,
+                                          num_heads, dropout, **kw)
+        self.out_proj = Dense(tgt_vocab, units, **kw)
+        self.drop = Dropout(dropout)
+        self.register_buffer("_pe", positional_encoding(max_length, units,
+                                                        device=dev),
+                             persistent=False)
+        # the int8 weight state of `quantize_for_decode` (None: float)
+        self._decode_quant = None
+
+    def _embed(self, embed, tokens):
+        """``drop(embed(tokens)·√C + pe)``."""
+        T = tokens.shape[1]
+        if T > self._max_length:
+            raise ValueError(f"sequence {T} exceeds max_length "
+                             f"{self._max_length}")
+        x = embed(tokens) * math.sqrt(self._units)
+        return self.drop(x + self._pe[:T].to(x.dtype))
+
+    def forward(self, src_tokens, tgt_tokens, src_valid_length=None):
+        src = self._embed(self.src_embed, src_tokens)
+        mask = None if src_valid_length is None \
+            else valid_mask(src_valid_length, src.shape[1], src.device)
+        mem = self.encoder(src, mask)
+        dec = self.decoder(self._embed(self.tgt_embed, tgt_tokens), mem,
+                           mask)
+        return self.out_proj(dec)
+
+    def translate(self, src, max_len, **kw):
+        """Incremental translation: the encoder once through the public
+        blocks, the decoder as captured programs; greedy by default,
+        K-beam with ``beam_size=K``.  See
+        `models.generation.nmt_translate`."""
+        from .generation import nmt_translate
+
+        return nmt_translate(self, src, max_len, **kw)
+
+    def quantize_for_decode(self, **kw):
+        """Weight-quantize the decoder's matmuls for translation
+        (per-channel int8 + f32 scales; the encoder stays float); see
+        `contrib.quantization.quantize_for_decode`."""
+        from ..contrib.quantization import quantize_for_decode
+
+        return quantize_for_decode(self, **kw)
+
+    def dequantize_decode(self):
+        """Drop the decode-quantization marking: translation goes back
+        to the float path."""
+        from ..contrib.quantization import dequantize_decode
+
+        return dequantize_decode(self)
+
+
+class LabelSmoothedCELoss(HybridBlock):
+    """Label-smoothed cross-entropy averaged over the rows whose label is
+    not ``ignore_index`` (`:353-387`): ``(1-eps)·nll + eps·mean(-logp)``
+    per row, through the streamed kernels
+    (`xent_kernel.fused_smoothed_xent`) for a vocabulary `should_fuse`
+    takes, else ``log_softmax`` in the logits' dtype, as in the JAX
+    package.  Ignored rows (the JAX package wraps their label; here it
+    is 0) count nothing and get a zero gradient.  f32 scalar out.
+    Hybridized at construction, as in the JAX package."""
+
+    def __init__(self, smoothing=0.1, ignore_index=-1):
+        super().__init__()
+        self._eps = smoothing
+        self._ignore = ignore_index
+        self.hybridize()
+
+    def forward(self, logits, labels):
+        V = logits.shape[-1]
+        lb = labels.long()
+        valid = lb != self._ignore
+        safe = torch.where(valid, lb, 0)
+        if should_fuse(V):
+            loss = fused_smoothed_xent(logits, safe, self._eps)
+        else:
+            logp = F.log_softmax(logits, dim=-1)
+            nll = -logp.gather(-1, safe[..., None])[..., 0]
+            smooth = -logp.mean(dim=-1)
+            loss = (1 - self._eps) * nll + self._eps * smooth
+        valid = valid.float()
+        return (loss * valid).sum() / valid.sum().clamp(min=1.0)
+
+
+def transformer_base(src_vocab=32000, tgt_vocab=32000, **kw):
+    return Transformer(src_vocab, tgt_vocab, units=512, hidden_size=2048,
+                       num_layers=6, num_heads=8, **kw)
+
+
+def transformer_big(src_vocab=32000, tgt_vocab=32000, **kw):
+    return Transformer(src_vocab, tgt_vocab, units=1024, hidden_size=4096,
+                       num_layers=6, num_heads=16, **kw)

@@ -1,7 +1,9 @@
 """Optimizers of the PyTorch/CUDA port (counterpart of
-`incubator_mxnet_tpu/optimizer/optimizer.py`): the `Optimizer` base,
-``create``/``register``, and `SGD` with momentum — the flagship's
-optimizer.  The other rules are a later slice's.
+`incubator_mxnet_tpu/optimizer/optimizer.py`): the `Optimizer` base
+with its learning-rate schedule (`lr_scheduler`), ``create``/
+``register``, `SGD` with momentum (the BERT flagship's optimizer) and
+`Adam` (the Transformer recipe's).  The other rules are a later
+slice's.
 
 An update rule is written once, over lists of tensors, with
 ``torch._foreach_*`` ops (`Optimizer.update_many`): the Trainer's step
@@ -15,9 +17,10 @@ each bf16/fp16 weight in its state, updates the master and writes it
 back rounded to the weight's dtype.
 
 The scalars of a rule (learning rate, gradient rescale, weight decay,
-momentum) come from ``hyper``: Python floats from the optimizer's
-attributes by default, or 0-d tensors on the weights' device that the
-Trainer's update program stages each step (`hyper_values`), as the JAX
+momentum, Adam's bias-corrected rate) come from ``hyper``: Python
+floats from the optimizer's attributes by default, or 0-d tensors on
+the weights' device that the Trainer's update program stages each step
+(`hyper_values`), as the JAX
 step passes ``lr``, ``wd`` and ``rescale`` as arguments — so a captured
 update reads this step's values and a new learning rate or batch size
 needs no new capture.  Which terms the rule has (a weight decay, a
@@ -34,7 +37,7 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["Optimizer", "SGD", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "create", "register"]
 
 _REG: Dict[str, type] = {}
 _LOW = (torch.float16, torch.bfloat16)
@@ -78,9 +81,12 @@ def create(name, **kwargs) -> "Optimizer":
 
 
 class Optimizer:
-    """Base optimizer: learning rate, weight decay, gradient rescale and
-    clipping, multi-precision state.  ``num_update`` counts the steps
-    taken (`update_all` calls)."""
+    """Base optimizer: learning rate (fixed, or ``lr_scheduler`` read at
+    ``num_update``), weight decay, gradient rescale and clipping,
+    multi-precision state.  ``num_update`` counts the steps taken; a
+    step advances it before its update, as the JAX package's
+    ``_update_count`` does, so the first update reads the schedule and
+    the bias corrections at 1."""
 
     # the scalars a rule reads from ``hyper``, in `hyper_values` order
     HYPER = ("lr", "rescale_grad", "wd")
@@ -88,10 +94,11 @@ class Optimizer:
     def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
                  learning_rate=0.01, lr_scheduler=None,
                  multi_precision=False):
-        if lr_scheduler is not None:
-            raise MXNetError("lr_scheduler is not ported")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.multi_precision = multi_precision
@@ -99,14 +106,22 @@ class Optimizer:
 
     @property
     def learning_rate(self) -> float:
+        """The rate of update ``num_update``: the schedule's, if any."""
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
     def set_learning_rate(self, lr) -> None:
+        if self.lr_scheduler is not None:
+            raise UserWarning("LRScheduler of the optimizer has already "
+                              "been defined.")
         self.lr = lr
 
     def hyper_values(self) -> list:
-        """This step's scalars, in `HYPER` order."""
-        return [float(getattr(self, k)) for k in self.HYPER]
+        """This step's scalars, in `HYPER` order (``lr`` from the
+        schedule)."""
+        return [float(self.learning_rate if k == "lr" else getattr(self, k))
+                for k in self.HYPER]
 
     def _clip(self):
         clip = self.clip_gradient
@@ -176,8 +191,8 @@ class Optimizer:
     def update_multi_precision(self, index, weight, grad, state):
         """Reference API: one parameter, through its f32 master when
         `create_state_multi_precision` gave it one."""
-        self.update_all([weight], [grad], [state])
         self.num_update += 1
+        self.update_all([weight], [grad], [state])
 
     def __repr__(self):
         return f"{type(self).__name__}(lr={self.lr})"
@@ -212,3 +227,47 @@ class SGD(Optimizer):
         _mul_(states, hyper["momentum"])
         torch._foreach_add_(states, gs)                       # new mom
         torch._foreach_add_(weights, states)
+
+
+@register
+class Adam(Optimizer):
+    """Adam (`optimizer/optimizer.py:248-265` of the JAX package), g as
+    `Optimizer._prep` makes it: ``m = β1·m + (1-β1)·g``, ``v = β2·v +
+    (1-β2)·g²``, ``w -= lr_t·m / (√v + ε)`` with the bias-corrected rate
+    ``lr_t = lr·√(1-β2ᵗ)/(1-β1ᵗ)`` at update t, worked out on the host
+    each step (`lr_t`) and staged like the other scalars."""
+
+    HYPER = Optimizer.HYPER + ("lr_t",)
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    @property
+    def lr_t(self) -> float:
+        t = max(self.num_update, 1)
+        return self.learning_rate * math.sqrt(1.0 - self.beta2 ** t) \
+            / (1.0 - self.beta1 ** t)
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    def structure(self) -> tuple:
+        return super().structure() + (self.beta1, self.beta2, self.epsilon)
+
+    def update_many(self, weights, grads, states, hyper=None):
+        hyper = self._hyper(hyper)
+        gs = self._prep(grads, weights, hyper)
+        ms = [s[0] for s in states]
+        vs = [s[1] for s in states]
+        _mul_(ms, self.beta1)
+        torch._foreach_add_(ms, _mul(gs, 1.0 - self.beta1))
+        _mul_(vs, self.beta2)
+        torch._foreach_add_(vs, _mul(torch._foreach_mul(gs, gs),
+                                     1.0 - self.beta2))
+        den = torch._foreach_sqrt(vs)
+        torch._foreach_add_(den, self.epsilon)
+        step = _mul(ms, hyper["lr_t"])                        # lr_t·m
+        torch._foreach_div_(step, den)
+        torch._foreach_sub_(weights, step)

@@ -270,10 +270,23 @@ def test_causal_lm_attention_still_takes_flash(monkeypatch):
 
 
 def test_padding_mask_is_not_ported():
-    tnet = tbert.BERTForPretraining(**CFG, device="cpu").initialize()
-    with pytest.raises(MXNetError):
-        tnet(torch.zeros((1, 4), dtype=torch.long),
-             valid_length=torch.tensor([2]))
+    """Named for what it held before the padding mask was ported (a
+    raise); it now holds the masked path's contract: with
+    ``valid_length`` the tokens past a row's length change no output at
+    the positions before it (f32, within 1e-6), and without it they do.
+    The masked outputs against the JAX model's are in
+    `test_torch_nmt.py::test_bert_valid_length_matches_jax`."""
+    tnet = tbert.BERTForPretraining(**CFG, dropout=0.0,
+                                    device="cpu").initialize()
+    a = torch.from_numpy(onp.random.RandomState(0).randint(
+        0, CFG["vocab_size"], (2, 6)))
+    b = a.clone()
+    b[:, 3:] = (b[:, 3:] + 1) % CFG["vocab_size"]
+    vl = torch.tensor([3, 3])
+    (ma, _), (mb, _) = tnet(a, valid_length=vl), tnet(b, valid_length=vl)
+    assert torch.allclose(ma[:, :3], mb[:, :3], atol=1e-6)
+    assert not torch.allclose(tnet(a)[0][:, :3], tnet(b)[0][:, :3],
+                              atol=1e-6)
 
 
 SCOPES = {

@@ -438,7 +438,7 @@ def test_the_port_sources_share_one_header():
 
 # ---- the compiled-programs slice: CUDA graphs ----
 GRAPH_MODULES = ["_graphs", "retrace_guard", "gluon.block",
-                 "models.generation", "serving.programs"]
+                 "gluon.trainer", "models.generation", "serving.programs"]
 
 
 @pytest.mark.parametrize("mod", GRAPH_MODULES)
@@ -506,6 +506,88 @@ def test_cpu_graph_paths_never_touch_cuda():
         "net.hybridize()\n"
         "net(torch.tensor([[1, 2]]))\n"
         "assert not _graphs.captures and not _graphs.replays\n"
+        "print('ok')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+# ---- the NMT slice: Transformer, its loss, Adam, schedules, translate ----
+NMT_MODULES = ["lr_scheduler", "optimizer", "optimizer.optimizer",
+               "models.transformer", "models.bert", "models.generation",
+               "contrib.quantization", "gluon.trainer", "gluon.block",
+               "gluon.parameter", "convert"]
+TINY_NMT = dict(src_vocab=600, tgt_vocab=600, units=16, hidden_size=32,
+                num_layers=1, num_heads=2, max_length=16)
+
+
+@pytest.mark.parametrize("mod", NMT_MODULES)
+def test_nmt_modules_import_with_jax_blocked(mod):
+    res = _run("import sys\n"
+               "sys.modules['jax'] = None\n"
+               "sys.modules['incubator_mxnet_tpu'] = None\n"
+               f"import incubator_mxnet_tpu_torch.{mod}\n"
+               "print(sorted(n for n, m in sys.modules.items()\n"
+               "             if m is not None and n.split('.')[0] in\n"
+               "             ('jax', 'jaxlib', 'incubator_mxnet_tpu')))\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_nmt_entry_points_default_to_cuda(monkeypatch):
+    from incubator_mxnet_tpu_torch.models import Transformer, transformer_big
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError):
+        Transformer(**TINY_NMT)
+    with pytest.raises(MXNetError):
+        transformer_big(dropout=0.0)
+    net = Transformer(**TINY_NMT, device="cpu")
+    assert net.out_proj.weight.device.type == "cpu"
+
+
+def test_nmt_cpu_path_never_builds_or_loads_kernels():
+    """A Transformer training step (hybridized, Adam, the smoothed loss
+    at V=600, the streamed path's plain version) and greedy and beam
+    translation on the CPU: no build, no library load, no launch count,
+    no CUDA graph object."""
+    res = _run(
+        "import ctypes, subprocess, torch\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('kernel build, load or graph attempted')\n"
+        "subprocess.Popen = refuse\n"
+        "ctypes.CDLL = refuse\n"
+        "torch.cuda.graph_pool_handle = refuse\n"
+        "torch.cuda.CUDAGraph = refuse\n"
+        "from incubator_mxnet_tpu_torch import _build, _graphs, autograd\n"
+        "from incubator_mxnet_tpu_torch.gluon import HybridBlock, Trainer\n"
+        "from incubator_mxnet_tpu_torch.lr_scheduler import "
+        "InvSqrtScheduler\n"
+        "from incubator_mxnet_tpu_torch.models import (Transformer,\n"
+        "    LabelSmoothedCELoss)\n"
+        "from incubator_mxnet_tpu_torch.ops import xent_kernel as xk\n"
+        "from incubator_mxnet_tpu_torch.ops import dropout_kernel as dk\n"
+        f"net = Transformer(**{TINY_NMT!r}, dropout=0.1, device='cpu')\n"
+        "net.initialize()\n"
+        "class M(HybridBlock):\n"
+        "    def __init__(self):\n"
+        "        super().__init__(); self.net = net\n"
+        "        self.loss = LabelSmoothedCELoss(0.1)\n"
+        "    def forward(self, s, t, y):\n"
+        "        return self.loss(self.net(s, t), y)\n"
+        "m = M(); m.hybridize()\n"
+        "tr = Trainer(m.collect_params(), 'adam', {'lr_scheduler':\n"
+        "             InvSqrtScheduler(4), 'beta2': 0.98})\n"
+        "s = torch.randint(0, 600, (2, 8))\n"
+        "for _ in range(2):\n"
+        "    with autograd.record():\n"
+        "        loss = m(s, s, s)\n"
+        "    loss.backward()\n"
+        "    tr.step(2)\n"
+        "net.translate(s, 4)\n"
+        "net.translate(s, 4, beam_size=2)\n"
+        "assert not _build._libs and not _graphs.captures\n"
+        "assert xk.xent_forward.launches == xk.xent_backward.launches == 0\n"
+        "assert dk.dropout_fwd_dev.launches == dk.dropout_bwd.launches == 0\n"
         "print('ok')\n")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"

@@ -467,7 +467,7 @@ def test_hybridize_under_record_runs_recorded_programs_and_trains():
     (l0, g0), (l1, g1) = grads
     assert torch.equal(l0, l1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
-    (key, rec), = net._graph_cache.items()
+    (key, (rec,)), = net._graph_cache.items()
     assert "record" in key and rec.fwd.name == "fwd_record" \
         and rec.bwd.name == "bwd_record"
 

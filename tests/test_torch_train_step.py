@@ -201,7 +201,7 @@ def test_fused_step_equals_unfused_in_bf16_without_multi_precision():
 def test_recorded_step_runs_the_programs():
     model, tr = _model()
     _train(model, tr, steps=2)
-    (key, rec), = model._graph_cache.items()
+    (key, (rec,)), = model._graph_cache.items()
     assert rec.fwd.name == "fwd_record" and rec.bwd.name == "bwd_record"
     # the embedding dropout and two DropoutAdds a layer draw from the
     # forward program's seed table
@@ -383,44 +383,74 @@ def test_new_batch_shape_records_anew_and_cast_drops_programs():
         == torch.bfloat16
 
 
-def test_second_forward_before_backward_raises():
-    """A second recorded call while the first call's output awaits its
-    backward raises (its forward program's next run would overwrite the
-    activations that backward reads); after the backward, or once that
-    output is dropped, the block records again, and its gradients are
-    those of the block never hybridized."""
-    model, _ = _model()
-    plain, _ = _model(hybrid=False)
+def test_two_recorded_calls_before_one_backward():
+    """Two recorded calls, the second while the first call's output
+    still awaits its backward, then ``(l1 + l2).backward()``: the second
+    call runs programs of its own (a second `_Recorded`, its own graph
+    pool), both backwards' gradients add up in each parameter, and a
+    third call after the backward takes the first programs again.  The
+    losses and gradients equal the block never hybridized bit for bit
+    (dropout on, one seed), and the JAX package's hybridized block
+    within 1e-5 (dropout off, weights carried across)."""
     a, b = (torch.from_numpy(t) for t in _batch(1))
     c, d = (torch.from_numpy(t) for t in _batch(2))
-    mxr.seed(5, device="cpu")
+    runs = []
+    for hybrid in (True, False):
+        model, _ = _model(hybrid=hybrid)
+        mxr.seed(5, device="cpu")
+        with autograd.record():
+            l1 = model(a, b)
+            l2 = model(c, d)
+            total = l1 + l2
+        total.backward()
+        runs.append((model, [l1.detach(), l2.detach()], {
+            k: p.grad for k, p in model.collect_params().items()}))
+    (model, lh, gh), (_, lp, gp) = runs
+    assert _same(lh, lp)
+    assert gh.keys() == gp.keys()
+    for k in gp:
+        assert (gh[k] is None and gp[k] is None) \
+            or torch.equal(gh[k], gp[k]), k
+    (key, recs), = model._graph_cache.items()
+    assert "record" in key and len(recs) == 2
+    assert recs[0].fwd.pool is not recs[1].fwd.pool
     with autograd.record():
-        l1 = model(a, b)
-        with pytest.raises(MXNetError, match="awaits backward"):
-            model(c, d)
-        with autograd.pause():
-            model(c, d)                 # not recorded: no program run
-    l1.backward()
+        model(a, b).backward()
+    assert len(model._graph_cache[key]) == 2
+
+    mx.random.seed(0)
+    jnet = jbert.BERTForPretraining(**CFG, dropout=0.0, use_flash=False)
+    jnet.initialize()
+    jnet(NDArray(jnp.ones((B, T), jnp.int32)))
+    arrays = {k: p.data().asnumpy()
+              for k, p in jnet._collect_params_with_prefix().items()}
+    tmodel = PretrainWithLoss(load_jax_params(tbert.BERTForPretraining(
+        **CFG, dropout=0.0, device="cpu"), arrays))
+    jmodel = JPretrainWithLoss(jnet)
+    jmodel.hybridize()
+    tmodel.hybridize()
+    with jag.record():
+        j1 = jmodel(NDArray(jnp.asarray(a.numpy())),
+                    NDArray(jnp.asarray(b.numpy())))
+        j2 = jmodel(NDArray(jnp.asarray(c.numpy())),
+                    NDArray(jnp.asarray(d.numpy())))
+        jtotal = j1 + j2
+    jtotal.backward()
     with autograd.record():
-        l2 = model(c, d)
-    del l2                              # dropped without a backward
-    with autograd.record():
-        l3 = model(a, b)
-    l3.backward()
-    mxr.seed(5, device="cpu")
-    with autograd.record():
-        p1 = plain(a, b)
-    p1.backward()
-    with autograd.record():
-        plain(c, d)
-        p3 = plain(a, b)
-    p3.backward()
-    assert torch.equal(l1.detach(), p1.detach())
-    assert torch.equal(l3.detach(), p3.detach())
-    for k, p in model.collect_params().items():
-        q = plain.collect_params()[k]
-        assert (p.grad is None and q.grad is None) \
-            or torch.equal(p.grad, q.grad), k
+        t1 = tmodel(a, b)
+        t2 = tmodel(c, d)
+        ttotal = t1 + t2
+    ttotal.backward()
+    for jl, tl in ((j1, t1), (j2, t2)):
+        assert abs(float(tl.detach()) - float(jl.asnumpy())) <= 1e-5
+    jg = {k: p.grad().asnumpy()
+          for k, p in jmodel._collect_params_with_prefix().items()}
+    for k, p in tmodel.collect_params().items():
+        if p.grad is None:
+            assert not onp.any(jg[k]), k
+        else:
+            onp.testing.assert_allclose(p.grad.numpy(), jg[k], atol=1e-5,
+                                        err_msg=k)
 
 
 def test_failed_update_capture_leaves_count_and_states(monkeypatch):
