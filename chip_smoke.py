@@ -269,6 +269,37 @@ The NMT family (after phase 13's long-context checks):
    replays of ``nmt_start`` and ``nmt_step``, the decode weight bytes
    float and int8.
 
+ResNet-50 v1 (after phase 28):
+
+29. ResNet parity — the small v1 bottleneck net
+   ``ResNetV1(BottleneckV1, [1, 1, 1, 1], [8, 16, 32, 64, 128],
+   classes=600)`` in f32 with TF32 off, B=2 at 64x64, three hybridized
+   SGD steps (lr 0.005, momentum 0.9, wd 1e-4) on the card (the loss
+   through the streamed cross-entropy kernels) against the port's CPU
+   path from the same seed: logits and losses within 1e-5, every
+   gradient of step 1 and every weight and running stat after step 3
+   within 1e-4·|ref| + 1e-4·(the layer's max|ref|);
+30. ResNet-50 v1 training — ``vision.get_model("resnet50_v1",
+   classes=1000)``, ``initialize()``, ``cast("bfloat16")``, B=128
+   224x224 normalized images and labels from a seed, ``loss_fn(net(x),
+   y)`` under ``record()``, ``backward()``, SGD (lr 0.05, momentum 0.9,
+   wd 1e-4, f32 masters, ``keep_grads=False``) ``step(128)``: on CUDA
+   graphs (F, B, U: one capture each, then replays) and never
+   hybridized, under deterministic cuDNN without autotuning, three
+   steps bit-identical (losses, f32 masters, momenta, the running stats
+   after every step, moved in step 1); each step launches each
+   cross-entropy kernel once at (128, 1000) bf16; step time, img/s,
+   MFU (3 x 2 x the multiply-adds of every convolution and Dense, from
+   the model's shapes, over 989 TFLOP/s), card busy share, one
+   profiled step's card time by kind of kernel, peak memory, for both
+   paths and for the graphed step under cuDNN autotuning; then the
+   cross-entropy kernels at the step's inputs, held to their plain
+   versions and timed beside ``F.cross_entropy`` and the bound;
+31. ResNet-50 inference — phase 30's net in predict mode, hybridized, at
+   B = 1, 32 and 256: one capture a signature, a second call replays
+   only, replay logits bit-identical to the eager body's, the running
+   stats untouched; img/s graphed against the eager bodies.
+
 The line before the last is a JSON object with every kernel's launches
 (summed over the main paths that ran it, launches inside graph replays
 included), error, time, plain-version
@@ -300,7 +331,9 @@ from incubator_mxnet_tpu_torch import random as mx_random
 from incubator_mxnet_tpu_torch.contrib.quantization import quantize_kv
 from incubator_mxnet_tpu_torch.gluon import HybridBlock, Trainer
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 from incubator_mxnet_tpu_torch.gluon.nn import Dense
+from incubator_mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
 from incubator_mxnet_tpu_torch.optimizer import optimizer as opt_mod
 from incubator_mxnet_tpu_torch.lr_scheduler import InvSqrtScheduler
 from incubator_mxnet_tpu_torch.models import (BERTForPretraining,
@@ -3643,6 +3676,484 @@ def check_two_pending_calls(smi: str) -> dict:
     return {"captures": caps}
 
 
+# ------------------------------------------------------------ phases 29-31
+# ResNet-50 v1 (examples/image_classification/train.py and
+# benchmark_score.py): bf16 over f32 masters, BASELINE.md's BS 128
+RESNET_CLASSES = 1000
+RESNET_BATCH = 128
+RESNET_HW = 224
+RESNET_SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4,
+              "multi_precision": True}
+RESNET_INFER_BATCHES = (1, 32, 256)
+# BASELINE.md: ResNet-50's forward FLOPs an image
+BASELINE_FWD_FLOPS = 8.2e9
+# phase 29's small net (tests/test_torch_resnet.py's v1 net) and rate
+RESNET_SMALL = dict(layers=[1, 1, 1, 1], channels=[8, 16, 32, 64, 128],
+                    classes=600)
+RESNET_SMALL_SGD = {"learning_rate": 0.005, "momentum": 0.9, "wd": 1e-4}
+# rtol·|ref| + atol·(max|ref| over the tensor's layer): f32 BatchNorm
+# statistics (E[x²] - mean²) make a gradient's rounding noise scale with
+# its layer's largest gradient (tests/test_torch_resnet.py `_by_layer`)
+RESNET_TOL = (1e-4, 1e-4)
+
+
+@contextlib.contextmanager
+def cudnn_mode(deterministic: bool):
+    """cuDNN's deterministic algorithms without autotuning
+    (``deterministic``), or autotuning (``benchmark``) without the
+    deterministic restriction."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = deterministic
+    torch.backends.cudnn.benchmark = not deterministic
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def _images(B, hw, classes, seed, dtype, device=None):
+    """Normalized images (standard normal) and labels from ``seed``, on
+    ``device`` (DEV)."""
+    device = DEV if device is None else device
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, 3, hw, hw, generator=g)
+    y = torch.randint(0, classes, (B,), generator=g)
+    return x.to(device=device, dtype=dtype), y.to(device)
+
+
+def _layer_excess(got, ref, tol) -> float:
+    """The worst ratio of |got - ref| to rtol·|ref| + atol·(the largest
+    |ref| of the tensor's layer) over dicts of tensors by name."""
+    scale = {}
+    for k, r in ref.items():
+        layer = k.rsplit(".", 1)[0]
+        scale[layer] = max(scale.get(layer, 0.0), r.abs().max().item())
+    worst = 0.0
+    for k, r in ref.items():
+        allow = tol[0] * r.abs() + tol[1] * scale[k.rsplit(".", 1)[0]]
+        ex = ((got[k] - r).abs() / allow.clamp(min=1e-30)).max().item()
+        worst = max(worst, ex)
+    return worst
+
+
+def _resnet_parity_run(device):
+    mx_random.seed(3, device=device)
+    net = vision.ResNetV1(vision.BottleneckV1, RESNET_SMALL["layers"],
+                          RESNET_SMALL["channels"],
+                          classes=RESNET_SMALL["classes"],
+                          device=device).initialize()
+    net.hybridize()
+    tr = Trainer(net.collect_params(), "sgd", dict(RESNET_SMALL_SGD))
+    loss_fn = SoftmaxCrossEntropyLoss()
+    out = {"losses": []}
+    for s in range(3):
+        x, y = _images(2, 64, RESNET_SMALL["classes"], 10 + s,
+                       torch.float32, device)
+        with autograd.record():
+            logits = net(x)
+            loss = loss_fn(logits, y)
+        autograd.backward(loss)
+        if s == 0:
+            out["logits"] = logits.detach().cpu()
+            out["grads"] = {n: p.grad.detach().cpu().clone()
+                            for n, p in net.collect_params().items()
+                            if p.grad is not None}
+        tr.step(2)
+        out["losses"].append(loss.detach().cpu())
+    out["weights"] = {n: p.detach().cpu().clone()
+                      for n, p in net.named_parameters()}
+    return out
+
+
+def phase_resnet_parity() -> dict:
+    """Phase 29: chip_smoke's small ResNet v1 bottleneck net in f32, B=2
+    at 64x64, 600 classes (the loss on the streamed cross-entropy
+    kernels on the card, its plain version on the CPU), three
+    hybridized SGD steps (momentum, wd) on the card against the port's
+    CPU path from the same seed: the logits and the per-sample losses
+    within 1e-5 relative, every gradient of step 1 and every weight and
+    running stat after step 3 within `RESNET_TOL` of its layer.  TF32 is
+    off for cuDNN and cuBLAS (phase 1), so the card computes in f32."""
+    assert not torch.backends.cudnn.allow_tf32 \
+        and not torch.backends.cuda.matmul.allow_tf32
+    with cudnn_mode(True):
+        card = _resnet_parity_run(DEV)
+    cpu = _resnet_parity_run(torch.device("cpu"))
+    torch.cuda.synchronize()
+    lg = _excess(card["logits"], cpu["logits"], (1e-5, 1e-5))
+    ls = max(_excess(a, b, (1e-5, 0.0)) for a, b in zip(card["losses"],
+                                                       cpu["losses"]))
+    assert card["grads"].keys() == cpu["grads"].keys()
+    gr = _layer_excess(card["grads"], cpu["grads"], RESNET_TOL)
+    wt = _layer_excess(card["weights"], cpu["weights"], RESNET_TOL)
+    assert max(lg, ls, gr, wt) <= 1.0, \
+        f"ResNet parity: logits {lg}, losses {ls}, grads {gr}, weights {wt}"
+    n_stats = sum(k.endswith(("running_mean", "running_var"))
+                  for k in cpu["weights"])
+    log(f"ResNet parity (f32, TF32 off, small v1 bottleneck "
+        f"{RESNET_SMALL}, B=2 64x64, SGD {RESNET_SMALL_SGD}, 3 steps): card "
+        f"against the CPU path: logits at {lg:.3g}, losses at {ls:.3g} of "
+        f"their bounds; {len(cpu['grads'])} gradients at {gr:.3g} and "
+        f"{len(cpu['weights'])} weights and running stats ({n_stats} stats) "
+        f"after 3 steps at {wt:.3g} of rtol {RESNET_TOL[0]} + atol "
+        f"{RESNET_TOL[1]} of the layer's max")
+    return {"logits": lg, "losses": ls, "grads": gr, "weights": wt}
+
+
+def _resnet_model(hybrid):
+    """train.py's net: ``get_model("resnet50_v1", classes=1000)``,
+    ``initialize()`` from seed 0, ``cast("bfloat16")``, hybridized or
+    not, and its SGD Trainer (f32 masters, ``keep_grads=False``)."""
+    mx_random.seed(0, device=DEV)
+    net = vision.get_model("resnet50_v1", classes=RESNET_CLASSES,
+                           device=DEV)
+    net.initialize()
+    net.cast("bfloat16")
+    if hybrid:
+        net.hybridize()
+    trainer = Trainer(net.collect_params(), "sgd", dict(RESNET_SGD),
+                      keep_grads=False)
+    return net, trainer
+
+
+def _running_stats(net):
+    return [p for n, p in net.named_parameters()
+            if n.endswith(("running_mean", "running_var"))]
+
+
+def resnet_macs(net) -> int:
+    """Multiply-adds of every convolution and Dense of ``net`` for one
+    image, from the shapes one eager forward gives them."""
+    macs = []
+
+    def conv_hook(m, inp, out):
+        macs.append(out.numel() * m.weight[0].numel())
+
+    def dense_hook(m, inp, out):
+        macs.append(out.numel() * m.weight.shape[1])
+
+    hooks = [m.register_forward_hook(conv_hook) for m in net.modules()
+             if isinstance(m, _Conv)]
+    hooks += [m.register_forward_hook(dense_hook) for m in net.modules()
+              if isinstance(m, Dense)]
+    try:
+        with autograd.predict_mode():
+            net(torch.zeros(1, 3, RESNET_HW, RESNET_HW, device=DEV,
+                            dtype=next(net.parameters()).dtype))
+    finally:
+        for h in hooks:
+            h.remove()
+    return int(sum(macs))
+
+
+_CONV_KEYS = ("fprop", "dgrad", "wgrad", "conv", "implicit_gemm", "xmma",
+              "cudnn")
+
+
+def _resnet_shares(busy) -> dict:
+    """Card time (ms, share) of one profiled step by kind of kernel,
+    each kernel counted once in the first kind that names it."""
+    kinds = (("layout transposes", ("nchwToNhwc", "nhwcToNchw",
+                                    "transpose")),
+             ("convolution", _CONV_KEYS),
+             ("gemm", ("gemm", "nvjet", "cutlass", "sm90_")),
+             ("foreach (optimizer)", ("multi_tensor_apply",)),
+             ("xent kernels", ("xent_",)),
+             ("pooling", ("pool",)),
+             ("reductions (BatchNorm statistics, means)", ("reduce",)),
+             ("elementwise (BatchNorm apply, relu, adds, casts)",
+              ("elementwise", "addcmul", "CatArray")))
+    total = max(busy["busy_s"] * 1e3, 1e-9)
+    out = {k: 0.0 for k, _ in kinds}
+    out["other"] = 0.0
+    for name, ms in busy["by_name"].items():
+        kind = next((k for k, keys in kinds
+                     if any(s in name for s in keys)), "other")
+        out[kind] += ms
+    return {k: (ms, ms / total) for k, ms in out.items()}
+
+
+def _resnet_run(mode, smi, rec=None):
+    """train.py's step on ResNet-50 v1 bf16 (B=128, 224x224, seed 0,
+    one fixed batch): ``graph`` hybridized (three CUDA graphs F, B, U)
+    or ``plain`` never hybridized, both under deterministic cuDNN; or
+    ``graph_autotuned``, hybridized under ``cudnn.benchmark`` (timing
+    only).  Three steps, each launching each cross-entropy kernel once
+    and nothing else of the port's, the running stats kept after each;
+    then five timed steps and one profiled one."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hybrid = mode != "plain"
+    B = RESNET_BATCH
+    with cudnn_mode(mode != "graph_autotuned"):
+        t0 = time.perf_counter()
+        net, trainer = _resnet_model(hybrid)
+        x, y = _images(B, RESNET_HW, RESNET_CLASSES, 1, torch.bfloat16)
+        loss_fn = SoftmaxCrossEntropyLoss()
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+
+        def step():
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            autograd.backward(loss)
+            trainer.step(B)
+            return loss.detach()
+
+        def keep_first(key):
+            def keep(args, kw):
+                if rec is not None:
+                    rec.setdefault(key, args)
+            return keep
+
+        per_step = {n: 0 for n in TRAINING_KERNELS + FLASH_KERNELS}
+        per_step.update(xent_forward=1, xent_backward=1)
+        out = {"mode": mode}
+        _zero_counts()
+        t0 = time.perf_counter()
+        with recording(xk_mod, "_fwd_cuda", keep_first("fwd")), \
+                recording(xk_mod, "_bwd_cuda", keep_first("bwd")):
+            losses, stats = [], []
+            for _ in range(3):
+                c0 = _counts()
+                losses.append(step())
+                c1 = _counts()
+                assert {n: c1[n] - c0[n] for n in per_step} == per_step, \
+                    (mode, c0, c1)
+                stats.append([s.detach().clone()
+                              for s in _running_stats(net)])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        states = [trainer._states[i] for i in sorted(trainer._states)]
+        out["losses"] = torch.stack(losses).float().cpu()
+        out["masters"] = [s[0].clone() for s in states]
+        out["moms"] = [s[1].clone() for s in states]
+        out["stats"] = stats
+        out["captures"] = dict(_graphs.captures)
+        out["replays"] = dict(_graphs.replays)
+        each = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            each.append(time.perf_counter() - t0)
+        dt = sum(each) / 5
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+    out["launches"] = _counts()
+    busy = device_busy(prof, prof_s)
+    n_params = sum(p.numel() for p in net.collect_params().values()
+                   if p.grad_req != "null")
+    # by torch op (a replay's kernels have no host op: never hybridized)
+    ops = sorted(((e.key, getattr(e, "self_device_time_total", 0.0) * 1e-3)
+                  for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda kv: -kv[1])[:10] if mode == "plain" else []
+    out.update(step_ms=dt * 1e3, each_ms=[t * 1e3 for t in each],
+               img_s=B / dt, first3_s=first_s, built_s=built_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               prof_ms=prof_s * 1e3, card_ms=busy["busy_s"] * 1e3,
+               busy=busy["busy_share"], kernels=busy["kernels"],
+               top=busy["top"], shares=_resnet_shares(busy),
+               n_params=n_params)
+    log(f"ResNet-50 v1 training [{smi}] {mode} (cuDNN "
+        + ("benchmark" if mode == "graph_autotuned" else
+           "deterministic, no benchmark") + f"): bf16 + f32 masters, "
+        f"{n_params} trainable parameters (built in {built_s:.1f} s), "
+        f"B={B} {RESNET_HW}x{RESNET_HW}, SGD {RESNET_SGD}; mean losses "
+        f"{out['losses'].mean(1).tolist()} (3 steps in {first_s:.1f} s); step "
+        f"{out['step_ms']:.2f} ms (mean of 5 after 3, each synchronised: "
+        f"{', '.join(f'{t:.2f}' for t in out['each_ms'])}), "
+        f"{out['img_s']:.1f} img/s, peak memory {out['peak_gib']:.2f} GiB; "
+        f"captures {out['captures']}, replays after 3 steps "
+        f"{out['replays']}")
+    log(f"ResNet-50 one profiled step [{smi}] {mode}: {out['prof_ms']:.2f} "
+        f"ms wall, card busy {out['card_ms']:.2f} ms = {out['busy']:.3f} "
+        f"(idle {1 - out['busy']:.3f}), {out['kernels']} kernels; shares of "
+        f"the card time: " + "; ".join(
+            f"{k} {ms:.3f} ms = {sh:.3f}"
+            for k, (ms, sh) in out["shares"].items())
+        + "; device ms by kernel: " + "; ".join(
+            f"{n} {ms:.3f}" for n, ms in busy["top"])
+        + ("; device ms by torch op: " + "; ".join(
+            f"{n} {ms:.3f}" for n, ms in ops) if ops else ""))
+    del trainer, states
+    out["net"] = net
+    return out
+
+
+def phase_resnet_training(smi: str) -> dict:
+    """Phase 30: train.py's step at full width on CUDA graphs and never
+    hybridized, under deterministic cuDNN: losses, f32 masters, momenta
+    and every step's running stats bit-identical over three steps (the
+    stats move once a step, the first included); one capture of each
+    program; step time, img/s, MFU, busy share and peak memory for both
+    paths, and the graphed step again under cuDNN autotuning."""
+    rec = {}
+    plain = _resnet_run("plain", smi)
+    macs = resnet_macs(plain.pop("net"))
+    graph = _resnet_run("graph", smi, rec)
+    progs = ("fwd_record", "bwd_record", "update")
+    assert {k: graph["captures"].get(k) for k in progs} \
+        == dict.fromkeys(progs, 1) and {k: graph["replays"].get(k)
+                                        for k in progs} \
+        == dict.fromkeys(progs, 2), (graph["captures"], graph["replays"])
+    assert torch.isfinite(graph["losses"]).all(), graph["losses"]
+    assert torch.equal(plain["losses"], graph["losses"]), \
+        (plain["losses"], graph["losses"])
+    assert all(torch.equal(a, b) for a, b in zip(plain["masters"],
+                                                 graph["masters"])), \
+        "ResNet: f32 masters differ between graphs and never hybridized"
+    assert all(torch.equal(a, b) for a, b in zip(plain["moms"],
+                                                 graph["moms"])), \
+        "ResNet: momenta differ between graphs and never hybridized"
+    for s, (a, b) in enumerate(zip(plain["stats"], graph["stats"])):
+        assert all(torch.equal(u, v) for u, v in zip(a, b)), \
+            f"ResNet: running stats differ after step {s + 1}"
+    net = graph.pop("net")
+    start = [torch.zeros_like(t) if i % 2 == 0 else torch.ones_like(t)
+             for i, t in enumerate(_running_stats(net))]
+    assert not any(torch.equal(u, v) for u, v in zip(start,
+                                                     graph["stats"][0]))
+    fast = _resnet_run("graph_autotuned", smi)
+    del fast["net"]
+    name = torch.cuda.get_device_name(0)
+    peak = PEAK_FLOPS[torch.bfloat16] \
+        if "H100" in name and "PCIe" not in name else None
+    flops_img = 6 * macs
+    for r in (plain, graph, fast):
+        r["mfu"] = r["img_s"] * flops_img / peak if peak else None
+    log(f"ResNet-50 v1 training [{smi}]: 3 steps on graphs and never "
+        f"hybridized bit-identical under deterministic cuDNN (losses, "
+        f"{len(graph['masters'])} f32 masters and momenta, "
+        f"{len(graph['stats'][0])} running stats after each step, moved "
+        f"from their initial values in step 1); step "
+        f"{graph['step_ms']:.2f} ms graphed against {plain['step_ms']:.2f} "
+        f"ms never hybridized ({plain['step_ms'] / graph['step_ms']:.2f}x), "
+        f"{graph['img_s']:.1f} against {plain['img_s']:.1f} img/s, card "
+        f"busy {graph['busy']:.3f} against {plain['busy']:.3f}, peak memory "
+        f"{graph['peak_gib']:.2f} against {plain['peak_gib']:.2f} GiB; "
+        f"graphed under cuDNN autotuning {fast['step_ms']:.2f} ms, "
+        f"{fast['img_s']:.1f} img/s, busy {fast['busy']:.3f}; MFU "
+        + ("/".join(f"{r['mfu']:.4f}" for r in (graph, plain, fast))
+           if peak else "not measured")
+        + f" (graphed/never hybridized/autotuned) at 3 x 2 x {macs} "
+        f"multiply-adds an image ({2 * macs / 1e9:.3f} GFLOP forward, "
+        f"BASELINE.md counts {BASELINE_FWD_FLOPS / 1e9:.1f}) over "
+        f"{PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TFLOP/s")
+    for r in (plain, graph, fast):
+        del r["masters"], r["moms"], r["stats"]
+    return {"launches": {n: plain["launches"][n] + graph["launches"][n]
+                         + fast["launches"][n] for n in plain["launches"]},
+            "rec": rec, "net": net, "macs": macs, "graph": graph,
+            "plain": plain, "autotuned": fast}
+
+
+def time_resnet_kernels(rres) -> dict:
+    """The streamed cross-entropy forward and backward at the inputs of
+    phase 30's graphed first step, (128, 1000) bf16: held to the plain
+    versions there and timed beside them, ``F.cross_entropy`` (forward;
+    its autograd backward) and the byte bound."""
+    (x2, want_sum), (bx, labels, lse, g, eps) = rres["rec"]["fwd"], \
+        rres["rec"]["bwd"]
+    N, V = x2.shape
+    assert (N, V) == (RESNET_BATCH, RESNET_CLASSES) and not want_sum \
+        and eps == 0.0, (x2.shape, want_sum, eps)
+    ref_lse, _ = stats_reference(x2, False)
+    got_lse, _ = xent_forward(x2, False)
+    err = ((got_lse - ref_lse).abs() / ref_lse.abs().clamp(min=1)).max().item()
+    assert err <= LSE_RTOL, f"ResNet xent forward: lse err {err}"
+    bound, by = _bound(x2.numel() * x2.element_size() + N * 4, 5 * N * V,
+                       PEAK_FLOPS[torch.float32])
+    out = {"xent_forward": {
+        "shape": f"({N}, {V}) {x2.dtype}", "max_abs_err": err,
+        "ms": time_ms(lambda: xent_forward(x2, False)),
+        "plain_ms": time_ms(lambda: stats_reference(x2, False)),
+        "library_ms": time_ms(lambda: F.cross_entropy(
+            x2, labels, reduction="none")),
+        "bound_ms": bound, "bound_by": by}}
+    err = check_dlogits(xent_backward(bx, labels, lse, g, eps),
+                        dlogits_reference(bx, labels, lse, g, eps), bx,
+                        labels, g, eps, "xent backward at ResNet inputs")
+    xr = bx.detach().requires_grad_()
+    ce = F.cross_entropy(xr, labels, reduction="none")
+    bound, by = _bound(2 * bx.numel() * bx.element_size() + N * 12,
+                       4 * N * V, PEAK_FLOPS[torch.float32])
+    out["xent_backward"] = {
+        "shape": f"({N}, {V}) {bx.dtype}", "max_abs_err": err,
+        "ms": time_ms(lambda: xent_backward(bx, labels, lse, g, eps)),
+        "plain_ms": time_ms(lambda: dlogits_reference(bx, labels, lse, g,
+                                                      eps)),
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            ce, xr, g.to(ce.dtype), retain_graph=True)),
+        "bound_ms": bound, "bound_by": by}
+    return out
+
+
+def phase_resnet_inference(smi: str, net) -> dict:
+    """Phase 31: phase 30's trained net (its training programs dropped)
+    in bf16, hybridized, ``predict_mode``, under deterministic cuDNN, at
+    B = 1, 32 and 256: the first call captures the signature's program,
+    a second one only replays it, and the replay's logits equal the
+    eager body's bit for bit; the running stats are only read; img/s
+    graphed against the eager bodies (20 calls after 3)."""
+    net.hybridize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats0 = [s.detach().clone() for s in _running_stats(net)]
+    out = {}
+    with cudnn_mode(True), autograd.predict_mode():
+        for B in RESNET_INFER_BATCHES:
+            x, _ = _images(B, RESNET_HW, RESNET_CLASSES, 40 + B,
+                           torch.bfloat16)
+            c0 = _graphs.captures.get("raw_fn", 0)
+            first = net(x)
+            c1 = _graphs.captures.get("raw_fn", 0)
+            r1 = _graphs.replays.get("raw_fn", 0)
+            again = net(x)
+            assert _graphs.captures.get("raw_fn", 0) == c1 == c0 + 1 \
+                and _graphs.replays.get("raw_fn", 0) == r1 + 1, \
+                (B, c0, c1, dict(_graphs.captures))
+            with _graphs.eager():
+                eager = net(x)
+            assert first.shape == (B, RESNET_CLASSES) \
+                and torch.isfinite(first).all()
+            assert torch.equal(again, eager) and torch.equal(first, eager), \
+                f"ResNet inference B={B}: replay differs from the eager body"
+            row = {}
+            for kind in ("graph", "eager"):
+                with _graphs.eager() if kind == "eager" \
+                        else contextlib.nullcontext():
+                    for _ in range(3):
+                        net(x)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(20):
+                        net(x)
+                    torch.cuda.synchronize()
+                    row[kind] = 20 * B / (time.perf_counter() - t0)
+            out[B] = row
+    assert all(torch.equal(a, b) for a, b in zip(stats0,
+                                                 _running_stats(net))), \
+        "ResNet inference moved the running stats"
+    log(f"ResNet-50 v1 inference [{smi}] bf16, predict mode, cuDNN "
+        f"deterministic: " + "; ".join(
+            f"B={B} {r['graph']:.1f} img/s graphed against "
+            f"{r['eager']:.1f} on the eager bodies "
+            f"({r['graph'] / r['eager']:.2f}x)" for B, r in out.items())
+        + "; each replay bit-identical to its eager body, one capture a "
+        "signature, the running stats read only")
+    return out
+
+
 # ---------------------------------------------------------------- phase 9
 @contextlib.contextmanager
 def plain_kernels():
@@ -4157,6 +4668,15 @@ def main() -> int:
     del nres["rec"]
     timed("nmt_parity", phase_nmt_parity)
     timed("nmt_translate", phase_nmt_translate, smi, nres.pop("net"))
+    # ResNet-50 v1: parity at a small width, training on graphs against
+    # never hybridized, its cross-entropy kernels, inference on graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("resnet_parity", phase_resnet_parity)
+    rres = timed("resnet_training", phase_resnet_training, smi)
+    rtimes = timed("resnet_timing", time_resnet_kernels, rres)
+    del rres["rec"]
+    timed("resnet_inference", phase_resnet_inference, smi, rres.pop("net"))
     log(f"phases took {time.perf_counter() - t_start:.1f} s: "
         + json.dumps(took))
     for kind in ("step", "chunk"):
@@ -4208,12 +4728,18 @@ def main() -> int:
             f"({r['bound_by']}), {nres['launches'][name]} launches on "
             f"phase 26's path ({_nmt_per_step(NMT['num_layers'])[name]} a "
             f"step) [{smi}]")
+    for name, r in rtimes.items():
+        log(f"{name} at the ResNet-50 step's inputs {r['shape']}: "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {rres['launches'][name]} launches on "
+            f"phase 30's path (1 a step) [{smi}]")
     times["paged_attention"] = times["step"]
     times["paged_attention_q8"] = qtimes["step"]
     # each kernel's launches summed over the main paths that ran it
     launches = {}
     for path in (res, qres, sres, bres, gres, tres, tres512, lres, cres,
-                 cres512, nres):
+                 cres512, nres, rres):
         for name, n in path["launches"].items():
             launches[name] = launches.get(name, 0) + n
     rows = []
@@ -4224,7 +4750,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"], "launches": launches[name],
             "max_abs_err": max(max(errs[name].values()), t["max_abs_err"],
-                               ntimes.get(name, {}).get("max_abs_err", 0.0)),
+                               ntimes.get(name, {}).get("max_abs_err", 0.0),
+                               rtimes.get(name, {}).get("max_abs_err", 0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms")})

@@ -101,10 +101,14 @@ def predict_mode() -> _Scope:
 def backward(heads, head_grads: Optional[Sequence] = None,
              retain_graph: bool = False) -> None:
     """Gradients of ``heads`` into the ``.grad`` of every parameter the
-    recorded graph reaches (``torch.autograd.backward``)."""
+    recorded graph reaches (``torch.autograd.backward``).  Without
+    ``head_grads`` each head's gradient is ones of its shape, as in the
+    JAX package, so a per-sample loss needs no reduction first."""
     if isinstance(heads, torch.Tensor):
         heads = [heads]
         if head_grads is not None and isinstance(head_grads, torch.Tensor):
             head_grads = [head_grads]
+    if head_grads is None:
+        head_grads = [torch.ones_like(h) for h in heads]
     torch.autograd.backward(list(heads), grad_tensors=head_grads,
                             retain_graph=retain_graph)

@@ -4,10 +4,12 @@
 JAX package's structural parameter names — the keys its
 ``Block._collect_params_with_prefix`` gives and ``save_parameters``
 writes (``embed.weight``, ``layer0.attn.qkv.weight``,
-``layer0.ln1.gamma``, ..., ``head.bias``).  The port's blocks use the
-same names and layouts (`Dense` weight (out, in), `LayerNorm`
-gamma/beta), so the copy is one-to-one; each array is cast to the
-parameter's dtype and moved to its device.
+``layer0.ln1.gamma``, ..., ``head.bias``; a ResNet's
+``features.4.0.body.1.running_mean``, ``output.weight``).  The port's
+blocks use the same names and layouts (`Dense` weight (out, in),
+`LayerNorm` gamma/beta, convolution weights (out, in/groups, *k),
+BatchNorm's running stats as parameters), so the copy is one-to-one;
+each array is cast to the parameter's dtype and moved to its device.
 
 A parameter shared by two blocks (the `Transformer`'s tied source and
 target embedding) has one name in the port (``named_parameters()``

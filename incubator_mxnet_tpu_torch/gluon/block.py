@@ -395,6 +395,12 @@ class HybridBlock(Block):
         the training flag), from an LRU of 64 per block: on CUDA each is
         captured into a CUDA graph at its first call and replayed after
         that; on the CPU it runs eagerly on the same static buffers.
+        What the forward writes in place into parameters (BatchNorm's
+        running stats in train mode, the JAX package's aux state) the
+        program writes into their own storage: once at the capturing
+        call (its warm-up runs the body; the capture records it without
+        running it) and once at each replay; a train-mode program moves
+        them, a predict-mode one only reads them.
         Outside ``record()`` that is the forward alone; under it, the
         recorded forward and, at ``backward()``, the backward over it,
         which leaves the parameters' gradients in static buffers that

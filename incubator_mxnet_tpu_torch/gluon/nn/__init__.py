@@ -1,5 +1,16 @@
 """Neural-network layers (counterpart of
 `incubator_mxnet_tpu/gluon/nn/`)."""
-from .basic_layers import Dense, Dropout, DropoutAdd, Embedding, LayerNorm
+from .activations import Activation
+from .basic_layers import (BatchNorm, Dense, Dropout, DropoutAdd, Embedding,
+                           Flatten, HybridSequential, LayerNorm, Sequential)
+from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D, Conv1D, Conv2D,
+                          Conv3D, GlobalAvgPool1D, GlobalAvgPool2D,
+                          GlobalAvgPool3D, GlobalMaxPool1D, GlobalMaxPool2D,
+                          GlobalMaxPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
 
-__all__ = ["Dense", "Dropout", "DropoutAdd", "Embedding", "LayerNorm"]
+__all__ = ["Activation", "AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm",
+           "Conv1D", "Conv2D", "Conv3D", "Dense", "Dropout", "DropoutAdd",
+           "Embedding", "Flatten", "GlobalAvgPool1D", "GlobalAvgPool2D",
+           "GlobalAvgPool3D", "GlobalMaxPool1D", "GlobalMaxPool2D",
+           "GlobalMaxPool3D", "HybridSequential", "LayerNorm", "MaxPool1D",
+           "MaxPool2D", "MaxPool3D", "Sequential"]

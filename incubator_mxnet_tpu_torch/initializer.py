@@ -4,8 +4,9 @@
 
 An initializer is called with a parameter's structural name and its
 tensor and fills the tensor in place.  As in the JAX package, the name
-decides before the initializer does: ``*bias`` and ``*beta`` become 0,
-``*gamma`` becomes 1, everything else is the initializer's own draw.
+decides before the initializer does: ``*bias``, ``*beta`` and running
+means become 0, ``*gamma`` and running variances become 1, everything
+else is the initializer's own draw.
 Draws come from the thread's key stream (`random.generator`) on the
 CPU in f32 and are then cast to the parameter's dtype and device, so a
 seed gives the same weights on every device.
@@ -24,10 +25,14 @@ class Initializer:
     def __call__(self, name: str, arr: torch.Tensor) -> None:
         name = str(name)
         with torch.no_grad():
-            if name.endswith("bias") or name.endswith("beta"):
+            if name.endswith("bias"):
                 arr.zero_()
-            elif name.endswith("gamma"):
+            elif name.endswith("gamma") or "moving_var" in name \
+                    or "running_var" in name:
                 arr.fill_(1.0)
+            elif name.endswith("beta") or "moving_mean" in name \
+                    or "running_mean" in name:
+                arr.zero_()
             else:
                 arr.copy_(self._draw(tuple(arr.shape)))
 

@@ -73,8 +73,10 @@ class MultiHeadAttention(HybridBlock):
         self._units = units
         self._num_heads = num_heads
         self._dropout = dropout
-        self.qkv = Dense(3 * units, units, device=device, dtype=dtype)
-        self.proj = Dense(units, units, device=device, dtype=dtype)
+        self.qkv = Dense(3 * units, units, flatten=False, device=device,
+                         dtype=dtype)
+        self.proj = Dense(units, units, flatten=False, device=device,
+                          dtype=dtype)
 
     def forward(self, x, mask=None):
         B, T, C = x.shape
@@ -98,10 +100,10 @@ class PositionwiseFFN(HybridBlock):
     def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
                  drop_output=True, *, device=None, dtype=torch.float32):
         super().__init__()
-        self.ffn_dense1 = Dense(hidden_size, units, device=device,
-                                dtype=dtype)
-        self.ffn_dense2 = Dense(units, hidden_size, device=device,
-                                dtype=dtype)
+        self.ffn_dense1 = Dense(hidden_size, units, flatten=False,
+                                device=device, dtype=dtype)
+        self.ffn_dense2 = Dense(units, hidden_size, flatten=False,
+                                device=device, dtype=dtype)
         self.drop = Dropout(dropout)
         self._act = activation
         self._drop_output = drop_output
@@ -170,7 +172,8 @@ class BERTModel(HybridBlock):
         self.embed_drop = Dropout(dropout)
         self.encoder = BERTEncoder(num_layers, units, hidden_size, num_heads,
                                    dropout, **kw)
-        self.pooler = Dense(units, units, activation="tanh", **kw)
+        self.pooler = Dense(units, units, activation="tanh", flatten=False,
+                            **kw)
 
     def forward(self, inputs, token_types=None, valid_length=None):
         B, T = inputs.shape
@@ -196,10 +199,10 @@ class BERTForPretraining(HybridBlock):
         units = self.bert._units
         kw = {"device": self.bert.pooler.weight.device,
               "dtype": self.bert.pooler.weight.dtype}
-        self.mlm_dense = Dense(units, units, **kw)
+        self.mlm_dense = Dense(units, units, flatten=False, **kw)
         self.mlm_ln = LayerNorm(units, **kw)
-        self.mlm_decoder = Dense(vocab_size, units, **kw)
-        self.nsp = Dense(2, units, **kw)
+        self.mlm_decoder = Dense(vocab_size, units, flatten=False, **kw)
+        self.nsp = Dense(2, units, flatten=False, **kw)
 
     def forward(self, inputs, token_types=None, valid_length=None):
         seq, pooled = self.bert(inputs, token_types, valid_length)

@@ -103,7 +103,7 @@ class TransformerLM(HybridBlock):
             setattr(self, f"layer{i}",
                     _LMLayer(units, hidden_size, num_heads, dropout, **kw))
         self.ln = LayerNorm(units, **kw)
-        self.head = Dense(vocab, units, **kw)
+        self.head = Dense(vocab, units, flatten=False, **kw)
         self.register_buffer("_pe", positional_encoding(max_len, units,
                                                         device=dev),
                              persistent=False)
@@ -202,9 +202,9 @@ class _CrossAttention(HybridBlock):
         kw = {"device": device, "dtype": dtype}
         self._units = units
         self._num_heads = num_heads
-        self.q_proj = Dense(units, units, **kw)
-        self.kv_proj = Dense(2 * units, units, **kw)
-        self.proj = Dense(units, units, **kw)
+        self.q_proj = Dense(units, units, flatten=False, **kw)
+        self.kv_proj = Dense(2 * units, units, flatten=False, **kw)
+        self.proj = Dense(units, units, flatten=False, **kw)
 
     def forward(self, x, mem, mem_mask=None):
         B, Tq, C = x.shape
@@ -344,7 +344,7 @@ class Transformer(HybridBlock):
                                           num_heads, dropout, **kw)
         self.decoder = TransformerDecoder(num_layers, units, hidden_size,
                                           num_heads, dropout, **kw)
-        self.out_proj = Dense(tgt_vocab, units, **kw)
+        self.out_proj = Dense(tgt_vocab, units, flatten=False, **kw)
         self.drop = Dropout(dropout)
         self.register_buffer("_pe", positional_encoding(max_length, units,
                                                         device=dev),

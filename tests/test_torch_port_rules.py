@@ -591,3 +591,76 @@ def test_nmt_cpu_path_never_builds_or_loads_kernels():
         "print('ok')\n")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+# ---- the ResNet slice: convolution, pooling, BatchNorm, the model zoo ----
+# (importing the model zoo's resnet imports gluon.nn and its modules)
+VISION_MODULES = ["ndarray.nn_ops", "gluon.nn.conv_layers",
+                  "gluon.nn.activations", "gluon.model_zoo.vision.resnet"]
+TINY_RESNET = ("vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1], "
+               "[8, 16, 32, 64, 128], classes=600")
+
+
+@pytest.mark.parametrize("mod", VISION_MODULES)
+def test_vision_modules_import_with_jax_blocked(mod):
+    res = _run("import sys\n"
+               "sys.modules['jax'] = None\n"
+               "sys.modules['incubator_mxnet_tpu'] = None\n"
+               f"import incubator_mxnet_tpu_torch.{mod}\n"
+               "print(sorted(n for n, m in sys.modules.items()\n"
+               "             if m is not None and n.split('.')[0] in\n"
+               "             ('jax', 'jaxlib', 'incubator_mxnet_tpu')))\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_vision_entry_points_default_to_cuda(monkeypatch):
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError):
+        vision.get_model("resnet50_v1", classes=1000)
+    with pytest.raises(MXNetError):
+        vision.resnet18_v2()
+    net = vision.get_model("resnet18_v1", classes=10, device="cpu")
+    assert net.output.weight.device.type == "cpu"
+    assert net.features[1].running_var.device.type == "cpu"
+
+
+def test_vision_cpu_path_never_builds_or_loads_kernels():
+    """A small ResNet v1's hybridized training step (SGD with momentum
+    and wd, the loss at 600 classes on the streamed cross-entropy's
+    plain version) and its hybridized inference, on the CPU: no build,
+    no library load, no launch count, no CUDA graph object."""
+    res = _run(
+        "import ctypes, subprocess, torch\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('kernel build, load or graph attempted')\n"
+        "subprocess.Popen = refuse\n"
+        "ctypes.CDLL = refuse\n"
+        "torch.cuda.graph_pool_handle = refuse\n"
+        "torch.cuda.CUDAGraph = refuse\n"
+        "from incubator_mxnet_tpu_torch import _build, _graphs, autograd\n"
+        "from incubator_mxnet_tpu_torch.gluon import Trainer\n"
+        "from incubator_mxnet_tpu_torch.gluon.loss import "
+        "SoftmaxCrossEntropyLoss\n"
+        "from incubator_mxnet_tpu_torch.gluon.model_zoo import vision\n"
+        "from incubator_mxnet_tpu_torch.ops import xent_kernel as xk\n"
+        f"net = {TINY_RESNET}, device='cpu')\n"
+        "net.initialize()\n"
+        "net.hybridize()\n"
+        "tr = Trainer(net.collect_params(), 'sgd', {'learning_rate': 0.05,\n"
+        "             'momentum': 0.9, 'wd': 1e-4}, keep_grads=False)\n"
+        "x, y = torch.randn(2, 3, 32, 32), torch.randint(0, 600, (2,))\n"
+        "for _ in range(2):\n"
+        "    with autograd.record():\n"
+        "        loss = SoftmaxCrossEntropyLoss()(net(x), y)\n"
+        "    autograd.backward(loss)\n"
+        "    tr.step(2)\n"
+        "with autograd.predict_mode():\n"
+        "    assert net(x).shape == (2, 600)\n"
+        "assert not _build._libs and not _graphs.captures\n"
+        "assert xk.xent_forward.launches == xk.xent_backward.launches == 0\n"
+        "print('ok')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
