@@ -255,7 +255,12 @@ The NMT family (after phase 13's long-context checks):
    (4096, 32000) bf16, at the step's inputs, held to their plain
    versions and timed beside SDPA ``is_causal`` and
    ``F.cross_entropy(label_smoothing=0.1)`` (forward and autograd
-   backward) and the bound;
+   backward) and the bound.  The residual stream is f32, as in the JAX
+   package (the f32 positional table): 30 of the 44 sites a step add a
+   bf16 sublayer output to an f32 residual, and the fused forward at
+   the first such input the step gave it, and at (4096, 1024) (also one
+   element into its buffers), gives the plain version's y (f32), dx
+   (bf16) and dres bits;
 27. NMT parity — 2+2 layers at that width in f32, dropout 0, B=4
    S=T=256: the hybridized step through the kernels against the same
    step on the plain versions (loss within 1e-5 relative, every gradient
@@ -300,6 +305,38 @@ ResNet-50 v1 (after phase 28):
    only, replay logits bit-identical to the eager body's, the running
    stats untouched; img/s graphed against the eager bodies.
 
+int8 post-training quantization (after phase 31):
+
+32. int8 convolution kernel — ``csrc/int8_conv.cu`` at each distinct
+   convolution of ResNet-50 v1 at B = 256 and B = 1, the Dense
+   2048 -> 1000 at both, and small grouped, dilated, strided 1-D and
+   3-D cases, bf16 (and f32) activations: bit-identical to the plain
+   version (quantize by true division, an f64 convolution of the
+   integers, the same two-rounding epilogue); ms a launch against the
+   bound (the larger of the bytes, x and the output in bf16 and the int8
+   weights, over 3.35 TB/s and 2 x the multiply-adds over the int8
+   dense peak of 1,979 TOPS) and, as context, the time of the bf16
+   cuDNN ``F.conv2d`` (``F.linear``) of the same layer, a different
+   function: torch has no int8 convolution on CUDA;
+33. benchmark_score.py's int8 flow — ResNet-50 v1 from seed 0 at full
+   width, ``cast("bfloat16")``, ``quantize_net`` calibrated (minmax) on
+   two seeded batches of 8 normal bf16 images: 54 layers wrapped (53
+   convolutions, the Dense); ``entropy`` on a second net, timed on the
+   host; then hybridized, predict mode, at B = 1, 32 and 256: one
+   capture a signature, a replay bit-identical to the eager body and to
+   the eager body on the plain versions (`plain_kernels`), 53 + 1 int8
+   launches a forward inside the replay, img/s graphed against the
+   eager bodies and beside phase 31's bf16 net, and the int8 logits'
+   largest difference from the float net's relative to its largest
+   |logit| (reported; random weights make top-1 agreement
+   meaningless);
+34. .params on the card — phase 30's trained net saved with
+   ``save_parameters``, loaded into a fresh net (another seed) with
+   ``load_parameters``: the logits bit-identical (deterministic cuDNN);
+   phase 33's quantized net's file holds the float parameters, each
+   wrapped layer's under ``<layer>.src.<name>``, bit-identical to the
+   float net's.
+
 The line before the last is a JSON object with every kernel's launches
 (summed over the main paths that ran it, launches inside graph replays
 included), error, time, plain-version
@@ -328,7 +365,8 @@ import torch.nn.functional as F
 from incubator_mxnet_tpu_torch import (MXNetError, _build, _graphs,
                                        autograd, nd)
 from incubator_mxnet_tpu_torch import random as mx_random
-from incubator_mxnet_tpu_torch.contrib.quantization import quantize_kv
+from incubator_mxnet_tpu_torch.contrib.quantization import (
+    _QuantizedWrapper, quantize_kv, quantize_net)
 from incubator_mxnet_tpu_torch.gluon import HybridBlock, Trainer
 from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
@@ -347,6 +385,9 @@ from incubator_mxnet_tpu_torch.ops.flash_attention import (
     flash_bwd_dq, flash_bwd_plain)
 from incubator_mxnet_tpu_torch.ops import dropout_kernel as dk_mod
 from incubator_mxnet_tpu_torch.ops import xent_kernel as xk_mod
+from incubator_mxnet_tpu_torch.ops.int8_conv import (int8_conv,
+                                                     int8_conv_reference,
+                                                     int8_dense)
 from incubator_mxnet_tpu_torch.ops.dropout_kernel import (
     dropout_bwd, dropout_bwd_reference, dropout_fwd, dropout_fwd_dev,
     dropout_fwd_reference, dropout_mask, dropout_mask_dev, mask_reference)
@@ -363,6 +404,7 @@ from incubator_mxnet_tpu_torch.serving import programs as prog_mod
 # functions of those names)
 fa_mod = importlib.import_module("incubator_mxnet_tpu_torch.ops."
                                  "flash_attention")
+ic_mod = importlib.import_module("incubator_mxnet_tpu_torch.ops.int8_conv")
 pa_mod = importlib.import_module("incubator_mxnet_tpu_torch.ops."
                                  "paged_attention")
 
@@ -426,6 +468,14 @@ KERNELS = {
     "xent_backward": dict(
         fn=xent_backward, source="incubator_mxnet_tpu_torch/csrc/xent.cu",
         replaces="incubator_mxnet_tpu/ops/xent_kernel.py:178"),
+    # beyond the TPU set: the JAX package's int8 products are XLA's s8
+    # convolution and dot, and torch has no int8 convolution on CUDA
+    "int8_conv": dict(
+        fn=int8_conv, source="incubator_mxnet_tpu_torch/csrc/int8_conv.cu",
+        replaces="incubator_mxnet_tpu/contrib/quantization.py:113"),
+    "int8_dense": dict(
+        fn=int8_dense, source="incubator_mxnet_tpu_torch/csrc/int8_conv.cu",
+        replaces="incubator_mxnet_tpu/contrib/quantization.py:96"),
 }
 SERVING_KERNELS = ("paged_attention", "flash_attention", "paged_attention_q8")
 # the kernels of the float serving path, and of the quantized one
@@ -436,6 +486,7 @@ TRAINING_KERNELS = ("dropout_mask", "dropout_fwd", "dropout_bwd",
                     "dropout_mask_dev", "dropout_fwd_dev", "xent_forward",
                     "xent_backward")
 FLASH_KERNELS = ("flash_attention", "flash_bwd_dkdv", "flash_bwd_dq")
+INT8_KERNELS = ("int8_conv", "int8_dense")
 # the flagship of bench.py: BERT-large, phase-1 shapes, dropout 0.1
 BERT = dict(vocab_size=30522, units=1024, hidden_size=4096, num_layers=24,
             num_heads=16)
@@ -2551,7 +2602,7 @@ def _composition(x, res, dy, mask, rate):
 
 
 def check_dropout_fused(dtype, shape, rate, seed, offset=0,
-                        special=False) -> int:
+                        special=False, res_dtype=None) -> int:
     """The fused forward's mask and y, and the fused backward's dx, equal
     the plain composition's bit for bit, with and without a residual,
     called directly and through ``fused_dropout(_add)``'s autograd
@@ -2562,11 +2613,14 @@ def check_dropout_fused(dtype, shape, rate, seed, offset=0,
     start that many elements into larger buffers (the kernel's scalar
     path when they leave the 16-byte grid).  ``special``: x holds NaN
     and +-Inf on dropped elements, res -0.0 on dropped and on some kept
-    ones, dy NaN on dropped ones.  Returns the number of checks."""
+    ones, dy NaN on dropped ones.  ``res_dtype``: res and dy in that
+    dtype (f32 beside a bf16 x: the bf16 Transformer's residual stream),
+    the residual form only, the direct backward given dy in x's dtype as
+    autograd gives it.  Returns the number of checks."""
     n = math.prod(shape)
     g = torch.Generator().manual_seed(n + offset)
-    bufs = [torch.randn(n + offset, generator=g).to(DEV, dtype)
-            for _ in range(3)]
+    bufs = [torch.randn(n + offset, generator=g).to(DEV, dt)
+            for dt in (dtype, res_dtype or dtype, res_dtype or dtype)]
     x, res, dy = (b[offset:].view(shape) for b in bufs)
     ref_mask = mask_reference(n, seed, rate, device=DEV).view(shape)
     keep = ref_mask.bool()
@@ -2584,10 +2638,10 @@ def check_dropout_fused(dtype, shape, rate, seed, offset=0,
     tag = f"dropout fused {dtype} {shape} rate={rate} offset={offset}" \
         + (" special" if special else "")
     checks = 0
-    for r in (None, res):
+    for r in (res,) if res_dtype else (None, res):
         want_y, want_dx, want_dres = _composition(x, r, dy, ref_mask, rate)
         y, mask = dropout_fwd(x, r, seed, rate)
-        dx = dropout_bwd(dy, mask, rate)
+        dx = dropout_bwd(dy.to(dtype), mask, rate)
         torch.cuda.synchronize()
         assert mask.dtype == torch.uint8 and mask.shape == x.shape, tag
         assert torch.equal(mask, ref_mask), f"{tag}: forward's mask"
@@ -3322,9 +3376,20 @@ def _nmt_run(mode, smi, rec=None):
     out = {"mode": mode}
     _zero_counts()
     mx_random.seed(7, device=DEV)
+    def keep_mixed(args, kw):
+        # the first bf16 sublayer output added to the f32 residual
+        # stream: copied in the warm-up, before any capture records it
+        x, res, seed, rate = args
+        if rec is not None and "drop_mixed" not in rec and res is not None \
+                and (x.dtype, res.dtype) == (torch.bfloat16, torch.float32):
+            rec["drop_mixed"] = (x.clone(), res.clone(), seed.clone()
+                                 if isinstance(seed, torch.Tensor) else seed,
+                                 rate)
+
     with recording(xk_mod, "_fwd_cuda", keep_first("fwd")), \
             recording(xk_mod, "_bwd_cuda", keep_first("bwd")), \
-            recording(fa_mod, "_flash_bwd_core", keep_first("flash_bwd")):
+            recording(fa_mod, "_flash_bwd_core", keep_first("flash_bwd")), \
+            recording(dk_mod, "_fwd_cuda", keep_mixed):
         losses = []
         for _ in range(3):
             c0 = _counts()
@@ -3426,6 +3491,7 @@ def phase_nmt_training(smi: str) -> dict:
     x2, want_sum = rec["fwd"]
     bx, labels, lse, g, eps = rec["bwd"]
     assert want_sum and eps == NMT_SMOOTHING, (want_sum, eps)
+    mixed = check_nmt_mixed_dropout(rec["drop_mixed"])
     log(f"NMT training [{smi}]: 3 steps on graphs and never hybridized "
         f"bit-identical (losses, {len(graph['masters'])} f32 masters, "
         f"{len(graph['moments'])} Adam moments); the smoothed "
@@ -3433,13 +3499,38 @@ def phase_nmt_training(smi: str) -> dict:
         f"{eps} (backward) at {tuple(x2.shape)} {x2.dtype}; step "
         f"{graph['step_ms']:.2f} ms graphed against {plain['step_ms']:.2f} "
         f"ms never hybridized ({plain['step_ms'] / graph['step_ms']:.2f}x), "
-        f"card busy {graph['busy']:.3f} against {plain['busy']:.3f}")
+        f"card busy {graph['busy']:.3f} against {plain['busy']:.3f}; "
+        f"{mixed}")
     for r in (plain, graph):
         del r["masters"], r["moments"]
     return {"launches": {n: plain["launches"][n] + graph["launches"][n]
                          for n in plain["launches"]},
             "rec": rec, "net": graph.pop("net"), "graph": graph,
             "plain": plain}
+
+
+def check_nmt_mixed_dropout(rec) -> str:
+    """The fused dropout at the bf16 residual stream's mixed dtypes (a
+    bf16 x, an f32 residual): the kernel's y at the first such input of
+    phase 26's graphed step equals the plain version's bits, and at
+    (4096, 1024), contiguous and one element into its buffers, y (f32),
+    dx (bf16) and dres equal the plain composition's and its autograd
+    gradients' (`check_dropout_fused`)."""
+    x, res, seed, rate = rec
+    fwd = dropout_fwd_dev if isinstance(seed, torch.Tensor) else dropout_fwd
+    y, mask = fwd(x, res, seed, rate)
+    ref_y, ref_mask = dropout_fwd_reference(x, res, seed, rate)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and torch.equal(mask, ref_mask) \
+        and torch.equal(_bits(y), _bits(ref_y)), \
+        "NMT: the mixed-dtype dropout forward differs from its plain version"
+    checks = 2 + sum(check_dropout_fused(torch.bfloat16, (4096, 1024), 0.1,
+                                         seed_, offset, False,
+                                         torch.float32)
+                     for seed_, offset in ((1234567891234, 0), (7, 1)))
+    return (f"the fused dropout at the mixed dtypes (bf16 x, f32 residual "
+            f"and y) bit-identical to its plain version at the step's "
+            f"input {tuple(x.shape)} and at (4096, 1024) ({checks} checks)")
 
 
 def time_nmt_kernels(nres) -> dict:
@@ -4154,6 +4245,316 @@ def phase_resnet_inference(smi: str, net) -> dict:
     return out
 
 
+# --------------------------------------------------------- phases 32-34
+# H100 SXM dense int8 tensor-core peak, operations/s (NVIDIA data sheet)
+INT8_PEAK_OPS = 1979e12
+PTQ_CALIB = (2, 8)              # benchmark_score.py: batches, images each
+INT8_BATCHES = (256, 1)         # phase 32's batches (the first timed in full)
+# small cases beyond ResNet-50's shapes: (x shape, weight shape, stride,
+# pad, dilation, groups, bias, dtype): grouped, dilated, strided 1-D and
+# 3-D, f32 activations
+INT8_SMALL_CASES = (
+    ((2, 32, 28, 28), (64, 4, 3, 3), (2, 2), (1, 1), (1, 1), 8, True,
+     torch.bfloat16),
+    ((2, 16, 30, 30), (32, 16, 3, 3), (1, 1), (2, 2), (2, 2), 1, False,
+     torch.float32),
+    ((4, 16, 100), (32, 16, 5), (2,), (2,), (1,), 1, True, torch.bfloat16),
+    ((2, 8, 8, 12, 12), (16, 8, 3, 3, 3), (1, 2, 2), (1, 1, 1), (1, 1, 1),
+     1, True, torch.float32),
+    ((1, 3, 224, 224), (64, 3, 7, 7), (2, 2), (3, 3), (1, 1), 1, False,
+     torch.float32))
+# the int8 convolution's row in the kernel table: layer1's 3x3 64->64 at
+# 56x56, B=256
+INT8_ROW_SPEC = ((64, 56, 56), (64, 64, 3, 3), (1, 1), (1, 1), (1, 1), 1,
+                 False)
+
+
+def resnet_conv_specs(net) -> list:
+    """[spec, count] for each distinct convolution of ``net`` (one eager
+    bf16 forward at B=1, 224x224): spec = (input's (C, H, W), weight
+    shape, stride, pad, dilation, groups, bias)."""
+    specs = {}
+
+    def hook(m, inp, out):
+        spec = (tuple(inp[0].shape[1:]), tuple(m.weight.shape),
+                tuple(m._strides), tuple(m._padding), tuple(m._dilation),
+                m._groups, m.bias is not None)
+        specs[spec] = specs.get(spec, 0) + 1
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, _Conv)]
+    try:
+        with autograd.predict_mode():
+            net(torch.zeros(1, 3, RESNET_HW, RESNET_HW, device=DEV,
+                            dtype=torch.bfloat16))
+    finally:
+        for h in hooks:
+            h.remove()
+    return [[k, n] for k, n in specs.items()]
+
+
+def _int8_inputs(xs, ws, bias, dtype, seed):
+    """x (normal), int8 weights, f32 scale ``act_scale * w_scale`` and
+    bias from ``seed``; act_scale clips the top 40% of |x|'s range."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(xs, generator=g).to(DEV, dtype)
+    w_q = torch.randint(-127, 128, ws, generator=g).to(DEV, torch.int8)
+    w_scale = (torch.rand(ws[0], generator=g) * 1e-2 + 1e-4).to(DEV)
+    act = float(x.float().abs().max()) * 0.6 / 127.0
+    scale = torch.tensor([act], dtype=torch.float32, device=DEV) * w_scale
+    b = torch.randn(ws[0], generator=g).to(DEV) if bias else None
+    return x, w_q, scale, act, b
+
+
+def check_int8(xs, ws, stride, pad, dil, groups, bias, dtype, seed,
+               timed=False, plain_timed=False) -> dict:
+    """The kernel against `int8_conv_reference` bit for bit at one shape
+    (the dense case when ``ws`` is 2-D); with ``timed`` its ms, the
+    bound and the bf16 cuDNN (``F.linear``) time of the same layer under
+    autotuning; with ``plain_timed`` the plain version's ms too."""
+    x, w_q, scale, act, b = _int8_inputs(xs, ws, bias, dtype, seed)
+    dense = len(ws) == 2
+    if dense:
+        def run():
+            return int8_dense(x, w_q, scale, act, b)
+        args = (x[:, :, None, None], w_q[:, :, None, None], scale, act, b,
+                (1, 1), (0, 0), (1, 1), 1)
+
+        def plain():
+            return int8_conv_reference(*args).reshape(xs[0], ws[0])
+    else:
+        args = (x, w_q, scale, act, b, stride, pad, dil, groups)
+
+        def run():
+            return int8_conv(*args)
+
+        def plain():
+            return int8_conv_reference(*args)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    tag = f"int8 {'dense' if dense else 'conv'} x{xs} w{ws} {dtype}"
+    assert got.dtype == dtype and got.shape == want.shape, tag
+    assert torch.equal(_bits(got), _bits(want)), \
+        f"{tag}: differs from the plain version " \
+        f"({(got.float() - want.float()).abs().max().item()})"
+    out = {"shape": tag.split(" ", 2)[2], "max_abs_err": 0.0}
+    if not timed:
+        return out
+    macs = got.numel() * math.prod(ws[1:])
+    nbytes = x.numel() * x.element_size() + w_q.numel() \
+        + got.numel() * got.element_size() + 4 * ws[0] * (2 if bias else 1)
+    out["bound_ms"], out["bound_by"] = _bound(nbytes, 2 * macs,
+                                              INT8_PEAK_OPS)
+    out["ms"] = time_ms(run)
+    wf = w_q.to(dtype)
+    bf = None if b is None else b.to(dtype)
+    nd_ = x.dim() - 2
+    with cudnn_mode(False):
+        out["cudnn_ms"] = time_ms(
+            (lambda: F.linear(x, wf, bf)) if dense else
+            (lambda: getattr(F, f"conv{nd_}d")(x, wf, bf, stride, pad, dil,
+                                               groups)))
+    if plain_timed:
+        out["plain_ms"] = time_ms(plain, iters=3, warmup=1)
+    out["macs"] = macs
+    return out
+
+
+def phase_int8_kernels(smi: str) -> dict:
+    """Phase 32 (see the module docstring)."""
+    mx_random.seed(0, device=DEV)
+    net = vision.get_model("resnet50_v1", classes=RESNET_CLASSES,
+                           device=DEV).initialize().cast("bfloat16")
+    specs = resnet_conv_specs(net)
+    del net
+    assert sum(n for _, n in specs) == 53, specs
+    rows, seed = {}, 0
+    for B in INT8_BATCHES:
+        total = {"ms": 0.0, "cudnn_ms": 0.0, "bound_ms": 0.0}
+        for (cin, ws, st, pd, dl, gr, bias), n in specs:
+            seed += 1
+            r = check_int8((B,) + cin, ws, st, pd, dl, gr, bias,
+                           torch.bfloat16, seed, timed=True,
+                           plain_timed=B == INT8_BATCHES[0] and (
+                               cin, ws, st, pd, dl, gr, bias)
+                           == INT8_ROW_SPEC)
+            for k in total:
+                total[k] += n * r[k]
+            rows[(B, cin, ws, st)] = r
+            log(f"int8_conv [{smi}] B={B} {r['shape']} stride {st} pad {pd} "
+                f"(x{n} in the net): {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), bf16 cuDNN "
+                f"autotuned {r['cudnn_ms']:.4f} ms (a different function: "
+                f"torch has no int8 convolution on CUDA); bit-identical to "
+                f"the plain version")
+        seed += 1
+        r = check_int8((B, 2048), (RESNET_CLASSES, 2048), None, None, None,
+                       1, True, torch.bfloat16, seed, timed=True,
+                       plain_timed=B == INT8_BATCHES[0])
+        rows[(B, "dense")] = r
+        for k in total:
+            total[k] += r[k]
+        log(f"int8_dense [{smi}] B={B} {r['shape']}: {r['ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), bf16 cuBLAS "
+            f"F.linear {r['cudnn_ms']:.4f} ms; bit-identical")
+        log(f"int8 layers of one ResNet-50 v1 forward [{smi}] at B={B}, "
+            f"summed over the 53 convolutions and the Dense: "
+            f"{total['ms']:.3f} ms of kernel time against "
+            f"{total['bound_ms']:.3f} ms of bounds and {total['cudnn_ms']:.3f}"
+            f" ms of bf16 cuDNN/cuBLAS")
+        rows[(B, "total")] = total
+    for i, (xs, ws, st, pd, dl, gr, bias, dt) in enumerate(INT8_SMALL_CASES):
+        r = check_int8(xs, ws, st, pd, dl, gr, bias, dt, 1000 + i)
+        log(f"int8_conv small case {r['shape']} stride {st} pad {pd} "
+            f"dilation {dl} groups {gr}: bit-identical")
+    B = INT8_BATCHES[0]
+    conv = rows[(B, INT8_ROW_SPEC[0], INT8_ROW_SPEC[1], INT8_ROW_SPEC[2])]
+    return {"int8_conv": conv, "int8_dense": rows[(B, "dense")],
+            "rows": rows, "specs": specs}
+
+
+def _ptq_net(seed: int):
+    """benchmark_score.py's net: ResNet-50 v1 from ``seed``, 1000
+    classes, ``cast("bfloat16")``."""
+    mx_random.seed(seed, device=DEV)
+    return vision.get_model("resnet50_v1", classes=RESNET_CLASSES,
+                            device=DEV).initialize().cast("bfloat16")
+
+
+def _wrapped(net):
+    return [(n, m) for n, m in net.named_modules()
+            if isinstance(m, _QuantizedWrapper)]
+
+
+def phase_ptq_inference(smi: str, bf16_rows: dict) -> dict:
+    """Phase 33 (see the module docstring); ``bf16_rows``: phase 31's
+    img/s by batch."""
+    net = _ptq_net(0)
+    calib = [_images(PTQ_CALIB[1], RESNET_HW, RESNET_CLASSES, 60 + i,
+                     torch.bfloat16)[0] for i in range(PTQ_CALIB[0])]
+    xs = {B: _images(B, RESNET_HW, RESNET_CLASSES, 40 + B,
+                     torch.bfloat16)[0] for B in RESNET_INFER_BATCHES}
+    with cudnn_mode(True), autograd.predict_mode():
+        ref = {B: net(x) for B, x in xs.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quantize_net(net, calib, calib_mode="minmax")
+    minmax_s = time.perf_counter() - t0
+    wrapped = _wrapped(net)
+    kinds = [type(m.src).__name__ for _, m in wrapped]
+    assert len(wrapped) == 54 and kinds.count("Conv2D") == 53 \
+        and kinds.count("Dense") == 1, kinds
+    other = _ptq_net(0)
+    t0 = time.perf_counter()
+    quantize_net(other, calib, calib_mode="entropy")
+    entropy_s = time.perf_counter() - t0
+    ratio = [e._qd.act_scale / m._qd.act_scale
+             for (_, e), (_, m) in zip(_wrapped(other), wrapped)]
+    del other
+    net.hybridize()
+    out = {"minmax_s": minmax_s, "entropy_s": entropy_s}
+    for fn in (int8_conv, int8_dense):
+        fn.launches = 0
+        _graphs.replayed_launches[fn] = 0
+    with cudnn_mode(True), autograd.predict_mode():
+        for B, x in xs.items():
+            c0 = _graphs.captures.get("raw_fn", 0)
+            first = net(x)
+            c1 = _graphs.captures.get("raw_fn", 0)
+            r1 = _graphs.replays.get("raw_fn", 0)
+            n0 = {fn: _graphs.launches(fn) for fn in (int8_conv, int8_dense)}
+            again = net(x)
+            torch.cuda.synchronize()
+            n1 = {fn: _graphs.launches(fn) - n0[fn]
+                  for fn in (int8_conv, int8_dense)}
+            assert c1 == c0 + 1 and _graphs.captures.get("raw_fn", 0) == c1 \
+                and _graphs.replays.get("raw_fn", 0) == r1 + 1, \
+                (B, c0, c1, dict(_graphs.captures))
+            assert (n1[int8_conv], n1[int8_dense]) == (53, 1), (B, n1)
+            with _graphs.eager():
+                eager = net(x)
+            with plain_kernels(), _graphs.eager():
+                plain = net(x)
+            assert first.shape == (B, RESNET_CLASSES) \
+                and first.dtype == torch.bfloat16 \
+                and torch.isfinite(first).all()
+            assert torch.equal(first, eager) and torch.equal(again, eager), \
+                f"int8 ResNet B={B}: replay differs from the eager body"
+            assert torch.equal(plain, eager), \
+                f"int8 ResNet B={B}: kernels differ from the plain versions"
+            f = ref[B].float()
+            row = {"rel_diff": ((again.float() - f).abs().max()
+                                / f.abs().max()).item()}
+            for kind in ("graph", "eager"):
+                with _graphs.eager() if kind == "eager" \
+                        else contextlib.nullcontext():
+                    for _ in range(3):
+                        net(x)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(20):
+                        net(x)
+                    torch.cuda.synchronize()
+                    row[kind] = 20 * B / (time.perf_counter() - t0)
+            out[B] = row
+    out["launches"] = {"int8_conv": _graphs.launches(int8_conv),
+                       "int8_dense": _graphs.launches(int8_dense)}
+    log(f"ResNet-50 v1 int8 inference [{smi}] (benchmark_score.py --dtype "
+        f"int8: bf16, quantize_net minmax on {PTQ_CALIB[0]} x "
+        f"{PTQ_CALIB[1]} images in {minmax_s:.2f} s, entropy in "
+        f"{entropy_s:.2f} s (its thresholds / minmax's: median "
+        f"{float(np.median(ratio)):.3f}, min {min(ratio):.3f}); 54 layers "
+        f"wrapped, 53 + 1 int8 launches a forward inside the replay): "
+        + "; ".join(
+            f"B={B} {r['graph']:.1f} img/s graphed against {r['eager']:.1f} "
+            f"on the eager bodies ({r['graph'] / r['eager']:.2f}x), phase "
+            f"31's bf16 net {bf16_rows[B]['graph']:.1f} graphed; int8 logits "
+            f"within {r['rel_diff']:.4f} of the float net's largest |logit|"
+            for B, r in out.items() if isinstance(B, int))
+        + "; each replay bit-identical to its eager body and to the eager "
+        "body on the plain versions, one capture a signature; launches "
+        f"{out['launches']}")
+    out["net"] = net
+    return out
+
+
+def phase_params(smi: str, trained, qnet) -> dict:
+    """Phase 34 (see the module docstring)."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        f = os.path.join(d, "resnet50_v1.params")
+        trained.save_parameters(f)
+        size = os.path.getsize(f)
+        fresh = _ptq_net(5)
+        fresh.load_parameters(f)
+        x, _ = _images(32, RESNET_HW, RESNET_CLASSES, 77, torch.bfloat16)
+        with cudnn_mode(True), autograd.predict_mode(), _graphs.eager():
+            a, b = trained(x), fresh(x)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), "a loaded net's logits differ"
+        mine = dict(trained._collect_params_with_prefix())
+        assert all(torch.equal(p, mine[n]) for n, p in
+                   fresh._collect_params_with_prefix().items())
+        qf = os.path.join(d, "resnet50_v1_int8.params")
+        qnet.save_parameters(qf)
+        loaded = nd.load(qf, device=DEV)
+    names = {n for n, _ in _wrapped(qnet)}
+    want = []
+    for n in mine:
+        layer, leaf = n.rsplit(".", 1)
+        want.append(f"{layer}.src.{leaf}" if layer in names else n)
+    assert list(loaded) == want, "the int8 net's keys"
+    qparams = qnet._collect_params_with_prefix()
+    assert all(torch.equal(v, qparams[k]) for k, v in loaded.items())
+    log(f".params [{smi}]: phase 30's trained net ({len(mine)} arrays, "
+        f"{size} bytes) saved and loaded into a fresh net: logits at B=32 "
+        f"bit-identical; the int8 net's file keeps its {len(names)} "
+        f"wrapped layers' float parameters under <layer>.src.<name>")
+    return {"bytes": size, "arrays": len(mine)}
+
+
 # ---------------------------------------------------------------- phase 9
 @contextlib.contextmanager
 def plain_kernels():
@@ -4161,7 +4562,8 @@ def plain_kernels():
     harness's switch; the main paths never enter it)."""
     saved = (dk_mod._mask_cuda, dk_mod._fwd_cuda, dk_mod._bwd_cuda,
              xk_mod._fwd_cuda, xk_mod._bwd_cuda, fa_mod._flash_core,
-             fa_mod._flash_bwd_core, pa_mod._launch, pa_mod._launch_q8)
+             fa_mod._flash_bwd_core, pa_mod._launch, pa_mod._launch_q8,
+             ic_mod._launch)
     dk_mod._mask_cuda = lambda n, seed, rate, dev: mask_reference(
         n, seed, rate, device=dev)
     dk_mod._fwd_cuda = dropout_fwd_reference
@@ -4173,12 +4575,14 @@ def plain_kernels():
     pa_mod._launch = paged_attention_dense
     pa_mod._launch_q8 = lambda q, pk, pv, sk, sv, tables, pos: \
         paged_attention_dense(q, pk, pv, tables, pos, sk, sv)
+    ic_mod._launch = lambda *args: int8_conv_reference(*args[:-1])
     try:
         yield
     finally:
         (dk_mod._mask_cuda, dk_mod._fwd_cuda, dk_mod._bwd_cuda,
          xk_mod._fwd_cuda, xk_mod._bwd_cuda, fa_mod._flash_core,
-         fa_mod._flash_bwd_core, pa_mod._launch, pa_mod._launch_q8) = saved
+         fa_mod._flash_bwd_core, pa_mod._launch, pa_mod._launch_q8,
+         ic_mod._launch) = saved
 
 
 def _one_step(cfg, B, T, plain: bool):
@@ -4676,7 +5080,16 @@ def main() -> int:
     rres = timed("resnet_training", phase_resnet_training, smi)
     rtimes = timed("resnet_timing", time_resnet_kernels, rres)
     del rres["rec"]
-    timed("resnet_inference", phase_resnet_inference, smi, rres.pop("net"))
+    rnet = rres.pop("net")
+    rinf = timed("resnet_inference", phase_resnet_inference, smi, rnet)
+    # int8 post-training quantization: the kernel at ResNet-50's shapes,
+    # benchmark_score.py's int8 flow on graphs, the .params files
+    gc.collect()
+    torch.cuda.empty_cache()
+    i8 = timed("int8_kernels", phase_int8_kernels, smi)
+    pres = timed("ptq_inference", phase_ptq_inference, smi, rinf)
+    timed("params", phase_params, smi, rnet, pres.pop("net"))
+    del rnet
     log(f"phases took {time.perf_counter() - t_start:.1f} s: "
         + json.dumps(took))
     for kind in ("step", "chunk"):
@@ -4739,7 +5152,7 @@ def main() -> int:
     # each kernel's launches summed over the main paths that ran it
     launches = {}
     for path in (res, qres, sres, bres, gres, tres, tres512, lres, cres,
-                 cres512, nres, rres):
+                 cres512, nres, rres, pres):
         for name, n in path["launches"].items():
             launches[name] = launches.get(name, 0) + n
     rows = []
@@ -4755,6 +5168,20 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms")})
+    for name in INT8_KERNELS:
+        k, t = KERNELS[name], i8[name]
+        assert launches[name] > 0, f"{name} never launched on its path"
+        log(f"{name} at {t['shape']} (the JSON row): {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), library none (bf16 cuDNN/cuBLAS of the "
+            f"same layer {t['cudnn_ms']:.4f} ms), {launches[name]} launches "
+            f"on phase 33's path [{smi}]")
+        rows.append({
+            "name": name, "route": "cuda", "source": k["source"],
+            "replaces": k["replaces"], "launches": launches[name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""int8 quantization for decode (PyTorch/CUDA port of the decode subset
-of `incubator_mxnet_tpu/contrib/quantization.py`).
+"""int8 quantization (PyTorch/CUDA port of
+`incubator_mxnet_tpu/contrib/quantization.py`): post-training
+quantization of Gluon nets, and the int8 weights of the decode stack.
 
 * `quantize_weight` / `quantize_kv` — the symmetric int8 recipe: an f32
   scale ``max(amax, 1e-8) / 127`` per channel (weights) or per head
@@ -13,19 +14,34 @@ of `incubator_mxnet_tpu/contrib/quantization.py`).
   matmuls (a `TransformerLM`'s, or a `Transformer`'s decoder), the
   scale applied in the matmul epilogue.
 
-The post-training quantization half of the JAX module (`quantize_net`,
-`QuantizedDense`/`QuantizedConv`, `calibrate`) is not ported yet.
+* `calibrate`, `QuantizedConv`, `QuantizedDense`, `quantize_net` —
+  post-training quantization: a net's Dense and Conv1D/2D/3D layers
+  (ResNet-50 v1's 53 convolutions and its Dense) calibrated on a few
+  batches (``minmax``, or ``entropy``: the KL-divergence threshold
+  search, in numpy, the JAX package's code and thresholds), then
+  swapped for int8 layers: per-channel int8 weights snapshotted at the
+  swap, a per-tensor activation scale ``max(threshold, 1e-8) / 127``,
+  and the product through `ops.int8_conv` (the hand-written int8
+  implicit-GEMM kernel on the card; ``int8_dense`` its GEMM case).
+  Each swapped layer stays in the tree as the ``src`` child of a
+  `_QuantizedWrapper`, so ``save_parameters`` writes the float
+  parameters under the JAX package's keys.
 """
 from __future__ import annotations
 
 import itertools
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
+from .. import ndarray as nd
 from ..context import default_device
+from ..gluon.block import Block, HybridBlock
+from ..ops.int8_conv import int8_conv, int8_dense
 
-__all__ = ["quantize_weight", "quantize_kv", "DecodeQuantConfig",
+__all__ = ["quantize_weight", "quantize_kv", "calibrate", "QuantizedDense",
+           "QuantizedConv", "quantize_net", "DecodeQuantConfig",
            "quantize_for_decode", "dequantize_decode"]
 
 _SERIAL = itertools.count()
@@ -51,6 +67,229 @@ def quantize_kv(x):
     scale = xf.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
+
+
+def _entropy_threshold(hist, edges, num_quantized_bins=255):
+    """The KL-divergence threshold search of ``calib_mode="entropy"``
+    (the JAX package's, line for line, so the thresholds are equal)."""
+    def kl(p, q):
+        p = p / max(p.sum(), 1e-12)
+        q = q / max(q.sum(), 1e-12)
+        mask = p > 0
+        qq = np.where(q > 0, q, 1e-12)
+        return float((p[mask] * np.log(p[mask] / qq[mask])).sum())
+
+    n = len(hist)
+    best_d, best_t = np.inf, edges[-1]
+    for i in range(num_quantized_bins // 2, n + 1, max(1, n // 32)):
+        ref = hist[:i].astype("float64").copy()
+        ref[i - 1] += hist[i:].sum()    # clip outliers into the edge bin
+        factor = i / num_quantized_bins
+        q = np.zeros(i)
+        for j in range(num_quantized_bins):
+            lo = int(j * factor)
+            hi = max(int((j + 1) * factor), lo + 1)
+            chunk = ref[lo:hi]
+            nz = (chunk > 0).sum()
+            if nz:
+                q[lo:hi] = np.where(chunk > 0, chunk.sum() / nz, 0)
+        d = kl(ref, q)
+        if d < best_d:
+            best_d, best_t = d, edges[i]
+    return best_t
+
+
+def _host_f32(a) -> np.ndarray:
+    """A tensor (any device or dtype) or array as f32 numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(a, dtype=np.float32)
+
+
+def calibrate(activations: List, mode: str = "minmax") -> float:
+    """The activation threshold of calibration batches: the largest
+    ``|x|`` (``minmax``) or the entropy search over a 2048-bin
+    histogram of ``|x|`` (``entropy``)."""
+    flat = np.concatenate([np.abs(_host_f32(a)).ravel()
+                           for a in activations])
+    if mode == "minmax":
+        return float(flat.max())
+    if mode == "entropy":
+        hist, edges = np.histogram(flat, bins=2048)
+        return float(_entropy_threshold(hist, edges))
+    raise ValueError(f"unknown calib_mode {mode!r} (minmax|entropy)")
+
+
+class _Quantized:
+    """The int8 state both quantized layers share, snapshotted from the
+    float ``layer`` at construction: int8 weights and their f32 scales
+    per output channel (`quantize_weight`), the f32 bias, the activation
+    scale ``max(threshold, 1e-8) / 127``, ``act_scale * w_scale`` (the
+    epilogue's f32 factor) and the fused activation."""
+
+    def __init__(self, layer, act_threshold: float):
+        w = layer.weight.detach()
+        self.w_q, w_scale = quantize_weight(w, axis=0)
+        self.w_scale = w_scale.reshape(-1)
+        self.bias = None if layer.bias is None \
+            else layer.bias.detach().float()
+        self.act_scale = max(act_threshold, 1e-8) / 127.0
+        self.scale = torch.tensor([self.act_scale], dtype=torch.float32,
+                                  device=w.device) * self.w_scale
+        self.activation = getattr(layer, "_activation", None)
+        self._src = layer
+
+    def _act(self, out):
+        return nd.Activation(out, act_type=self.activation) \
+            if self.activation else out
+
+
+class QuantizedConv(_Quantized):
+    """Inference Conv1D/2D/3D over int8 weights (`ops.int8_conv`), with
+    the float layer's groups, stride, padding, dilation and activation;
+    the output keeps x's dtype."""
+
+    def __init__(self, conv, act_threshold: float):
+        super().__init__(conv, act_threshold)
+        self.stride = tuple(conv._strides)
+        self.pad = tuple(conv._padding)
+        self.dilate = tuple(conv._dilation)
+        self.groups = int(conv._groups)
+
+    def __call__(self, x):
+        return self._act(int8_conv(x, self.w_q, self.scale, self.act_scale,
+                                   self.bias, self.stride, self.pad,
+                                   self.dilate, self.groups))
+
+
+class QuantizedDense(_Quantized):
+    """Inference Dense over int8 weights (`ops.int8_dense`): with the
+    float layer's ``flatten`` an input of more than two dims is folded
+    to (N, -1), else the product is over its last axis; the activation
+    survives; the output keeps x's dtype."""
+
+    def __call__(self, x):
+        lead = None
+        if getattr(self._src, "_flatten", False) and x.dim() > 2:
+            x = x.reshape(x.shape[0], -1)
+        elif x.dim() > 2:
+            lead = x.shape[:-1]
+            x = x.reshape(-1, x.shape[-1])
+        out = int8_dense(x, self.w_q, self.scale, self.act_scale, self.bias)
+        if lead is not None:
+            out = out.reshape(*lead, -1)
+        return self._act(out)
+
+
+_SAMPLE_CAP = 1 << 16
+
+
+def quantize_net(net, calib_data, calib_mode: str = "minmax",
+                 layer_types=("Dense", "Conv1D", "Conv2D", "Conv3D")):
+    """Post-training-quantize ``net``'s Dense and convolution layers in
+    place and return it.
+
+    Every layer whose class is named in ``layer_types`` (searched below
+    non-target blocks) gets a forward pre-hook; the batches of
+    ``calib_data`` (tensors, or arrays moved to the net's device) run
+    through the net eagerly, every block's hybridization switched off
+    for them; each hook keeps its layer's running ``|x|`` max and, for
+    ``entropy``, up to 65,536 values of each batch (a subsample drawn by
+    ``numpy.random.RandomState(<batches seen>)``, as the JAX package
+    draws it).  The hooks are removed (a user's own hooks stay), each
+    layer's threshold taken (`calibrate`'s rules over those statistics)
+    and the layer swapped for a `_QuantizedWrapper` under its name; a
+    layer no batch reached raises ValueError.  Every block's captured
+    programs are dropped, so a hybridized net captures the int8 program
+    at its next call."""
+    targets = []
+
+    def walk(block):
+        for name, child in list(block._modules.items()):
+            if type(child).__name__ in layer_types:
+                targets.append((block, name, child))
+            elif child is not None:
+                walk(child)
+
+    walk(net)
+    records: Dict[int, dict] = {id(c): {"amax": 0.0, "samples": [],
+                                        "hits": 0} for _, _, c in targets}
+
+    def make_hook(key):
+        def hook(blk, inputs):
+            a = np.abs(_host_f32(inputs[0]))
+            rec = records[key]
+            rec["hits"] += 1
+            if a.size:
+                rec["amax"] = max(rec["amax"], float(a.max()))
+            flat = a.ravel()
+            if calib_mode == "entropy":
+                if flat.size > _SAMPLE_CAP:
+                    idx = np.random.RandomState(len(rec["samples"])) \
+                        .choice(flat.size, _SAMPLE_CAP, replace=False)
+                    flat = flat[idx]
+                rec["samples"].append(flat)
+        return hook
+
+    handles = [child.register_forward_pre_hook(make_hook(id(child)))
+               for _, _, child in targets]
+    blocks = [m for m in net.modules() if isinstance(m, Block)]
+    saved = [(b, b._hybrid) for b in blocks]
+    for b in blocks:
+        b._hybrid = False
+    dev = next(net.parameters()).device
+    try:
+        for batch in calib_data:
+            net(batch if isinstance(batch, torch.Tensor)
+                else torch.as_tensor(np.asarray(batch), device=dev))
+    finally:
+        for b, hyb in saved:
+            b._hybrid = hyb
+        for h in handles:
+            h.remove()
+    for parent, name, child in targets:
+        rec = records[id(child)]
+        if rec["hits"] == 0:
+            raise ValueError(
+                f"quantize_net: layer {name!r} of {type(parent).__name__} "
+                f"saw no calibration activations — the calib_data batches "
+                f"never exercised it")
+        setattr(parent, name, _QuantizedWrapper(
+            child, _threshold_from_stats(rec, calib_mode)))
+    for b in net.modules():
+        if isinstance(b, Block):
+            b._invalidate_cached_program()
+    return net
+
+
+def _threshold_from_stats(rec: dict, mode: str) -> float:
+    if rec["amax"] == 0.0:
+        return 1e-8                     # only zeros seen: any scale is exact
+    if mode == "minmax":
+        return rec["amax"]
+    if mode == "entropy":
+        flat = np.concatenate(rec["samples"]) if rec["samples"] \
+            else np.asarray([rec["amax"]])
+        hist, edges = np.histogram(flat, bins=2048, range=(0.0, rec["amax"]))
+        return float(_entropy_threshold(hist, edges))
+    raise ValueError(f"unknown calib_mode {mode!r} (minmax|entropy)")
+
+
+class _QuantizedWrapper(HybridBlock):
+    """The int8 layer in the tree: its registered child ``src`` keeps the
+    float parameters (``save_parameters`` writes them, as in the JAX
+    package: quantization is a runtime transform, not a format), its
+    forward the int8 one (`QuantizedConv` or `QuantizedDense`)."""
+
+    def __init__(self, layer, threshold: float):
+        super().__init__()
+        self.src = layer
+        qcls = QuantizedConv if type(layer).__name__.startswith("Conv") \
+            else QuantizedDense
+        self._qd = qcls(layer, threshold)
+
+    def forward(self, x):
+        return self._qd(x)
 
 
 def _weight_key(w) -> tuple:

@@ -52,6 +52,10 @@
 // keep nvcc from contracting the two into one FMA.  A dropped element is
 // a select, not a multiply by the mask, so a NaN or Inf there gives 0, and
 // res + 0 is still added (a -0.0 residual gives +0.0, as in torch).
+// A bf16 x with an f32 residual (the bf16 Transformer's residual stream,
+// which the JAX package's f32 positional table promotes) rounds the
+// product to bf16 and adds it to the residual in f32, writing f32: the
+// JAX package's `res + where(mask, x * scale, 0)` under type promotion.
 //
 // Bounds on the H100 (n elements, e bytes an element):
 //   mask:     the larger of n bytes written over 3.35 TB/s and 38 integer
@@ -145,30 +149,35 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 }
 
 // One element of the output: the forward's [res +] where(keep, x*s, 0),
-// the backward's where(keep, dy, 0) * s; each product rounded to T once.
-template <typename T, int M>
-__device__ __forceinline__ T apply(bool keep, T in, T res, float scale) {
+// the backward's where(keep, dy, 0) * s; each product rounded to T (the
+// input's type) once, the sum with the residual to O (the residual's and
+// the output's type).
+template <typename T, typename O, int M>
+__device__ __forceinline__ O apply(bool keep, T in, O res, float scale) {
   const float p = keep ? to_f32(from_f32<T>(__fmul_rn(to_f32(in), scale)))
                        : 0.0f;
   if constexpr (M == kForwardRes) {
-    return from_f32<T>(__fadd_rn(to_f32(res), p));
+    return from_f32<O>(__fadd_rn(to_f32(res), p));
   } else {
-    return from_f32<T>(p);
+    return from_f32<O>(p);
   }
 }
 
-// in: x (forward) or dy (backward); res: the residual (kForwardRes);
-// out: y or dx; mask: written (the forward modes) or read (kBackward).
+// in: x (forward) or dy (backward), of type T; res: the residual
+// (kForwardRes) and out: y or dx, of type O (T, or f32 residual and output
+// for a bf16 x: the JAX package's bf16 sublayer output added to an f32
+// residual stream); mask: written (the forward modes) or read (kBackward).
 // vec: every operand is 16-byte aligned.  kDevSeed: the round keys come
 // from the seed at `seed` in device memory, not from `rk`.
-template <typename T, int M, bool kDevSeed>
+template <typename T, typename O, int M, bool kDevSeed>
 __global__ void __launch_bounds__(kThreads)
-dropout_kernel(const T* __restrict__ in, const T* __restrict__ res,
-               T* __restrict__ out, uint8_t* __restrict__ mask, int64_t n,
+dropout_kernel(const T* __restrict__ in, const O* __restrict__ res,
+               O* __restrict__ out, uint8_t* __restrict__ mask, int64_t n,
                RoundKeys rk, const unsigned long long* __restrict__ seed,
                uint32_t thresh, float scale, bool vec) {
   if constexpr (kDevSeed) rk = round_keys(*seed);
-  constexpr int kVecs = kChunk * sizeof(T) / 16;  // 16-byte words a chunk
+  constexpr int kVecs = kChunk * sizeof(T) / 16;   // 16-byte words of in
+  constexpr int kOVecs = kChunk * sizeof(O) / 16;  // and of res and out
   const int64_t chunks = (n + kChunk - 1) / kChunk;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -210,30 +219,33 @@ dropout_kernel(const T* __restrict__ in, const T* __restrict__ res,
     }
     if constexpr (M != kMaskOnly) {
       if (full) {
-        uint4 a[kVecs], b[kVecs];
+        uint4 a[kVecs], b[kOVecs];
 #pragma unroll
-        for (int v = 0; v < kVecs; ++v) {
+        for (int v = 0; v < kVecs; ++v)
           a[v] = reinterpret_cast<const uint4*>(in + base)[v];
-          if constexpr (M == kForwardRes)
+        if constexpr (M == kForwardRes) {
+#pragma unroll
+          for (int v = 0; v < kOVecs; ++v)
             b[v] = reinterpret_cast<const uint4*>(res + base)[v];
         }
         const T* xa = reinterpret_cast<const T*>(a);
-        const T* ra = M == kForwardRes ? reinterpret_cast<const T*>(b) : xa;
-        uint4 o[kVecs];
-        T* oa = reinterpret_cast<T*>(o);
+        const O* ra = reinterpret_cast<const O*>(b);
+        uint4 o[kOVecs];
+        O* oa = reinterpret_cast<O*>(o);
 #pragma unroll
         for (int i = 0; i < kChunk; ++i)
-          oa[i] = apply<T, M>(kept(keep, i), xa[i], ra[i], scale);
+          oa[i] = apply<T, O, M>(kept(keep, i), xa[i],
+                                 M == kForwardRes ? ra[i] : O(), scale);
 #pragma unroll
-        for (int v = 0; v < kVecs; ++v)
+        for (int v = 0; v < kOVecs; ++v)
           reinterpret_cast<uint4*>(out + base)[v] = o[v];
       } else {
-        const T* r = M == kForwardRes ? res : in;
 #pragma unroll
         for (int i = 0; i < kChunk; ++i)
           if (base + i < n)
-            out[base + i] =
-                apply<T, M>(kept(keep, i), in[base + i], r[base + i], scale);
+            out[base + i] = apply<T, O, M>(
+                kept(keep, i), in[base + i],
+                M == kForwardRes ? res[base + i] : O(), scale);
       }
     }
   }
@@ -245,7 +257,7 @@ bool aligned16(const void* p) {
 
 // Launch over a grid of as many blocks as the card holds at once (every
 // SM full), fewer when the array is small.
-template <typename T, int M, bool kDevSeed = false>
+template <typename T, typename O, int M, bool kDevSeed = false>
 int launch(const void* in, const void* res, void* out, void* mask,
            long long n, const RoundKeys& rk, const void* seed,
            uint32_t thresh, float scale, void* stream) {
@@ -257,7 +269,7 @@ int launch(const void* in, const void* res, void* out, void* mask,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess && resident == 0)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &resident, dropout_kernel<T, M, kDevSeed>, kThreads, 0);
+        &resident, dropout_kernel<T, O, M, kDevSeed>, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long chunks = (n + kChunk - 1) / kChunk;
   const long long need = (chunks + kThreads - 1) / kThreads;
@@ -266,10 +278,10 @@ int launch(const void* in, const void* res, void* out, void* mask,
   const unsigned blocks = static_cast<unsigned>(need < room ? need : room);
   const bool vec = aligned16(in) && aligned16(res) && aligned16(out) &&
                    aligned16(mask);
-  dropout_kernel<T, M, kDevSeed><<<blocks, kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(in), static_cast<const T*>(res),
-      static_cast<T*>(out), static_cast<uint8_t*>(mask), n, rk,
+  dropout_kernel<T, O, M, kDevSeed><<<blocks, kThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<const O*>(res),
+      static_cast<O*>(out), static_cast<uint8_t*>(mask), n, rk,
       static_cast<const unsigned long long*>(seed), thresh, scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -281,11 +293,16 @@ int launch_typed(int dtype, const void* in, const void* res, void* out,
                  void* stream) {
   switch (dtype) {
     case 0:
-      return launch<float, M, kDevSeed>(in, res, out, mask, n, rk, seed,
-                                        thresh, scale, stream);
+      return launch<float, float, M, kDevSeed>(in, res, out, mask, n, rk,
+                                               seed, thresh, scale, stream);
     case 1:
-      return launch<__nv_bfloat16, M, kDevSeed>(in, res, out, mask, n, rk,
-                                                seed, thresh, scale, stream);
+      return launch<__nv_bfloat16, __nv_bfloat16, M, kDevSeed>(
+          in, res, out, mask, n, rk, seed, thresh, scale, stream);
+    case 2:  // a bf16 x, an f32 residual and output: the forward with res
+      if constexpr (M == kForwardRes)
+        return launch<__nv_bfloat16, float, M, kDevSeed>(
+            in, res, out, mask, n, rk, seed, thresh, scale, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -297,14 +314,15 @@ int launch_typed(int dtype, const void* in, const void* res, void* out,
 // cudaGetLastError() after the launch.  seed: the 64-bit Philox key (low
 // word first), by value or (the `_dev` entries) as a pointer to it in
 // device memory, 8-byte aligned; thresh: keep iff word >= thresh; scale:
-// 1 / (1 - rate) rounded to the element type; dtype: 0 float32,
-// 1 bfloat16.  Any pointer alignment of the operands is taken (16-byte
+// 1 / (1 - rate) rounded to x's type; dtype: 0 float32, 1 bfloat16,
+// 2 (the forward with a residual only) a bfloat16 x with a float32
+// residual and y.  Any pointer alignment of the operands is taken (16-byte
 // aligned operands take the vector path).
 
 // The keep-mask alone: mask uint8 (n,).
 extern "C" int mx_dropout_mask(void* mask, long long n, unsigned long long seed,
                                unsigned int thresh, void* stream) {
-  return launch<float, kMaskOnly>(nullptr, nullptr, nullptr, mask, n,
+  return launch<float, float, kMaskOnly>(nullptr, nullptr, nullptr, mask, n,
                                   round_keys(seed), nullptr, thresh, 0.0f,
                                   stream);
 }
@@ -312,9 +330,9 @@ extern "C" int mx_dropout_mask(void* mask, long long n, unsigned long long seed,
 // mx_dropout_mask with the seed read from device memory.
 extern "C" int mx_dropout_mask_dev(void* mask, long long n, const void* seed,
                                    unsigned int thresh, void* stream) {
-  return launch<float, kMaskOnly, true>(nullptr, nullptr, nullptr, mask, n,
-                                        RoundKeys{}, seed, thresh, 0.0f,
-                                        stream);
+  return launch<float, float, kMaskOnly, true>(nullptr, nullptr, nullptr,
+                                               mask, n, RoundKeys{}, seed,
+                                               thresh, 0.0f, stream);
 }
 
 // Forward: reads x (n,) and res (n,) unless it is null; writes the mask

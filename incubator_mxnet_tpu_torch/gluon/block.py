@@ -63,21 +63,115 @@ __all__ = ["Block", "HybridBlock", "new_parameter"]
 
 class Block(nn.Module):
     """Base container: `nn.Module` plus Gluon's ``collect_params``,
-    ``initialize``, ``cast``, ``zero_grad`` and ``hybridize``."""
+    ``initialize``, ``cast``, ``zero_grad``, ``hybridize``, the
+    ``.params`` files (``save_parameters``/``load_parameters``) and
+    Gluon's forward hooks.
+
+    Hooks: ``register_forward_pre_hook(hook)`` calls ``hook(block,
+    inputs)`` before each call and ``register_forward_hook(hook)`` calls
+    ``hook(block, inputs, output)`` after it (``inputs`` the tuple of
+    positional arguments), the signatures Gluon and torch share (torch's
+    methods); each returns torch's handle, whose ``remove()`` removes
+    that hook alone.  A hybridized block's hooks
+    fire around its program's run, outside it; no hook fires inside a
+    program's body (a capture, its warm-up or an eager run), so the
+    children of a hybridized block fire none while it runs, as the
+    children of a compiled block in the JAX package.  ``apply(fn)`` is
+    torch's: ``fn`` on every child, then on the block."""
 
     # hybridized (`HybridBlock.hybridize`), and its captured programs
     _hybrid = False
     _graph_cache = None
 
     def __call__(self, *args, **kwargs):
-        if self._hybrid and not _graphs.in_body():
-            if not autograd.is_recording():
-                return self._call_cached_op(args, kwargs)
-            return self._call_recorded(args, kwargs)
+        body = _graphs.in_body()
+        if self._hybrid and not body:
+            return self._call_hybrid(args, kwargs)
+        call = self.forward if body else super().__call__
         if torch.is_grad_enabled() and not autograd.is_recording():
             with torch.no_grad():
-                return super().__call__(*args, **kwargs)
-        return super().__call__(*args, **kwargs)
+                return call(*args, **kwargs)
+        return call(*args, **kwargs)
+
+    def _call_hybrid(self, args, kwargs):
+        """A hybridized call: the hooks around the program's run."""
+        for hook in list(self._forward_pre_hooks.values()):
+            got = hook(self, args)
+            if got is not None:
+                args = got if isinstance(got, tuple) else (got,)
+        out = self._call_recorded(args, kwargs) if autograd.is_recording() \
+            else self._call_cached_op(args, kwargs)
+        for hook in list(self._forward_hooks.values()):
+            got = hook(self, args, out)
+            if got is not None:
+                out = got
+        return out
+
+    # -- the .params files --------------------------------------------- #
+    def _collect_params_with_prefix(self, prefix: str = "") -> OrderedDict:
+        """Structural name -> parameter, walked as the JAX package walks
+        it: the block's own parameters first, then each child in order
+        under its attribute name, the first name of a key kept.  A
+        parameter shared by two children (the `Transformer`'s tied
+        embedding) appears under both names, where ``collect_params``
+        (``named_parameters``) gives it once."""
+        if prefix:
+            prefix += "."
+        ret: OrderedDict = OrderedDict()
+        for name, p in self._parameters.items():
+            if p is not None:
+                ret[prefix + name] = p
+        for key, child in self._modules.items():
+            if isinstance(child, Block):
+                for k, p in child._collect_params_with_prefix(
+                        prefix + key).items():
+                    ret.setdefault(k, p)
+        return ret
+
+    def save_parameters(self, filename, deduplicate: bool = False) -> None:
+        """Write every parameter under its structural name (the JAX
+        package's keys and bytes); ``deduplicate`` writes a shared one
+        under its first name only."""
+        from ..utils import serialization
+
+        arrays, seen = OrderedDict(), set()
+        for name, p in self._collect_params_with_prefix().items():
+            if deduplicate and id(p) in seen:
+                continue
+            seen.add(id(p))
+            arrays[name] = p
+        serialization.save_ndarrays(filename, arrays)
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False) -> None:
+        """Read a ``.params`` file into the parameters in place, each in
+        its own dtype and on its own device (``arg:``/``aux:`` prefixes
+        dropped).  A key the block lacks raises `IOError` unless
+        ``ignore_extra``, a parameter the file lacks unless
+        ``allow_missing``; as in the JAX package, parameters read before
+        the error keep their new values."""
+        from ..utils import serialization
+
+        loaded = serialization.load_ndarrays(filename)
+        loaded = {k.removeprefix("arg:").removeprefix("aux:"): v
+                  for k, v in loaded.items()}
+        params = self._collect_params_with_prefix()
+        for key, arr in loaded.items():
+            if key in params:
+                params[key].set_data(arr)
+            elif not ignore_extra:
+                raise IOError(f"Parameter {key} loaded from file is not "
+                              f"present in the Block")
+        if not allow_missing:
+            missing = [k for k in params if k not in loaded]
+            if missing:
+                raise IOError(f"Parameters missing in file: "
+                              f"{sorted(missing)}")
+
+    save_params = save_parameters
+
+    def load_params(self, filename, ctx=None, **kwargs) -> None:
+        self.load_parameters(filename, ctx, **kwargs)
 
     def collect_params(self, select: Optional[str] = None) -> ParameterDict:
         """Structural name -> parameter, all of them or those whose name

@@ -195,3 +195,34 @@ class ParameterDict(dict):
         parameter."""
         for p in self.values():
             setattr(p, name, value)
+
+    def save(self, fname: str, strip_prefix: str = "") -> None:
+        """Write every parameter to a ``.params`` file under its name,
+        less ``strip_prefix`` where the name starts with it."""
+        from ..utils import serialization
+
+        serialization.save_ndarrays(fname, {
+            n[len(strip_prefix):] if n.startswith(strip_prefix) else n: p
+            for n, p in self.items()})
+
+    def load(self, fname: str, ctx=None, allow_missing: bool = False,
+             ignore_extra: bool = False, restore_prefix: str = "") -> None:
+        """Read a ``.params`` file into the parameters in place: each
+        key (``arg:``/``aux:`` dropped) with ``restore_prefix`` before
+        it names a parameter.  A parameter the file lacks raises
+        `IOError` unless ``allow_missing``, a key no parameter takes
+        unless ``ignore_extra``, as in the JAX package."""
+        from ..utils import serialization
+
+        loaded = {restore_prefix + k.removeprefix("arg:").removeprefix(
+            "aux:"): v for k, v in serialization.load_ndarrays(fname).items()}
+        for name, p in self.items():
+            if name in loaded:
+                p.set_data(loaded[name])
+            elif not allow_missing:
+                raise IOError(f"Parameter {name} missing in file {fname}")
+        if not ignore_extra:
+            extra = set(loaded) - set(self)
+            if extra:
+                raise IOError(f"Parameters in file not in model: "
+                              f"{sorted(extra)}")

@@ -323,9 +323,14 @@ class Transformer(HybridBlock):
     also names it ``tgt_embed.weight``, which `convert.load_jax_params`
     takes as an alias).  ``device`` defaults to ``cuda`` (`MXNetError`
     without a GPU unless ``device="cpu"``); ``initialize()`` fills the
-    weights.  The positional table is added in the embedding's dtype
-    (the JAX package adds an f32 table, which turns a bf16 model's
-    residual stream f32; in f32 the two are the same)."""
+    weights.  The positional table is f32 and stays f32 under ``cast``:
+    added to the embedding, it makes a bf16 model's residual stream, its
+    ``DropoutAdd`` sums and the encoder memory f32, as in the JAX
+    package, while the sublayers (LayerNorm's f32 output cast to the
+    bf16 weights by each Dense) compute in bf16.  The cached decode step
+    (`generation._nmt_decode_token`) casts the table to the parameters'
+    dtype and keeps its residual stream bf16, as the JAX package's
+    does."""
 
     def __init__(self, src_vocab=32000, tgt_vocab=32000, units=512,
                  hidden_size=2048, num_layers=6, num_heads=8, dropout=0.1,
@@ -359,7 +364,16 @@ class Transformer(HybridBlock):
             raise ValueError(f"sequence {T} exceeds max_length "
                              f"{self._max_length}")
         x = embed(tokens) * math.sqrt(self._units)
-        return self.drop(x + self._pe[:T].to(x.dtype))
+        return self.drop(x + self._pe[:T])
+
+    def _apply(self, fn, recurse=True):
+        """`nn.Module._apply` (``cast``, ``to``), the positional table
+        kept f32 (the JAX package computes it in f32 at every call)."""
+        pe = self._pe
+        super()._apply(fn, recurse)
+        if self._pe.dtype != pe.dtype:
+            self._pe = pe.to(self._pe.device)
+        return self
 
     def forward(self, src_tokens, tgt_tokens, src_valid_length=None):
         src = self._embed(self.src_embed, src_tokens)

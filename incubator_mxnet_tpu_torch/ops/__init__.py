@@ -6,6 +6,7 @@ from .dropout_kernel import (dropout_bwd, dropout_fwd, dropout_mask,
                              fused_dropout, fused_dropout_add)
 from .flash_attention import (attention_bthd, attention_reference,
                               flash_attention, flash_attention_with_lse)
+from .int8_conv import int8_conv, int8_dense
 from .paged_attention import (paged_attention, paged_attention_dense,
                               paged_attention_q8)
 from .xent_kernel import (fused_smoothed_xent, fused_sparse_xent,
@@ -15,5 +16,6 @@ __all__ = ["attention_bthd", "attention_reference", "dropout_bwd",
            "dropout_fwd", "dropout_mask",
            "flash_attention", "flash_attention_with_lse", "fused_dropout",
            "fused_dropout_add", "fused_smoothed_xent", "fused_sparse_xent",
+           "int8_conv", "int8_dense",
            "paged_attention", "paged_attention_dense", "paged_attention_q8",
            "xent_backward", "xent_forward"]

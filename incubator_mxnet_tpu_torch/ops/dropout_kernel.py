@@ -14,7 +14,10 @@ entry points, each with its plain PyTorch version:
   32-bit product split into 16-bit halves, since torch has no unsigned
   multiply-high).
 * `dropout_fwd` — (``[res +] where(keep, x * scale, 0)``, mask)
-  (``mx_dropout_fwd``); plain version `dropout_fwd_reference`.
+  (``mx_dropout_fwd``); plain version `dropout_fwd_reference`.  A bf16
+  ``x`` may come with an f32 ``res`` (the bf16 `Transformer`'s residual
+  stream, f32 as in the JAX package): the product is rounded to bf16,
+  the add and y are f32, and the backward gives dx in bf16.
 * `dropout_bwd` — ``where(mask, dy, 0) * scale`` (``mx_dropout_bwd``);
   plain version `dropout_bwd_reference`.
 
@@ -60,6 +63,7 @@ _U32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57        # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85        # Weyl key increments
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype codes
+_MIXED = 2              # a bf16 x with an f32 residual and y (forward only)
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "mx_dropout_mask": [_P, ctypes.c_longlong, ctypes.c_ulonglong,
@@ -208,14 +212,17 @@ def _mask_cuda(numel: int, seed, rate: float, device) -> torch.Tensor:
     return mask
 
 
-def _operand(t: torch.Tensor, like: torch.Tensor, what: str) -> torch.Tensor:
-    """``t`` checked against ``like`` (device, dtype, shape) and made
-    contiguous (a copy where it is not)."""
-    if t.device != like.device or t.dtype != like.dtype \
+def _operand(t: torch.Tensor, like: torch.Tensor, what: str,
+             dtype=None) -> torch.Tensor:
+    """``t`` checked against ``like`` (device, shape, and dtype, or
+    ``dtype`` where given) and made contiguous (a copy where it is
+    not)."""
+    dtype = like.dtype if dtype is None else dtype
+    if t.device != like.device or t.dtype != dtype \
             or t.shape != like.shape:
         raise MXNetError(f"dropout: {what} {tuple(t.shape)} {t.dtype} on "
                          f"{t.device} does not match {tuple(like.shape)} "
-                         f"{like.dtype} on {like.device}")
+                         f"{dtype} on {like.device}")
     return t.contiguous()
 
 
@@ -229,12 +236,16 @@ def _dtype_code(t: torch.Tensor) -> int:
 
 def _fwd_cuda(x, res, seed, rate: float):
     """Launch ``mx_dropout_fwd`` (an int seed) or ``mx_dropout_fwd_dev``
-    (a seed in device memory): (y, uint8 mask), both shaped like x."""
+    (a seed in device memory): (y, uint8 mask), both shaped like x; y in
+    the residual's dtype (f32 for a bf16 x with an f32 residual)."""
     code = _dtype_code(x)
     x = x.contiguous()
     if res is not None:
-        res = _operand(res, x, "residual")
-    y = torch.empty_like(x)
+        if (x.dtype, res.dtype) == (torch.bfloat16, torch.float32):
+            code = _MIXED
+        res = _operand(res, x, "residual",
+                       torch.float32 if code == _MIXED else x.dtype)
+    y = torch.empty_like(x if res is None else res)
     mask = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     if x.numel() == 0:
         return y, mask
@@ -355,12 +366,15 @@ class _DropoutApply(torch.autograd.Function):
         y, mask = _fwd_of(seed)(x, res, seed, rate)
         ctx.save_for_backward(mask)
         ctx.rate = rate
+        ctx.x_dtype = x.dtype
         return y
 
     @staticmethod
     def backward(ctx, dy):
         (mask,) = ctx.saved_tensors
-        dx = dropout_bwd(dy, mask, ctx.rate) \
+        # an f32 y over a bf16 x: dy reaches x's product rounded to bf16,
+        # as autograd casts the gradient of a promoted operand
+        dx = dropout_bwd(dy.to(ctx.x_dtype), mask, ctx.rate) \
             if ctx.needs_input_grad[0] else None
         return dx, dy if ctx.needs_input_grad[1] else None, None, None
 

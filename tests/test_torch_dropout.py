@@ -509,3 +509,31 @@ def test_kernel_source_through_the_function(monkeypatch, host_kernel, dtype,
     for (a, r, g, s, p), w in zip(cases, want):
         _assert_same_bits(
             _composition(a, r if with_residual else None, g, s, p), w)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kernel_source_bf16_x_with_f32_residual(monkeypatch, host_kernel,
+                                               offset):
+    """The bf16 `Transformer`'s residual stream: a bf16 sublayer output
+    added to an f32 residual (the JAX package's type promotion).  On the
+    host build of the kernel, through `fused_dropout_add`'s Function, y
+    (f32), dx (bf16) and dres (f32) have the bits of the CPU
+    composition, which rounds x * scale to bf16 before the f32 add; also
+    on views one element into their buffers (the scalar path)."""
+    n = 48 * 40
+    rs = onp.random.RandomState(31)
+    bufs = [torch.from_numpy(rs.randn(n + offset).astype(onp.float32))
+            for _ in range(3)]
+    x = bufs[0].to(torch.bfloat16)[offset:].view(48, 40)
+    res, dy = (b[offset:].view(48, 40) for b in bufs[1:])
+    want = _composition(x, res, dy, 3, 0.1)
+    assert (want[0].dtype, want[1].dtype, want[2].dtype) == (
+        torch.float32, torch.bfloat16, torch.float32)
+    monkeypatch.setattr(tdk._build, "load", lambda name: host_kernel)
+    monkeypatch.setattr(tdk._build, "stream", lambda device: None)
+    monkeypatch.setattr(tdk, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(tdk, "mask_reference", _refuse)
+    monkeypatch.setattr(tdk.dropout_fwd, "launches", 0)
+    monkeypatch.setattr(tdk.dropout_bwd, "launches", 0)
+    _assert_same_bits(_composition(x, res, dy, 3, 0.1), want)
+    assert (tdk.dropout_fwd.launches, tdk.dropout_bwd.launches) == (1, 1)

@@ -132,6 +132,57 @@ def test_forward_matches_jax(masked):
                                 atol=1e-4)
 
 
+def _stream_dtypes(enc, dec, dtype_of):
+    """Forward hooks on every encoder and decoder layer and on the
+    encoder: the dtypes of the residual stream after each layer and of
+    the encoder memory, in call order."""
+    seen = []
+    blocks = [(f"encoder.layer{i}", b) for i, b in enumerate(enc._layers)] \
+        + [("memory", enc)] \
+        + [(f"decoder.layer{i}", b) for i, b in enumerate(dec._layers)]
+    for name, blk in blocks:
+        blk.register_forward_hook(
+            lambda b, args, out, name=name: seen.append(
+                (name, dtype_of(out))))
+    return seen
+
+
+def test_bf16_residual_stream_takes_the_jax_dtypes():
+    """A bf16 2+2-layer Transformer, dropout off, the JAX model's
+    weights: the f32 positional table makes the residual stream after
+    every layer and the encoder memory f32 in both packages (the
+    sublayers compute in bf16 behind each Dense's cast), the table stays
+    f32 under ``cast``, and the logits are bf16 within 2^-6 of the
+    largest |logit| (4 bf16 steps at its exponent: the two packages
+    round LayerNorm, the products and the softmax sums in other orders).
+    The cached decode step's embedding stays bf16, as the JAX
+    ``_nmt_decode_token``'s (pe cast to the parameters' dtype)."""
+    from incubator_mxnet_tpu_torch.models import generation as tgen
+
+    jnet = _jax_net(0)
+    jnet.cast("bfloat16")
+    tnet = load_jax_params(ttr.Transformer(V, V, dropout=0.0, device="cpu",
+                                           **CFG), _arrays(jnet))
+    tnet.cast("bfloat16")
+    want = _stream_dtypes(jnet.encoder, jnet.decoder,
+                          lambda o: onp.dtype(o.dtype).name)
+    got = _stream_dtypes(tnet.encoder, tnet.decoder,
+                         lambda o: str(o.dtype).removeprefix("torch."))
+    src, tin, _, vl = _batch(1)
+    ref = jnet(_j(src), _j(tin), _j(vl))
+    out = tnet(_t(src), _t(tin), _t(vl))
+    assert want == [(n, "float32") for n, _ in want] and len(want) == 5
+    assert got == want
+    assert tnet._pe.dtype == torch.float32
+    assert out.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    r = onp.asarray(ref.asnumpy(), onp.float32)
+    onp.testing.assert_allclose(out.float().numpy(), r,
+                                atol=2.0 ** -6 * onp.abs(r).max(), rtol=0)
+    params = tgen._gather_nmt_params(tnet, None)
+    h = tgen._embed(params, _t(tin[:, 0]), torch.tensor([0]))
+    assert h.dtype == torch.bfloat16
+
+
 def test_the_tied_embedding_is_one_parameter():
     jnet, tnet = _pair(0)
     assert tnet.tgt_embed is tnet.src_embed

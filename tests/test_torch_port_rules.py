@@ -200,6 +200,7 @@ def _launchers():
                                  "flash_attention")
     pa = importlib.import_module("incubator_mxnet_tpu_torch.ops."
                                  "paged_attention")
+    ic = importlib.import_module("incubator_mxnet_tpu_torch.ops.int8_conv")
     x = torch.zeros((4, 600))
     q = torch.zeros((1, 2, 8, 16))
     rows = torch.zeros((1, 2, 8))
@@ -231,6 +232,18 @@ def _launchers():
                             dk.dropout_fwd_dev),
         "dropout_bwd": (lambda: dk._bwd_cuda(
             x, torch.ones(x.shape, dtype=torch.uint8), 0.1), dk.dropout_bwd),
+        "dropout_fwd_mixed": (lambda: dk._fwd_cuda(x.bfloat16(), x, 7, 0.1),
+                              dk.dropout_fwd),
+        "int8_conv": (lambda: ic._launch(
+            torch.zeros(1, 2, 5, 5), torch.zeros(3, 2, 3, 3,
+                                                 dtype=torch.int8),
+            torch.ones(3), 0.1, None, (1, 1), (1, 1), (1, 1), 1,
+            ic.int8_conv), ic.int8_conv),
+        "int8_dense": (lambda: ic._launch(
+            torch.zeros(2, 8, 1, 1), torch.zeros(3, 8, 1, 1,
+                                                 dtype=torch.int8),
+            torch.ones(3), 0.1, torch.zeros(3), (1, 1), (0, 0), (1, 1), 1,
+            ic.int8_dense), ic.int8_dense),
         "xent_forward": (lambda: xk._fwd_cuda(x, False), xk.xent_forward),
         "xent_backward": (lambda: xk._bwd_cuda(
             x, torch.zeros(4, dtype=torch.long), torch.zeros(4),
@@ -241,7 +254,8 @@ def _launchers():
 KERNELS = ["dropout", "dropout_fwd", "dropout_bwd", "dropout_mask_dev",
            "dropout_fwd_dev", "xent_forward", "xent_backward",
            "flash_forward",
-           "flash_dkdv", "flash_dq", "paged", "paged_q8"]
+           "flash_dkdv", "flash_dq", "paged", "paged_q8",
+           "dropout_fwd_mixed", "int8_conv", "int8_dense"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -664,3 +678,82 @@ def test_vision_cpu_path_never_builds_or_loads_kernels():
         "print('ok')\n")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+# ---- the PTQ slice: the .params codec, hooks, quantize_net, int8_conv ----
+PTQ_MODULES = ["utils.serialization", "ops.int8_conv",
+               "contrib.quantization", "ndarray"]
+
+
+@pytest.mark.parametrize("mod", PTQ_MODULES)
+def test_ptq_modules_import_with_jax_blocked(mod):
+    res = _run("import sys\n"
+               "sys.modules['jax'] = None\n"
+               "sys.modules['incubator_mxnet_tpu'] = None\n"
+               f"import incubator_mxnet_tpu_torch.{mod}\n"
+               "print(sorted(n for n, m in sys.modules.items()\n"
+               "             if m is not None and n.split('.')[0] in\n"
+               "             ('jax', 'jaxlib', 'incubator_mxnet_tpu')))\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_nd_load_defaults_to_cuda(monkeypatch, tmp_path):
+    from incubator_mxnet_tpu_torch import nd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    f = str(tmp_path / "a.params")
+    nd.save(f, {"a": torch.ones(2)})
+    with pytest.raises(MXNetError):
+        nd.load(f)
+    assert nd.load(f, device="cpu")["a"].device.type == "cpu"
+
+
+def test_ptq_cpu_path_never_builds_or_loads_kernels(tmp_path):
+    """A small ResNet v1 calibrated (minmax and entropy), quantized,
+    hybridized and called, then saved and loaded, on the CPU: no build,
+    no library load, no int8 launch count, no CUDA graph object."""
+    res = _run(
+        "import ctypes, subprocess, torch\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('kernel build, load or graph attempted')\n"
+        "subprocess.Popen = refuse\n"
+        "ctypes.CDLL = refuse\n"
+        "torch.cuda.graph_pool_handle = refuse\n"
+        "torch.cuda.CUDAGraph = refuse\n"
+        "from incubator_mxnet_tpu_torch import _build, _graphs\n"
+        "from incubator_mxnet_tpu_torch.contrib.quantization import "
+        "quantize_net\n"
+        "from incubator_mxnet_tpu_torch.gluon.model_zoo import vision\n"
+        "import importlib\n"
+        "ic = importlib.import_module('incubator_mxnet_tpu_torch.ops."
+        "int8_conv')\n"
+        "x = torch.randn(2, 3, 32, 32)\n"
+        "for mode in ('minmax', 'entropy'):\n"
+        f"    net = {TINY_RESNET}, device='cpu')\n"
+        "    net.initialize()\n"
+        "    quantize_net(net, [x], calib_mode=mode)\n"
+        "    net.hybridize()\n"
+        "    assert net(x).shape == (2, 600)\n"
+        f"    net.save_parameters({str(tmp_path / 'q.params')!r})\n"
+        f"    net.load_parameters({str(tmp_path / 'q.params')!r})\n"
+        "assert not _build._libs and not _graphs.captures\n"
+        "assert ic.int8_conv.launches == ic.int8_dense.launches == 0\n"
+        "print('ok')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name,line", [("int8_conv", "def int8_conv("),
+                                       ("int8_dense", "def int8_dense(")])
+def test_chip_smoke_int8_rows_point_at_the_jax_functions(name, line):
+    """The int8 rows of chip_smoke.py's kernel table name the JAX
+    function they port (no Pallas kernel: XLA's s8 product there) and
+    a source that exists."""
+    row = _chip_smoke_kernels().KERNELS[name]
+    path, at = row["replaces"].rsplit(":", 1)
+    with open(os.path.join(ROOT, path)) as f:
+        text = f.read().splitlines()[int(at) - 1]
+    assert text.startswith(line), (name, text)
+    assert row["source"].endswith("csrc/int8_conv.cu")
+    assert os.path.exists(os.path.join(ROOT, row["source"]))
