@@ -307,28 +307,33 @@ ResNet-50 v1 (after phase 28):
 
 int8 post-training quantization (after phase 31):
 
-32. int8 convolution kernel — ``csrc/int8_conv.cu`` at each distinct
-   convolution of ResNet-50 v1 at B = 256 and B = 1, the Dense
-   2048 -> 1000 at both, and small grouped, dilated, strided 1-D and
-   3-D cases, bf16 (and f32) activations: bit-identical to the plain
-   version (quantize by true division, an f64 convolution of the
-   integers, the same two-rounding epilogue); ms a launch against the
-   bound (the larger of the bytes, x and the output in bf16 and the int8
-   weights, over 3.35 TB/s and 2 x the multiply-adds over the int8
-   dense peak of 1,979 TOPS) and, as context, the time of the bf16
-   cuDNN ``F.conv2d`` (``F.linear``) of the same layer, a different
-   function: torch has no int8 convolution on CUDA;
+32. int8 convolution kernels — the quantize pass
+   (``csrc/int8_quantize.cu``: x to a channels-last int8 buffer) and the
+   s8 ``wgmma`` implicit GEMM (``csrc/int8_conv.cu``, split-K where the
+   tiles are few) at each distinct convolution of ResNet-50 v1 at B =
+   256 and B = 1, the Dense 2048 -> 1000 at both, and small grouped,
+   dilated, strided 1-D and 3-D cases and the stem at C=3, bf16 (and
+   f32) activations, over weights packed once: bit-identical to the
+   plain version (quantize by true division, an f64 convolution of the
+   integers, the same two-rounding epilogue), the quantize pass alone
+   bit-identical to its plain version; ms of the call, of the quantize
+   pass and of the GEMM, the split-K ways, against the bound (the
+   larger of the bytes, x and the output in bf16 and the int8 weights,
+   over 3.35 TB/s and 2 x the multiply-adds over the int8 dense peak of
+   1,979 TOPS, with which of the two applies) and, as context, the time
+   of the bf16 cuDNN ``F.conv2d`` (``F.linear``) of the same layer, a
+   different function: torch has no int8 convolution on CUDA;
 33. benchmark_score.py's int8 flow — ResNet-50 v1 from seed 0 at full
    width, ``cast("bfloat16")``, ``quantize_net`` calibrated (minmax) on
    two seeded batches of 8 normal bf16 images: 54 layers wrapped (53
    convolutions, the Dense); ``entropy`` on a second net, timed on the
    host; then hybridized, predict mode, at B = 1, 32 and 256: one
    capture a signature, a replay bit-identical to the eager body and to
-   the eager body on the plain versions (`plain_kernels`), 53 + 1 int8
-   launches a forward inside the replay, img/s graphed against the
-   eager bodies and beside phase 31's bf16 net, and the int8 logits'
-   largest difference from the float net's relative to its largest
-   |logit| (reported; random weights make top-1 agreement
+   the eager body on the plain versions (`plain_kernels`), 54 quantize
+   launches and 53 + 1 GEMM launches a forward inside the replay, img/s
+   graphed against the eager bodies and beside phase 31's bf16 net, and
+   the int8 logits' largest difference from the float net's relative to
+   its largest |logit| (reported; random weights make top-1 agreement
    meaningless);
 34. .params on the card — phase 30's trained net saved with
    ``save_parameters``, loaded into a fresh net (another seed) with
@@ -385,9 +390,9 @@ from incubator_mxnet_tpu_torch.ops.flash_attention import (
     flash_bwd_dq, flash_bwd_plain)
 from incubator_mxnet_tpu_torch.ops import dropout_kernel as dk_mod
 from incubator_mxnet_tpu_torch.ops import xent_kernel as xk_mod
-from incubator_mxnet_tpu_torch.ops.int8_conv import (int8_conv,
-                                                     int8_conv_reference,
-                                                     int8_dense)
+from incubator_mxnet_tpu_torch.ops.int8_conv import (
+    int8_conv, int8_conv_reference, int8_dense, int8_quantize, pack_weight,
+    quantize_channels_last_reference)
 from incubator_mxnet_tpu_torch.ops.dropout_kernel import (
     dropout_bwd, dropout_bwd_reference, dropout_fwd, dropout_fwd_dev,
     dropout_fwd_reference, dropout_mask, dropout_mask_dev, mask_reference)
@@ -469,7 +474,12 @@ KERNELS = {
         fn=xent_backward, source="incubator_mxnet_tpu_torch/csrc/xent.cu",
         replaces="incubator_mxnet_tpu/ops/xent_kernel.py:178"),
     # beyond the TPU set: the JAX package's int8 products are XLA's s8
-    # convolution and dot, and torch has no int8 convolution on CUDA
+    # convolution and dot, and torch has no int8 convolution on CUDA; the
+    # quantize pass is the first line of both, which XLA fuses
+    "int8_quantize": dict(
+        fn=int8_quantize,
+        source="incubator_mxnet_tpu_torch/csrc/int8_quantize.cu",
+        replaces="incubator_mxnet_tpu/contrib/quantization.py:119"),
     "int8_conv": dict(
         fn=int8_conv, source="incubator_mxnet_tpu_torch/csrc/int8_conv.cu",
         replaces="incubator_mxnet_tpu/contrib/quantization.py:113"),
@@ -486,7 +496,7 @@ TRAINING_KERNELS = ("dropout_mask", "dropout_fwd", "dropout_bwd",
                     "dropout_mask_dev", "dropout_fwd_dev", "xent_forward",
                     "xent_backward")
 FLASH_KERNELS = ("flash_attention", "flash_bwd_dkdv", "flash_bwd_dq")
-INT8_KERNELS = ("int8_conv", "int8_dense")
+INT8_KERNELS = ("int8_quantize", "int8_conv", "int8_dense")
 # the flagship of bench.py: BERT-large, phase-1 shapes, dropout 0.1
 BERT = dict(vocab_size=30522, units=1024, hidden_size=4096, num_layers=24,
             num_heads=16)
@@ -4308,25 +4318,32 @@ def _int8_inputs(xs, ws, bias, dtype, seed):
 
 def check_int8(xs, ws, stride, pad, dil, groups, bias, dtype, seed,
                timed=False, plain_timed=False) -> dict:
-    """The kernel against `int8_conv_reference` bit for bit at one shape
-    (the dense case when ``ws`` is 2-D); with ``timed`` its ms, the
-    bound and the bf16 cuDNN (``F.linear``) time of the same layer under
-    autotuning; with ``plain_timed`` the plain version's ms too."""
+    """The two kernels against `int8_conv_reference` bit for bit at one
+    shape (the dense case when ``ws`` is 2-D), over weights packed once
+    as the quantized layers pack them, and the quantize kernel alone
+    against its plain version; with ``timed`` the ms of the whole call,
+    of the quantize pass and of the GEMM (with its split-K epilogue)
+    apart, the bounds and the bf16 cuDNN (``F.linear``) time of the same
+    layer under autotuning; with ``plain_timed`` the plain versions' ms
+    too."""
     x, w_q, scale, act, b = _int8_inputs(xs, ws, bias, dtype, seed)
     dense = len(ws) == 2
     if dense:
-        def run():
-            return int8_dense(x, w_q, scale, act, b)
         args = (x[:, :, None, None], w_q[:, :, None, None], scale, act, b,
                 (1, 1), (0, 0), (1, 1), 1)
+        wp = pack_weight(args[1])
+
+        def run():
+            return int8_dense(x, w_q, scale, act, b, w_packed=wp)
 
         def plain():
             return int8_conv_reference(*args).reshape(xs[0], ws[0])
     else:
         args = (x, w_q, scale, act, b, stride, pad, dil, groups)
+        wp = pack_weight(w_q, groups)
 
         def run():
-            return int8_conv(*args)
+            return int8_conv(*args, w_packed=wp)
 
         def plain():
             return int8_conv_reference(*args)
@@ -4337,7 +4354,20 @@ def check_int8(xs, ws, stride, pad, dil, groups, bias, dtype, seed,
     assert torch.equal(_bits(got), _bits(want)), \
         f"{tag}: differs from the plain version " \
         f"({(got.float() - want.float()).abs().max().item()})"
-    out = {"shape": tag.split(" ", 2)[2], "max_abs_err": 0.0}
+    geo = ic_mod._Geometry(tuple(args[0].shape), tuple(args[1].shape),
+                           *args[5:])
+    sub, fold = geo.quant_args()
+
+    def quantize():
+        return int8_quantize(args[0], act, groups, sub, fold)
+
+    xq = quantize()
+    assert tuple(xq.shape) == geo.xq_shape and torch.equal(
+        xq, quantize_channels_last_reference(args[0], act, groups, sub,
+                                             fold)), f"{tag}: quantize pass"
+    splits = geo.splits(ic_mod._sm_count(DEV))
+    out = {"shape": tag.split(" ", 2)[2], "max_abs_err": 0.0,
+           "splits": splits, "bn": geo.bn}
     if not timed:
         return out
     macs = got.numel() * math.prod(ws[1:])
@@ -4345,7 +4375,15 @@ def check_int8(xs, ws, stride, pad, dil, groups, bias, dtype, seed,
         + got.numel() * got.element_size() + 4 * ws[0] * (2 if bias else 1)
     out["bound_ms"], out["bound_by"] = _bound(nbytes, 2 * macs,
                                               INT8_PEAK_OPS)
+    out["quantize_bound_ms"], _ = _bound(
+        args[0].numel() * x.element_size() + xq.numel(), 0, INT8_PEAK_OPS)
     out["ms"] = time_ms(run)
+    out["quantize_ms"] = time_ms(quantize)
+    res = torch.empty(geo.out_shape, dtype=dtype, device=DEV)
+    ws_ = torch.empty((splits, geo.o, geo.m), dtype=torch.int32,
+                      device=DEV) if splits > 1 else None
+    out["conv_ms"] = time_ms(lambda: ic_mod._conv_cuda(
+        xq, wp, scale, b, res, ws_, geo, splits))
     wf = w_q.to(dtype)
     bf = None if b is None else b.to(dtype)
     nd_ = x.dim() - 2
@@ -4356,6 +4394,10 @@ def check_int8(xs, ws, stride, pad, dil, groups, bias, dtype, seed,
                                                groups)))
     if plain_timed:
         out["plain_ms"] = time_ms(plain, iters=3, warmup=1)
+        out["quantize_plain_ms"] = time_ms(
+            lambda: quantize_channels_last_reference(args[0], act, groups,
+                                                     sub, fold), iters=3,
+            warmup=1)
     out["macs"] = macs
     return out
 
@@ -4369,8 +4411,16 @@ def phase_int8_kernels(smi: str) -> dict:
     del net
     assert sum(n for _, n in specs) == 53, specs
     rows, seed = {}, 0
+    keys = ("ms", "quantize_ms", "conv_ms", "cudnn_ms", "bound_ms")
+
+    def show(r):
+        return (f"{r['ms']:.4f} ms (quantize {r['quantize_ms']:.4f} + GEMM "
+                f"{r['conv_ms']:.4f}, {r['splits']}-way split-K, "
+                f"{r['bn']} channels a block), bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+
     for B in INT8_BATCHES:
-        total = {"ms": 0.0, "cudnn_ms": 0.0, "bound_ms": 0.0}
+        total = dict.fromkeys(keys, 0.0)
         for (cin, ws, st, pd, dl, gr, bias), n in specs:
             seed += 1
             r = check_int8((B,) + cin, ws, st, pd, dl, gr, bias,
@@ -4382,11 +4432,10 @@ def phase_int8_kernels(smi: str) -> dict:
                 total[k] += n * r[k]
             rows[(B, cin, ws, st)] = r
             log(f"int8_conv [{smi}] B={B} {r['shape']} stride {st} pad {pd} "
-                f"(x{n} in the net): {r['ms']:.4f} ms, bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), bf16 cuDNN "
-                f"autotuned {r['cudnn_ms']:.4f} ms (a different function: "
-                f"torch has no int8 convolution on CUDA); bit-identical to "
-                f"the plain version")
+                f"(x{n} in the net): {show(r)}, bf16 cuDNN autotuned "
+                f"{r['cudnn_ms']:.4f} ms (a different function: torch has "
+                f"no int8 convolution on CUDA); bit-identical to the plain "
+                f"version, the quantize pass too")
         seed += 1
         r = check_int8((B, 2048), (RESNET_CLASSES, 2048), None, None, None,
                        1, True, torch.bfloat16, seed, timed=True,
@@ -4394,23 +4443,28 @@ def phase_int8_kernels(smi: str) -> dict:
         rows[(B, "dense")] = r
         for k in total:
             total[k] += r[k]
-        log(f"int8_dense [{smi}] B={B} {r['shape']}: {r['ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), bf16 cuBLAS "
+        log(f"int8_dense [{smi}] B={B} {r['shape']}: {show(r)}, bf16 cuBLAS "
             f"F.linear {r['cudnn_ms']:.4f} ms; bit-identical")
         log(f"int8 layers of one ResNet-50 v1 forward [{smi}] at B={B}, "
             f"summed over the 53 convolutions and the Dense: "
-            f"{total['ms']:.3f} ms of kernel time against "
-            f"{total['bound_ms']:.3f} ms of bounds and {total['cudnn_ms']:.3f}"
-            f" ms of bf16 cuDNN/cuBLAS")
+            f"{total['ms']:.3f} ms of kernel time (quantize "
+            f"{total['quantize_ms']:.3f} + GEMM {total['conv_ms']:.3f}) "
+            f"against {total['bound_ms']:.3f} ms of bounds and "
+            f"{total['cudnn_ms']:.3f} ms of bf16 cuDNN/cuBLAS")
         rows[(B, "total")] = total
     for i, (xs, ws, st, pd, dl, gr, bias, dt) in enumerate(INT8_SMALL_CASES):
         r = check_int8(xs, ws, st, pd, dl, gr, bias, dt, 1000 + i)
         log(f"int8_conv small case {r['shape']} stride {st} pad {pd} "
-            f"dilation {dl} groups {gr}: bit-identical")
+            f"dilation {dl} groups {gr} ({r['splits']}-way split-K): "
+            f"bit-identical, the quantize pass too")
     B = INT8_BATCHES[0]
     conv = rows[(B, INT8_ROW_SPEC[0], INT8_ROW_SPEC[1], INT8_ROW_SPEC[2])]
-    return {"int8_conv": conv, "int8_dense": rows[(B, "dense")],
-            "rows": rows, "specs": specs}
+    quant = {"shape": conv["shape"].split(" w")[0] + " -> channels-last int8",
+             "max_abs_err": 0.0, "ms": conv["quantize_ms"],
+             "plain_ms": conv["quantize_plain_ms"],
+             "bound_ms": conv["quantize_bound_ms"], "bound_by": "bytes"}
+    return {"int8_quantize": quant, "int8_conv": conv,
+            "int8_dense": rows[(B, "dense")], "rows": rows, "specs": specs}
 
 
 def _ptq_net(seed: int):
@@ -4453,7 +4507,8 @@ def phase_ptq_inference(smi: str, bf16_rows: dict) -> dict:
     del other
     net.hybridize()
     out = {"minmax_s": minmax_s, "entropy_s": entropy_s}
-    for fn in (int8_conv, int8_dense):
+    int8_fns = (int8_quantize, int8_conv, int8_dense)
+    for fn in int8_fns:
         fn.launches = 0
         _graphs.replayed_launches[fn] = 0
     with cudnn_mode(True), autograd.predict_mode():
@@ -4462,15 +4517,15 @@ def phase_ptq_inference(smi: str, bf16_rows: dict) -> dict:
             first = net(x)
             c1 = _graphs.captures.get("raw_fn", 0)
             r1 = _graphs.replays.get("raw_fn", 0)
-            n0 = {fn: _graphs.launches(fn) for fn in (int8_conv, int8_dense)}
+            n0 = {fn: _graphs.launches(fn) for fn in int8_fns}
             again = net(x)
             torch.cuda.synchronize()
-            n1 = {fn: _graphs.launches(fn) - n0[fn]
-                  for fn in (int8_conv, int8_dense)}
+            n1 = {fn: _graphs.launches(fn) - n0[fn] for fn in int8_fns}
             assert c1 == c0 + 1 and _graphs.captures.get("raw_fn", 0) == c1 \
                 and _graphs.replays.get("raw_fn", 0) == r1 + 1, \
                 (B, c0, c1, dict(_graphs.captures))
-            assert (n1[int8_conv], n1[int8_dense]) == (53, 1), (B, n1)
+            assert (n1[int8_quantize], n1[int8_conv], n1[int8_dense]) \
+                == (54, 53, 1), (B, n1)
             with _graphs.eager():
                 eager = net(x)
             with plain_kernels(), _graphs.eager():
@@ -4497,14 +4552,14 @@ def phase_ptq_inference(smi: str, bf16_rows: dict) -> dict:
                     torch.cuda.synchronize()
                     row[kind] = 20 * B / (time.perf_counter() - t0)
             out[B] = row
-    out["launches"] = {"int8_conv": _graphs.launches(int8_conv),
-                       "int8_dense": _graphs.launches(int8_dense)}
+    out["launches"] = {fn.__name__: _graphs.launches(fn) for fn in int8_fns}
     log(f"ResNet-50 v1 int8 inference [{smi}] (benchmark_score.py --dtype "
         f"int8: bf16, quantize_net minmax on {PTQ_CALIB[0]} x "
         f"{PTQ_CALIB[1]} images in {minmax_s:.2f} s, entropy in "
         f"{entropy_s:.2f} s (its thresholds / minmax's: median "
         f"{float(np.median(ratio)):.3f}, min {min(ratio):.3f}); 54 layers "
-        f"wrapped, 53 + 1 int8 launches a forward inside the replay): "
+        f"wrapped, 54 quantize + 53 + 1 GEMM launches a forward inside "
+        f"the replay): "
         + "; ".join(
             f"B={B} {r['graph']:.1f} img/s graphed against {r['eager']:.1f} "
             f"on the eager bodies ({r['graph'] / r['eager']:.2f}x), phase "
@@ -4575,7 +4630,7 @@ def plain_kernels():
     pa_mod._launch = paged_attention_dense
     pa_mod._launch_q8 = lambda q, pk, pv, sk, sv, tables, pos: \
         paged_attention_dense(q, pk, pv, tables, pos, sk, sv)
-    ic_mod._launch = lambda *args: int8_conv_reference(*args[:-1])
+    ic_mod._launch = lambda *args, **kw: int8_conv_reference(*args[:9])
     try:
         yield
     finally:
@@ -5171,11 +5226,12 @@ def main() -> int:
     for name in INT8_KERNELS:
         k, t = KERNELS[name], i8[name]
         assert launches[name] > 0, f"{name} never launched on its path"
+        context = "" if name == "int8_quantize" else (
+            f" (bf16 cuDNN/cuBLAS of the same layer {t['cudnn_ms']:.4f} ms)")
         log(f"{name} at {t['shape']} (the JSON row): {t['ms']:.4f} ms, "
             f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}), library none (bf16 cuDNN/cuBLAS of the "
-            f"same layer {t['cudnn_ms']:.4f} ms), {launches[name]} launches "
-            f"on phase 33's path [{smi}]")
+            f"({t['bound_by']}), library none{context}, {launches[name]} "
+            f"launches on phase 33's path [{smi}]")
         rows.append({
             "name": name, "route": "cuda", "source": k["source"],
             "replaces": k["replaces"], "launches": launches[name],

@@ -28,7 +28,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd",
-           "dropout", "xent", "int8_conv")
+           "dropout", "xent", "int8_quantize", "int8_conv")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -21,8 +21,9 @@ quantization of Gluon nets, and the int8 weights of the decode stack.
   search, in numpy, the JAX package's code and thresholds), then
   swapped for int8 layers: per-channel int8 weights snapshotted at the
   swap, a per-tensor activation scale ``max(threshold, 1e-8) / 127``,
-  and the product through `ops.int8_conv` (the hand-written int8
-  implicit-GEMM kernel on the card; ``int8_dense`` its GEMM case).
+  and the product through `ops.int8_conv` (on the card, the hand-written
+  quantize pass and the int8 tensor-core implicit GEMM over weights
+  packed once at the swap; ``int8_dense`` its GEMM case).
   Each swapped layer stays in the tree as the ``src`` child of a
   `_QuantizedWrapper`, so ``save_parameters`` writes the float
   parameters under the JAX package's keys.
@@ -38,7 +39,7 @@ import torch
 from .. import ndarray as nd
 from ..context import default_device
 from ..gluon.block import Block, HybridBlock
-from ..ops.int8_conv import int8_conv, int8_dense
+from ..ops.int8_conv import int8_conv, int8_dense, pack_weight
 
 __all__ = ["quantize_weight", "quantize_kv", "calibrate", "QuantizedDense",
            "QuantizedConv", "quantize_net", "DecodeQuantConfig",
@@ -123,7 +124,10 @@ def calibrate(activations: List, mode: str = "minmax") -> float:
 class _Quantized:
     """The int8 state both quantized layers share, snapshotted from the
     float ``layer`` at construction: int8 weights and their f32 scales
-    per output channel (`quantize_weight`), the f32 bias, the activation
+    per output channel (`quantize_weight`; ``w_q`` in the JAX package's
+    layout, for the plain version), the same weights packed once for the
+    kernel (``w_packed``, `ops.int8_conv.pack_weight`; not a parameter,
+    so ``.params`` files are unchanged), the f32 bias, the activation
     scale ``max(threshold, 1e-8) / 127``, ``act_scale * w_scale`` (the
     epilogue's f32 factor) and the fused activation."""
 
@@ -155,11 +159,13 @@ class QuantizedConv(_Quantized):
         self.pad = tuple(conv._padding)
         self.dilate = tuple(conv._dilation)
         self.groups = int(conv._groups)
+        self.w_packed = pack_weight(self.w_q, self.groups)
 
     def __call__(self, x):
         return self._act(int8_conv(x, self.w_q, self.scale, self.act_scale,
                                    self.bias, self.stride, self.pad,
-                                   self.dilate, self.groups))
+                                   self.dilate, self.groups,
+                                   w_packed=self.w_packed))
 
 
 class QuantizedDense(_Quantized):
@@ -168,6 +174,10 @@ class QuantizedDense(_Quantized):
     to (N, -1), else the product is over its last axis; the activation
     survives; the output keeps x's dtype."""
 
+    def __init__(self, dense, act_threshold: float):
+        super().__init__(dense, act_threshold)
+        self.w_packed = pack_weight(self.w_q[:, :, None, None])
+
     def __call__(self, x):
         lead = None
         if getattr(self._src, "_flatten", False) and x.dim() > 2:
@@ -175,7 +185,8 @@ class QuantizedDense(_Quantized):
         elif x.dim() > 2:
             lead = x.shape[:-1]
             x = x.reshape(-1, x.shape[-1])
-        out = int8_dense(x, self.w_q, self.scale, self.act_scale, self.bias)
+        out = int8_dense(x, self.w_q, self.scale, self.act_scale, self.bias,
+                         w_packed=self.w_packed)
         if lead is not None:
             out = out.reshape(*lead, -1)
         return self._act(out)

@@ -244,6 +244,11 @@ def _launchers():
                                                  dtype=torch.int8),
             torch.ones(3), 0.1, torch.zeros(3), (1, 1), (0, 0), (1, 1), 1,
             ic.int8_dense), ic.int8_dense),
+        "int8_quantize": (lambda: ic._quantize_cuda(
+            torch.zeros(1, 2, 5, 5), 0.1,
+            (1, 2, 1, 16, 1, 5, 5, 1, 5, 5, 1, 1, 1, 1, 0, 1),
+            (1, 5, 5, 1, 16)),
+            ic.int8_quantize),
         "xent_forward": (lambda: xk._fwd_cuda(x, False), xk.xent_forward),
         "xent_backward": (lambda: xk._bwd_cuda(
             x, torch.zeros(4, dtype=torch.long), torch.zeros(4),
@@ -255,7 +260,7 @@ KERNELS = ["dropout", "dropout_fwd", "dropout_bwd", "dropout_mask_dev",
            "dropout_fwd_dev", "xent_forward", "xent_backward",
            "flash_forward",
            "flash_dkdv", "flash_dq", "paged", "paged_q8",
-           "dropout_fwd_mixed", "int8_conv", "int8_dense"]
+           "dropout_fwd_mixed", "int8_conv", "int8_dense", "int8_quantize"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -757,3 +762,20 @@ def test_chip_smoke_int8_rows_point_at_the_jax_functions(name, line):
     assert text.startswith(line), (name, text)
     assert row["source"].endswith("csrc/int8_conv.cu")
     assert os.path.exists(os.path.join(ROOT, row["source"]))
+
+
+def test_chip_smoke_int8_quantize_row_points_at_the_quantize_line():
+    """The quantize pass's row names the JAX `int8_conv`'s quantize
+    line (XLA fuses it into the s8 convolution there), its own source,
+    and stands in the int8 kernels of the table."""
+    cs = _chip_smoke_kernels()
+    row = cs.KERNELS["int8_quantize"]
+    path, at = row["replaces"].rsplit(":", 1)
+    with open(os.path.join(ROOT, path)) as f:
+        lines = f.read().splitlines()
+    assert lines[int(at) - 1].strip().startswith("xq = jnp.clip(")
+    assert any(ln.startswith("def int8_conv(")
+               for ln in lines[int(at) - 8:int(at)])
+    assert row["source"].endswith("csrc/int8_quantize.cu")
+    assert os.path.exists(os.path.join(ROOT, row["source"]))
+    assert cs.INT8_KERNELS == ("int8_quantize", "int8_conv", "int8_dense")

@@ -17,13 +17,23 @@ each layer's minmax threshold by up to 1e-5 relative, which can move
 an int8 activation by one step: ResNet-18's logits are held within
 1e-2 of the largest |logit|.
 
-The kernel itself, ``csrc/int8_conv.cu``, is compiled here for the host
+The kernels run on the card only; here each is held by another means.
+The quantize pass, ``csrc/int8_quantize.cu``, is compiled for the host
 (a stand-in for the CUDA runtime: one `std::thread` per CUDA thread, a
-mutex-and-condition barrier for ``__syncthreads``, the blocks one after another) and
-held bit for bit to the plain version `int8_conv_reference`.
+mutex-and-condition barrier for ``__syncthreads``, the blocks one after
+another) and held bit for bit to `quantize_channels_last_reference`.
+The tensor-core GEMM, ``csrc/int8_conv.cu`` (s8 ``wgmma``, TMA and
+``cp.async`` in inline PTX, which g++ cannot compile), is held through a
+test-only emulation of its arithmetic: the same row and (tap, chunk)
+walk over the channels-last buffer and `pack_weight`'s layout, the same
+split of K into 128-byte stages over blocks, exact int64 partial sums
+(each within the kernel's s32), summed over the splits, and the
+two-rounding epilogue; with the host quantize kernel, through the
+wrapper, bit for bit against `int8_conv_reference`.
 """
 import ctypes
 import importlib
+import math
 import os
 import re
 import shutil
@@ -441,6 +451,11 @@ inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __int2float_rn(int a) { return static_cast<float>(a); }
+inline int __float_as_int(float f) {
+  int i;
+  std::memcpy(&i, &f, 4);
+  return i;
+}
 inline int __float2int_rn(float f) {
   if (std::isnan(f)) return 0;
   const float r = std::nearbyint(f);
@@ -448,11 +463,7 @@ inline int __float2int_rn(float f) {
   if (r <= -2147483648.0f) return INT_MIN;
   return static_cast<int>(r);
 }
-inline int __dp4a(int a, int b, int c) {
-  for (int i = 0; i < 4; ++i)
-    c += static_cast<int8_t>(a >> (8 * i)) * static_cast<int8_t>(b >> (8 * i));
-  return c;
-}
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 template <class K, class... A>
 void shim_run(dim3 grid, int threads, K kernel, A... args) {
   gridDim = {grid.x, grid.y, grid.z};
@@ -493,25 +504,26 @@ inline float __bfloat162float(__nv_bfloat16 b) {
 
 @pytest.fixture(scope="module")
 def host_kernel():
-    """``csrc/int8_conv.cu`` built for the host as a ctypes library."""
+    """``csrc/int8_quantize.cu`` built for the host as a ctypes library."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
-        pytest.skip("no C++ compiler to build csrc/int8_conv.cu for the host")
+        pytest.skip("no C++ compiler to build csrc/int8_quantize.cu for "
+                    "the host")
     src = open(os.path.join(os.path.dirname(tk.__file__), os.pardir,
-                            "csrc", "int8_conv.cu")).read()
-    src, n = re.subn(r"(\w+<[^<>]*>)<<<([^,]+),\s*([^,]+),.*?>>>\(",
+                            "csrc", "int8_quantize.cu")).read()
+    src, n = re.subn(r"(\w+(?:<[^<>]*>)?)<<<([^,]+),\s*([^,]+),.*?>>>\(",
                      r"shim_run(\2, \3, \1, ", src, flags=re.S)
-    assert n == 1, "one launch expected in csrc/int8_conv.cu"
+    assert n == 1, "one launch expected in csrc/int8_quantize.cu"
     with tempfile.TemporaryDirectory() as out:
         for name, text in (("cuda_runtime.h", _SHIM_RUNTIME),
                            ("cuda_bf16.h", _SHIM_BF16),
-                           ("int8_conv.cpp", src)):
+                           ("int8_quantize.cpp", src)):
             with open(os.path.join(out, name), "w") as f:
                 f.write(text)
-        lib = os.path.join(out, "libint8_conv.so")
+        lib = os.path.join(out, "libint8_quantize.so")
         subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off",
                         "-shared", "-fPIC", "-pthread", "-I", out, "-o", lib,
-                        os.path.join(out, "int8_conv.cpp")], check=True,
+                        os.path.join(out, "int8_quantize.cpp")], check=True,
                        timeout=240)
         yield ctypes.CDLL(lib)
 
@@ -519,7 +531,10 @@ def host_kernel():
 # (x shape, weight shape, stride, pad, dilation, groups, bias): K past a
 # 32-deep step (147 = the stem's 3·7·7), pixels past a 128-row tile,
 # channels past a 64-wide one, groups, dilation, 1-D and 3-D, the GEMM
-# case (1x1 over (M, K, 1, 1))
+# case (1x1 over (M, K, 1, 1)); then a strided 1x1 (the subsampled
+# buffer) over 160 channels (two 128-byte stages), a 3x3 over 64 (five
+# stages, 72 output channels: a 128-wide block) and a strided 3x3 over 128
+# (A by one tap's TMA box a stage)
 KERNEL_CASES = [
     ((1, 3, 12, 12), (8, 3, 7, 7), (2, 2), (3, 3), (1, 1), 1, True),
     ((2, 6, 9, 9), (70, 6, 1, 1), (1, 1), (0, 0), (1, 1), 1, False),
@@ -528,7 +543,47 @@ KERNEL_CASES = [
     ((1, 4, 5, 6, 7), (5, 4, 3, 3, 3), (1, 2, 1), (1, 1, 0), (1, 1, 2), 1,
      True),
     ((3, 40, 1, 1), (9, 40, 1, 1), (1, 1), (0, 0), (1, 1), 1, True),
+    ((2, 160, 7, 7), (40, 160, 1, 1), (2, 2), (0, 0), (1, 1), 1, True),
+    ((2, 64, 6, 6), (72, 64, 3, 3), (1, 1), (1, 1), (1, 1), 1, False),
+    ((1, 128, 7, 6), (16, 128, 3, 3), (2, 2), (1, 1), (1, 1), 1, True),
 ]
+
+
+def _kernel_inputs(dtype, xs, ws, bias):
+    """x (values clipped at ±127 and rounded halves among them), int8
+    weights, f32 scale and bias from a seed of the shape."""
+    dt = getattr(torch, dtype)
+    rs = onp.random.RandomState(sum(xs))
+    x = torch.from_numpy((rs.randn(*xs) * 3).astype(onp.float32)).to(dt)
+    x.view(-1)[:4] = torch.tensor([0.025, -0.075, 0.125, 9.0]).to(dt)
+    w_q = torch.from_numpy(rs.randint(-127, 128, ws).astype(onp.int8))
+    scale = torch.from_numpy(rs.rand(ws[0]).astype(onp.float32) * 1e-2)
+    b = torch.from_numpy(rs.randn(ws[0]).astype(onp.float32)) if bias \
+        else None
+    return x, w_q, scale, 0.05, b
+
+
+def _kernel_route(monkeypatch, host_kernel):
+    """CPU tensors through the kernel wrappers: the quantize pass on its
+    host build, nothing falling back to the plain versions."""
+    def load(name):
+        assert name == "int8_quantize", name
+        return host_kernel
+
+    monkeypatch.setattr(tk._build, "load", load)
+    monkeypatch.setattr(tk._build, "stream", lambda device: None)
+    monkeypatch.setattr(tk, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(tk, "int8_conv_reference", None)
+    monkeypatch.setattr(tk, "quantize_channels_last_reference", None)
+    for fn in (tk.int8_conv, tk.int8_dense, tk.int8_quantize):
+        monkeypatch.setattr(fn, "launches", 0)
+
+
+def _same_bits(got, want):
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return got.dtype == want.dtype and got.shape == want.shape \
+        and torch.equal(got.reshape(-1).view(view),
+                        want.reshape(-1).view(view))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -536,38 +591,253 @@ KERNEL_CASES = [
 def test_kernel_source_gives_the_plain_bits(monkeypatch, host_kernel, dtype,
                                             xs, ws, stride, pad, dil, groups,
                                             bias):
-    """`int8_conv` on the kernel route, on the host build of
-    ``csrc/int8_conv.cu``, bit for bit against `int8_conv_reference`
-    (values clipped at ±127 and rounded halves included); one launch
-    counted a call."""
+    """`int8_quantize` on the kernel route, on the host build of
+    ``csrc/int8_quantize.cu``, bit for bit against
+    `quantize_channels_last_reference` over the buffer the convolution
+    of the case reads (a 1x1 without padding: every stride-th pixel; a
+    kernel over few channels: its width taps folded into them, with the
+    stride, padding and dilation of the width), values clipped at ±127,
+    rounded halves and the zero lanes of Cp included; one launch counted
+    a call."""
+    x, w_q, scale, act, b = _kernel_inputs(dtype, xs, ws, bias)
+    geo = tk._Geometry(xs, ws, stride, pad, dil, groups)
+    sub, fold = geo.quant_args()
+    want = tk.quantize_channels_last_reference(x, act, groups, sub, fold)
+    assert tuple(want.shape) == geo.xq_shape
+    _kernel_route(monkeypatch, host_kernel)
+    got = tk.int8_quantize(x, act, groups, sub, fold)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert tk.int8_quantize.launches == 1
+
+
+def _tiled_pixels(geo):
+    """``pixel_of`` of ``csrc/int8_conv.cu`` for every (tile, row) of a
+    tiled convolution: row r of the box at (x0, y0, z0, n0) is output
+    pixel (n0 + nn, z0 + zz, y0 + yy, x0 + xx), r = ((nn bd + zz) bh +
+    yy) bw + xx, or -1 past the output."""
+    bw, bh, bd, bn = geo.box
+    od, oh, ow = geo.outs
+    r = torch.arange(_BM)
+    xx, yy = r % bw, (r // bw) % bh
+    zz, nn = (r // (bw * bh)) % bd, r // (bw * bh * bd)
+    t = torch.arange(geo.m_tiles)[:, None]
+    tw, th, td = -(-ow // bw), -(-oh // bh), -(-od // bd)
+    x = (t % tw) * bw + xx
+    y = (t // tw % th) * bh + yy
+    z = (t // (tw * th) % td) * bd + zz
+    n = (t // (tw * th * td)) * bn + nn
+    live = (x < ow) & (y < oh) & (z < od) & (n < geo.n)
+    return torch.where(live, ((n * od + z) * oh + y) * ow + x, -1)
+
+
+_BM = 128
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("xs,groups,offset", [((2, 16, 8, 8), 1, 0),
+                                              ((1, 24, 4, 4), 3, 0),
+                                              ((2, 16, 8, 8), 1, 1)])
+def test_kernel_source_vector_reads(monkeypatch, host_kernel, dtype, xs,
+                                    groups, offset):
+    """The quantize kernel's vector reads (8 bf16 or 4 f32 pixels of one
+    channel where an image's pixels and x's alignment allow), grouped,
+    and the scalar reads of an x one element into its storage, on the
+    host build, against `quantize_channels_last_reference`."""
     dt = getattr(torch, dtype)
-    rs = onp.random.RandomState(sum(xs))
-    x = torch.from_numpy((rs.randn(*xs) * 3).astype(onp.float32)).to(dt)
-    act = 0.05
-    x.view(-1)[:4] = torch.tensor([0.025, -0.075, 0.125, 9.0]).to(dt)
-    w_q = torch.from_numpy(rs.randint(-127, 128, ws).astype(onp.int8))
-    scale = torch.from_numpy(rs.rand(ws[0]).astype(onp.float32) * 1e-2)
-    b = torch.from_numpy(rs.randn(ws[0]).astype(onp.float32)) if bias \
-        else None
+    rs = onp.random.RandomState(9)
+    buf = torch.from_numpy((rs.randn(offset + math.prod(xs)) * 3).astype(
+        onp.float32)).to(dt)
+    x = buf[offset:].view(xs)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    want = tk.quantize_channels_last_reference(x, 0.05, groups)
+    _kernel_route(monkeypatch, host_kernel)
+    got = tk.int8_quantize(x, 0.05, groups)
+    assert torch.equal(got, want) and tk.int8_quantize.launches == 1
+
+
+def _emulated_conv(xq, w_packed, scale, bias, out, ws, geo, splits):
+    """``csrc/int8_conv.cu``'s arithmetic in torch, with the arguments
+    of `ops.int8_conv._conv_cuda`: output row m is pixel (nb, oz, oy,
+    ox); its K is the 16-byte chunks kc of 128-byte stages, chunk
+    kc tap kc // (Cp/16) (kd-major) and channels 16 (kc % (Cp/16)) on; a
+    tap in the padding or a chunk past K reads zeros (a tiled tile's TMA
+    box reads, for row (.., ox), input column ox * sw - pw + kx * dw:
+    the same pixels, and the boxes cover every output pixel once); split
+    s sums the stages [s nkb / S, (s+1) nkb / S) exactly (int64, each
+    partial within s32) into ws[s], and the epilogue sums ws over s,
+    then rounds f32(acc) * scale and + bias, writing NC[D]HW."""
+    G, O, Cp = geo.groups, geo.o, geo.cp
+    ng, cpc, cps = O // G, Cp // 16, tk._BK // 16
+    ID, IH, IW = geo.qs
+    OD, OH, OW = geo.outs
+    _, KH, KW = geo.ks
+    KC, nkb, M = geo.taps * cpc, geo.nkb, geo.m
+    if geo.mode == "tiled":
+        cover = _tiled_pixels(geo).reshape(-1)
+        assert torch.equal(cover[cover >= 0].sort().values, torch.arange(M))
+        assert Cp % tk._BK == 0
+    osp = OD * OH * OW
+    m = torch.arange(M)
+    nb, sp = m // osp, m % osp
+    ox, oy, oz = sp % OW, (sp // OW) % OH, sp // (OW * OH)
+    kc = torch.arange(nkb * cps)
+    tap, cc = kc // cpc, kc % cpc
+    kz, ky, kx = tap // (KH * KW), (tap % (KH * KW)) // KW, tap % KW
+    z = (oz * geo.st[0] - geo.pd[0])[:, None] + (kz * geo.dl[0])[None]
+    y = (oy * geo.st[1] - geo.pd[1])[:, None] + (ky * geo.dl[1])[None]
+    x = (ox * geo.st[2] - geo.pd[2])[:, None] + (kx * geo.dl[2])[None]
+    ok = (kc < KC)[None] & (z >= 0) & (z < ID) & (y >= 0) & (y < IH) \
+        & (x >= 0) & (x < IW)
+    pix = torch.where(ok, nb[:, None] * (ID * IH * IW) + (z * IH + y) * IW
+                      + x, 0)
+    rows = xq.reshape(-1, G, cpc, 16).long()
+    acc = torch.zeros(splits, O, M, dtype=torch.int64)
+    bk = tk._BK
+    for g in range(G):
+        a = torch.where(ok[..., None], rows[pix, g, cc.clamp(max=cpc - 1)],
+                        0).reshape(M, nkb * bk)
+        wb = torch.zeros(ng, nkb * bk, dtype=torch.int64)
+        wb[:, :KC * 16] = w_packed[g].reshape(ng, KC * 16).long()
+        for s in range(splits):
+            k0, k1 = s * nkb // splits * bk, (s + 1) * nkb // splits * bk
+            assert k1 > k0
+            acc[s, g * ng:(g + 1) * ng] = (a[:, k0:k1] @ wb[:, k0:k1].T).T
+    assert acc.abs().max() < 2 ** 31
+    if splits > 1:
+        ws.copy_(acc.to(torch.int32))
+        acc = ws.long()
+    v = acc.sum(0).to(torch.int32).float() * scale[:, None]
+    if bias is not None:
+        v = v + bias[:, None]
+    out.view(geo.n, O, osp).copy_(
+        v.reshape(O, geo.n, osp).transpose(0, 1).to(out.dtype))
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("xs,ws,stride,pad,dil,groups,bias", KERNEL_CASES)
+def test_gemm_emulation_gives_the_plain_bits(monkeypatch, host_kernel, dtype,
+                                             xs, ws, stride, pad, dil, groups,
+                                             bias, split):
+    """`int8_conv` on the kernel route: the host build of the quantize
+    kernel, then `_emulated_conv` in place of the GEMM's launch, over
+    `pack_weight`'s layout, bit for bit against `int8_conv_reference`,
+    in one split of K and in up to three (a case whose K is one
+    128-byte stage has one); one launch of each kernel counted."""
+    x, w_q, scale, act, b = _kernel_inputs(dtype, xs, ws, bias)
     want = tk.int8_conv_reference(x, w_q, scale, act, b, stride, pad, dil,
                                   groups)
-    monkeypatch.setattr(tk._build, "load", lambda name: host_kernel)
-    monkeypatch.setattr(tk._build, "stream", lambda device: None)
-    monkeypatch.setattr(tk, "_on_cuda", lambda t: True)
-    monkeypatch.setattr(tk, "int8_conv_reference", None)
-    monkeypatch.setattr(tk.int8_conv, "launches", 0)
+    geo = tk._Geometry(xs, ws, stride, pad, dil, groups)
+    splits = min(3, geo.nkb) if split else 1
+    _kernel_route(monkeypatch, host_kernel)
+    monkeypatch.setattr(tk._Geometry, "splits", lambda self, sms: splits)
+    seen = []
+
+    def conv(*args):
+        seen.append(args[-1])
+        assert (args[5] is None) == (splits == 1)
+        _emulated_conv(*args)
+
+    monkeypatch.setattr(tk, "_conv_cuda", conv)
     got = tk.int8_conv(x, w_q, scale, act, b, stride, pad, dil, groups)
-    assert got.dtype == dt and got.shape == want.shape
-    assert torch.equal(got.view(-1).view(torch.int16 if dtype == "bfloat16"
-                                          else torch.int32),
-                       want.view(-1).view(torch.int16 if dtype == "bfloat16"
-                                          else torch.int32))
-    assert tk.int8_conv.launches == 1
+    assert _same_bits(got, want)
+    assert seen == [splits]
+    assert tk.int8_quantize.launches == tk.int8_conv.launches == 1
+
+
+def test_dense_runs_through_the_same_kernels(monkeypatch, host_kernel):
+    """`int8_dense` on the kernel route (K = 40, 3 rows, 9 outputs, a
+    bias) over weights packed by `QuantizedDense`'s rule, with a split:
+    the plain bits, one quantize and one dense launch, no conv launch."""
+    rs = onp.random.RandomState(3)
+    x = torch.from_numpy((rs.randn(3, 40) * 3).astype(onp.float32))
+    w_q = torch.from_numpy(rs.randint(-127, 128, (9, 40)).astype(onp.int8))
+    scale = torch.from_numpy(rs.rand(9).astype(onp.float32) * 1e-2)
+    b = torch.from_numpy(rs.randn(9).astype(onp.float32))
+    want = tk.int8_conv_reference(x[:, :, None, None], w_q[:, :, None, None],
+                                  scale, 0.05, b, (1, 1), (0, 0), (1, 1),
+                                  1).reshape(3, 9)
+    packed = tk.pack_weight(w_q[:, :, None, None])
+    assert tuple(packed.shape) == (1, 9, 1, 48)
+    _kernel_route(monkeypatch, host_kernel)
+    monkeypatch.setattr(tk, "_conv_cuda", _emulated_conv)
+    got = tk.int8_dense(x, w_q, scale, 0.05, b, w_packed=packed)
+    assert _same_bits(got, want)
+    assert (tk.int8_quantize.launches, tk.int8_dense.launches,
+            tk.int8_conv.launches) == (1, 1, 0)
+
+
+def test_buffer_modes_of_the_cases():
+    """Which buffer each kernel case's convolution reads: the kernels
+    over 2-4 channels a group (the stem's shape, grouped, 1-D, 3-D) fold
+    their width taps into the channels, the strided 1x1 subsamples, the
+    other 1x1s and the 3x3 over 64 channels read the input as it is; the
+    folded reference holds, at an output column, its input columns'
+    channels in (kx, c) order.  And how the GEMM loads each case's A:
+    the buffer's rows by TMA (the 1x1s, and the 1-D case, whose fold
+    leaves a 1-wide kernel), one tap's TMA box (the 3x3 over 128), 16-byte
+    gathers (the rest: Cp below 128)."""
+    modes = []
+    for xs, ws, stride, pad, dil, groups, _ in KERNEL_CASES:
+        sub, fold = tk._Geometry(xs, ws, stride, pad, dil,
+                                 groups).quant_args()
+        modes.append("fold" if fold else "sub" if sub else "plain")
+    assert modes == ["fold", "plain", "fold", "fold", "fold", "plain",
+                     "sub", "plain", "plain"]
+    gemm = [tk._Geometry(*c[:6]).mode for c in KERNEL_CASES]
+    assert gemm == ["gather", "dense", "gather", "dense", "gather", "dense",
+                    "dense", "gather", "tiled"]
+    x = torch.arange(2 * 3 * 5, dtype=torch.float32).reshape(1, 2, 3, 5)
+    q = tk.quantize_channels_last_reference(x, 1.0, 1, None, (3, 2, 1, 1))
+    assert tuple(q.shape) == (1, 3, 3, 1, 16)
+    # row 0, output column 1: input columns 1, 2, 3 of channels 0 and 1
+    assert q[0, 0, 1, 0, :6].tolist() == [1, 16, 2, 17, 3, 18]
+    # output column 0: input column -1 is padding
+    assert q[0, 0, 0, 0, :6].tolist() == [0, 0, 0, 15, 1, 16]
+
+
+@pytest.mark.parametrize("xs,ws,stride,pad", [
+    ((3, 128, 28, 28), (128, 128, 3, 3), (1, 1), (1, 1)),
+    ((2, 256, 14, 14), (256, 256, 3, 3), (1, 1), (1, 1)),
+    ((1, 512, 7, 7), (512, 512, 3, 3), (1, 1), (1, 1)),
+    ((2, 256, 57, 9), (64, 256, 3, 3), (2, 2), (1, 1)),
+    ((2, 128, 9, 10, 11), (8, 128, 3, 3, 3), (1, 2, 2), (1, 1, 1)),
+])
+def test_tiled_boxes_cover_resnet_outputs(xs, ws, stride, pad):
+    """ResNet-50's 3x3 layers over 128-512 channels (and a strided, a
+    ragged and a 3-D case) load A by one tap's TMA box; the boxes of 128
+    pixels, powers of two in (w, h, d, n), cover every output pixel
+    once, and each stage is one tap's 128 channel bytes."""
+    geo = tk._Geometry(xs, ws, stride, pad, (1,) * len(stride), 1)
+    assert geo.mode == "tiled" and geo.cp % tk._BK == 0
+    assert math.prod(geo.box) == _BM
+    cover = _tiled_pixels(geo).reshape(-1)
+    assert torch.equal(cover[cover >= 0].sort().values,
+                       torch.arange(geo.m))
+    assert geo.nkb == geo.taps * geo.cp // tk._BK
+
+
+def test_splits_fill_the_card_only_where_tiles_are_few():
+    """The split of K at ResNet-50 v1's shapes on 132 SMs: none at
+    B=256 (the tiles fill the card), several for the deep layers at B=1
+    and the Dense, each split at least two 128-byte stages."""
+    deep = tk._Geometry((1, 512, 7, 7), (512, 512, 3, 3), (1, 1), (1, 1),
+                        (1, 1), 1)
+    wide = tk._Geometry((256, 64, 56, 56), (64, 64, 3, 3), (1, 1), (1, 1),
+                        (1, 1), 1)
+    dense = tk._Geometry((1, 2048, 1, 1), (1000, 2048, 1, 1), (1, 1),
+                         (0, 0), (1, 1), 1)
+    assert wide.splits(132) == 1
+    for geo in (deep, dense):
+        s = geo.splits(132)
+        assert 1 < s and 2 * s <= geo.nkb
+    assert (deep.bn, dense.bn, wide.bn) == (256, 256, 64)
 
 
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
     """On the kernel route the wrapper raises on a float16 x, float
-    weights, a channel count the groups do not divide, an f64 scale;
+    weights, a channel count the groups do not divide, an f64 scale, and
+    packed weights of another shape or type than `pack_weight`'s;
     nothing falls back to the plain version."""
     monkeypatch.setattr(tk, "_on_cuda", lambda t: True)
     monkeypatch.setattr(tk, "int8_conv_reference", None)
@@ -579,3 +849,11 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
     for xx, ww, ss, g in bad:
         with pytest.raises(MXNetError):
             tk.int8_conv(xx, ww, ss, 0.1, None, (1, 1), (0, 0), (1, 1), g)
+    good = tk.pack_weight(w)
+    assert tuple(good.shape) == (1, 6, 3, 16)         # width folded in
+    unfolded = torch.zeros(1, 6, 9, 16, dtype=torch.int8)
+    for packed in (good[:, :, :, :4].contiguous(), good[:, :5].contiguous(),
+                   good.reshape(1, 6, 1, 48), unfolded, good.float()):
+        with pytest.raises(MXNetError, match="packed weights"):
+            tk.int8_conv(x, w, s, 0.1, None, (1, 1), (0, 0), (1, 1), 1,
+                         w_packed=packed)
