@@ -16,7 +16,12 @@ buffers, captured once into a CUDA graph and replayed after that.
   capture_error_mode="thread_local")``: the serving engine captures on
   its scheduler thread while others call ``submit()``.  Every later call
   with the same signature replays the graph.  A capture that fails
-  raises; nothing runs eagerly on the card in its place.
+  raises; nothing runs eagerly on the card in its place.  A
+  ``replay_result`` program (a recorded forward, whose warm-up outputs
+  carry an autograd graph and its activations) drops the warm-up's
+  outputs before the capture, undoes what the warm-up wrote in place,
+  and replays the graph for the call's result, so one copy of the
+  activations lives at a time and the call writes its state once.
 * A replay overwrites its outputs (JAX arrays are immutable, CUDA graph
   outputs are not): a caller clones what outlives the call.
 * A body that draws seeds (`random.next_seed`, a dropout mask in train
@@ -187,6 +192,25 @@ def _no_collection():
             gc.enable()
 
 
+def put_back(tensors, fn):
+    """``fn()``, then those of ``tensors`` that it wrote in place (their
+    ``_version`` moved) put back as they were before it.  Returns
+    ``fn``'s result and the list of tensors it wrote, which a caller
+    watches alone from then on (the tensors a body writes besides its
+    outputs: BatchNorm's running stats)."""
+    with torch.no_grad():
+        kept = [t.clone() for t in tensors]
+    versions = [t._version for t in tensors]
+    out = fn()
+    moved = [i for i, (t, v) in enumerate(zip(tensors, versions))
+             if t._version != v]
+    written = [tensors[i] for i in moved]
+    if written:
+        with torch.no_grad():
+            torch._foreach_copy_(written, [kept[i] for i in moved])
+    return out, written
+
+
 def _tensors(out):
     return [t for t in out if isinstance(t, torch.Tensor)]
 
@@ -200,19 +224,38 @@ class Program:
     ``static_out``: every call on CUDA returns the static outputs, also
     the call that captures (its warm-up's outputs are copied into them),
     so a caller may hold on to them as the program's output buffers (the
-    recorded backward's gradients that the Trainer's update reads)."""
+    recorded backward's gradients that the Trainer's update reads).
+
+    ``replay_result``: None, or a callable giving the tensors besides
+    its inputs and outputs that the body may write in place (BatchNorm's
+    running stats).  Then the capturing call frees its warm-up's outputs
+    before the capture, puts back what the warm-up wrote (`put_back`;
+    the first capture watches every tensor the callable gives, a
+    recapture only those the first found written), and returns the
+    static outputs of a replay (a replay the counts see): the warm-up's
+    activations never live beside the graph's, and the call writes the
+    state once, as every replay does.
+
+    ``seeds``: another program's `random.SeedTable`, which this one reads
+    and never stages: its body draws the masks of that program's latest
+    run (a rematerialising backward recomputing its forward)."""
 
     def __init__(self, name: str, body, pool: Pool,
-                 static_out: bool = False):
+                 static_out: bool = False, replay_result=None,
+                 seeds: Optional[_random.SeedTable] = None):
         self.name = name
         self._body = body
         self._pool = pool
         self._static_out = static_out
+        self._replay_result = replay_result
+        self._written = None        # what the warm-up wrote in place
         self._static: Optional[dict] = None
         self._graph = None
         self._out = None
         self._sig = None
-        self.seeds = _random.SeedTable(pool.device)
+        self._stages_seeds = seeds is None
+        self.seeds = _random.SeedTable(pool.device) if seeds is None \
+            else seeds
         self.per_replay: dict = {}
         self.last = None
         # held by a caller across a run and its use of the outputs when
@@ -291,19 +334,26 @@ class Program:
         ``sig`` differs from the captured one)."""
         self._stage(inputs)
         if self._pool.device.type != "cuda" or _eager_depth:
-            self.seeds.stage()
+            self._stage_seeds()
             self.last = self._run_body()
             return self.last
         if self._graph is not None and sig == self._sig:
-            self.seeds.stage()
-            self._graph.replay()
-            replays[self.name] += 1
-            for fn, n in self.per_replay.items():
-                replayed_launches[fn] += n
+            self._stage_seeds()
+            self._replay()
             self.last = self._out
             return self._out
         self.last = self._capture(sig)
         return self.last
+
+    def _stage_seeds(self) -> None:
+        if self._stages_seeds:
+            self.seeds.stage()
+
+    def _replay(self) -> None:
+        self._graph.replay()
+        replays[self.name] += 1
+        for fn, n in self.per_replay.items():
+            replayed_launches[fn] += n
 
     def _capture(self, sig):
         with _capture_lock, _no_collection():
@@ -312,12 +362,23 @@ class Program:
             cur = torch.cuda.current_stream(self._pool.device)
             # this call's seeds (none before a body's first run, which
             # draws its own and counts them)
-            self.seeds.stage()
+            self._stage_seeds()
             side.wait_stream(cur)
             # the warm-up: lazy initialisation (kernel libraries, cuBLAS
-            # workspaces) on the capture stream, and this call's result
+            # workspaces) on the capture stream, and this call's result;
+            # or, for a `replay_result` program, nothing kept: its
+            # outputs (and autograd graph) dropped, its writes put back
             with torch.cuda.stream(side):
-                out = self._run_body()
+                if self._replay_result is None:
+                    out = self._run_body()
+                else:
+                    out = ()
+                    first = self._written is None
+                    written = put_back(self._replay_result() if first
+                                       else self._written,
+                                       self._run_body)[1]
+                    if first:
+                        self._written = written
             cur.wait_stream(side)
             for t in _tensors(out):
                 t.record_stream(cur)
@@ -337,6 +398,9 @@ class Program:
             self._graph, self._out, self._sig = graph, static_out, sig
             self.per_replay = dict(tally)
         _report_capture(self.name)
+        if self._replay_result is not None:
+            self._replay()
+            return static_out
         if self._static_out:
             outs = _tensors(static_out)
             if outs:

@@ -79,8 +79,10 @@ class Block(nn.Module):
     children of a compiled block in the JAX package.  ``apply(fn)`` is
     torch's: ``fn`` on every child, then on the block."""
 
-    # hybridized (`HybridBlock.hybridize`), and its captured programs
+    # hybridized (`HybridBlock.hybridize`), its recorded calls
+    # rematerialising, and its captured programs
     _hybrid = False
+    _remat_backward = False
     _graph_cache = None
 
     def __call__(self, *args, **kwargs):
@@ -209,12 +211,14 @@ class Block(nn.Module):
                 m._invalidate_cached_program()
         return self
 
-    def hybridize(self, active: bool = True, **kwargs) -> "Block":
+    def hybridize(self, active: bool = True, remat_backward: bool = False,
+                  **kwargs) -> "Block":
         """Hybridize the child blocks (a plain `Block` is never captured
         itself, as in Gluon); see `HybridBlock.hybridize`."""
+        self._remat_backward = bool(remat_backward)
         for c in self.children():
             if isinstance(c, Block):
-                c.hybridize(active, **kwargs)
+                c.hybridize(active, remat_backward=remat_backward, **kwargs)
         return self
 
     def _invalidate_cached_program(self) -> None:
@@ -277,8 +281,8 @@ class Block(nn.Module):
             self._key(args, kwargs, "record", need, need_kw, targets), list)
         rec = next((r for r in recs if not r.busy()), None)
         if rec is None:
-            rec = _Recorded(self, args, kwargs, need, need_kw,
-                            own_pool=bool(recs))
+            rec = (_Remat if self._remat_backward else _Recorded)(
+                self, args, kwargs, need, need_kw, own_pool=bool(recs))
             recs.append(rec)
         grad_in = [args[i] for i in need] + [kwargs[k] for k in need_kw]
         with rec.fwd.lock:
@@ -288,12 +292,12 @@ class Block(nn.Module):
         return out[0] if rec.fwd.single else out
 
     def _program(self, args, kwargs, name="raw_fn", need=(), need_kw=(),
-                 own_pool=False):
+                 own_pool=False, **program_kw):
         """A `_graphs.Program` running ``forward`` on static copies of
         the tensor arguments (the others fixed by the signature); the
         static copies at ``need`` and ``need_kw`` require a gradient.
         It captures into the block's graph pool, or with ``own_pool``
-        into a new one."""
+        into a new one; ``program_kw`` go to the `_graphs.Program`."""
         dev = next((a.device for a in itertools.chain(args, kwargs.values())
                     if isinstance(a, torch.Tensor)), None)
         if dev is None:
@@ -328,10 +332,18 @@ class Block(nn.Module):
             raise MXNetError(f"a hybridized {type(self).__name__} must "
                              f"return a tensor or a tuple of tensors")
 
-        prog = _graphs.Program(name, raw_fn, pool)
+        prog = _graphs.Program(name, raw_fn, pool, **program_kw)
         prog.single = False             # forward returns one tensor
         prog.grad_keys = grad_keys
         return prog
+
+
+def _state(block) -> list:
+    """The tensors of ``block`` that take no gradient (parameters with
+    ``grad_req="null"``, buffers): what its forward may write in place,
+    as BatchNorm writes its running stats."""
+    return [t for t in itertools.chain(block.parameters(), block.buffers())
+            if not t.requires_grad]
 
 
 def _inputs(args, kwargs) -> dict:
@@ -352,11 +364,12 @@ class _Recorded:
     autograd graph from static head gradients into static gradient
     buffers (the pattern of `torch.cuda.make_graphed_callables`).
 
-    B differentiates the outputs of the F run it follows: the warm-up's
-    graph when F was just captured (the first call's result), the
-    eager body's outside graphs, and F's captured graph when it records
-    itself, which it keeps (``retain_graph``) so that memory stays the
-    activations' for every replay.  Parameter gradients stay in B's
+    B differentiates the outputs of the F run it follows: F's captured
+    graph on the card (F's capturing call frees its warm-up's graph and
+    replays the capture for its result, so one copy of the activations
+    lives at a time), which B keeps (``retain_graph``) so that memory
+    stays the activations' for every replay; the eager body's graph
+    outside graphs.  Parameter gradients stay in B's
     buffers (`Parameter.set_program_grad`): no copy through torch's
     gradient accumulation; ``grad_req="add"`` parameters add them in
     with one foreach add.  Where two recorded calls meet in one
@@ -366,8 +379,8 @@ class _Recorded:
 
     def __init__(self, block, args, kwargs, need, need_kw, own_pool=False):
         self.block = block
-        self.fwd = block._program(args, kwargs, "fwd_record", need, need_kw,
-                                  own_pool)
+        self.fwd = self._forward_program(block, args, kwargs, need, need_kw,
+                                         own_pool)
         self.params = [p for p in block.parameters() if p.requires_grad]
         self.bwd = None
         self.pending = None         # the outputs B differentiates next
@@ -378,12 +391,43 @@ class _Recorded:
         self.anchor = torch.empty(0, device=self.fwd.device,
                                   requires_grad=True)
 
+    @staticmethod
+    def _forward_program(block, args, kwargs, need, need_kw, own_pool):
+        return block._program(args, kwargs, "fwd_record", need, need_kw,
+                              own_pool, replay_result=lambda: _state(block))
+
+    def run_forward(self, sig, inputs):
+        """F's run for one call: its outputs, carrying F's autograd
+        graph."""
+        with torch.enable_grad():
+            return self.fwd.run(sig, **inputs)
+
     def busy(self) -> bool:
         """Whether the output of this instance's last call awaits its
         backward: F's next run would overwrite what that backward
         reads."""
         return self.pending is not None and self.node is not None \
             and self.node() is not None
+
+    def _grads(self, outs, cot, retain):
+        """The gradients of F's outputs ``outs`` for head gradients
+        ``cot`` with respect to the parameters and the inputs that need
+        one; the unused ones left out, and ``used`` checked."""
+        fwd = self.fwd
+        heads = [(o, cot[f"c{i}"]) for i, o in enumerate(outs)
+                 if o.requires_grad]
+        inputs = [fwd.static_inputs[k] for k in fwd.grad_keys]
+        grads = torch.autograd.grad(
+            [o for o, _ in heads], self.params + inputs,
+            grad_outputs=[c for _, c in heads], allow_unused=True,
+            retain_graph=retain)
+        used = tuple(g is not None for g in grads)
+        if self.used is None:
+            self.used = used
+        elif used != self.used:
+            raise MXNetError("a recorded backward reached other "
+                             "parameters than its first run")
+        return tuple(g for g in grads if g is not None)
 
     def backward_program(self):
         """B, made at the first backward: its static inputs are one head
@@ -395,23 +439,65 @@ class _Recorded:
         def bwd_record(**cot):
             outs = fwd.captured_outputs if _graphs.capturing() \
                 else self.pending
-            heads = [(o, cot[f"c{i}"]) for i, o in enumerate(outs)
-                     if o.requires_grad]
-            inputs = [fwd.static_inputs[k] for k in fwd.grad_keys]
-            grads = torch.autograd.grad(
-                [o for o, _ in heads], self.params + inputs,
-                grad_outputs=[c for _, c in heads], allow_unused=True,
-                retain_graph=outs is fwd.captured_outputs)
-            used = tuple(g is not None for g in grads)
-            if self.used is None:
-                self.used = used
-            elif used != self.used:
-                raise MXNetError("a recorded backward reached other "
-                                 "parameters than its first run")
-            return tuple(g for g in grads if g is not None)
+            return self._grads(outs, cot, outs is fwd.captured_outputs)
 
         self.bwd = _graphs.Program("bwd_record", bwd_record, fwd._pool,
                                    static_out=True)
+        return self.bwd
+
+
+class _Remat(_Recorded):
+    """A recorded call of a block hybridized with ``remat_backward``: the
+    JAX package's `_record_remat`, which keeps no residuals between its
+    forward and its backward and whose backward recomputes the forward
+    inside.
+
+    F (``fwd_remat``) runs the forward with autograd off: it keeps its
+    static inputs and outputs and no activation.  B (``bwd_remat``)
+    re-runs the forward with autograd on over F's static inputs and
+    differentiates it into static gradient buffers, as `_Recorded`'s B
+    does, so the Trainer's update reads them alike.  B reads F's seed
+    table without staging it: its recomputed masks are those of the F
+    run it follows (which `busy` keeps from being overwritten before the
+    backward).  What the recomputed forward writes in place into tensors
+    that take no gradient (BatchNorm's running stats) is put back
+    (`_graphs.put_back`), as F already wrote it once.  The whole block
+    is recomputed at once: B holds the full activation set as
+    `_Recorded`'s B does, so the memory freed is that between F and B,
+    not the step's peak."""
+
+    @staticmethod
+    def _forward_program(block, args, kwargs, need, need_kw, own_pool):
+        return block._program(args, kwargs, "fwd_remat", need, need_kw,
+                              own_pool)
+
+    def run_forward(self, sig, inputs):
+        # the train-mode flag of the recorded call (part of its
+        # signature), which the recomputed forward runs under
+        self.training = autograd.is_training()
+        return self.fwd.run(sig, **inputs)
+
+    def backward_program(self):
+        if self.bwd is not None:
+            return self.bwd
+        fwd, block = self.fwd, self.block
+        written = None              # the no-grad tensors F's body writes
+
+        def recompute():
+            with autograd.record(train_mode=self.training):
+                return fwd._body(**fwd.static_inputs)
+
+        def bwd_remat(**cot):
+            nonlocal written
+            first = written is None
+            outs, wrote = _graphs.put_back(
+                _state(block) if first else written, recompute)
+            if first:
+                written = wrote
+            return self._grads(outs, cot, False)
+
+        self.bwd = _graphs.Program("bwd_remat", bwd_remat, fwd._pool,
+                                   static_out=True, seeds=fwd.seeds)
         return self.bwd
 
 
@@ -423,8 +509,7 @@ class _RecordedFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, anchor, rec, sig, inputs, *grad_in):
-        with torch.enable_grad():
-            outs = rec.fwd.run(sig, **inputs)
+        outs = rec.run_forward(sig, inputs)
         rec.pending = outs
         ctx.rec, ctx.sig = rec, sig
         ctx.shapes = [(o.shape, o.dtype, o.device) for o in outs]
@@ -478,7 +563,8 @@ def _accumulate(pairs) -> None:
 class HybridBlock(Block):
     """Gluon's hybridizable block; see `HybridBlock.hybridize`."""
 
-    def hybridize(self, active: bool = True, **kwargs) -> "HybridBlock":
+    def hybridize(self, active: bool = True, remat_backward: bool = False,
+                  **kwargs) -> "HybridBlock":
         """Capture this block's forward and, under ``autograd.record()``,
         its backward (the JAX package's `jax.jit` cache, its CachedOp).
         Recurses into the children and drops every program captured
@@ -507,9 +593,19 @@ class HybridBlock(Block):
         ``autograd.train_mode()``) draws its seeds from the program's
         seed table, staged before every run: a fresh mask each call, the
         masks of the eager forward for the same ``random.seed``.
-        ``kwargs`` (static_alloc, static_shape, ...) are accepted for
-        Gluon's signature."""
+
+        ``remat_backward`` (the JAX package's long-context option): under
+        ``record()`` the forward keeps no activations and the backward
+        recomputes them (`_Remat`): the same gradients and, with
+        dropout, the same masks, for a second forward.  It frees the
+        activations only between the forward and the backward (what
+        else that span allocates, or a second recorded call, finds
+        them gone); the backward recomputes the whole block's set at
+        once, so the peak of a step of one recorded call does not
+        drop.  Outside ``record()`` it changes nothing.  ``kwargs``
+        (static_alloc, static_shape, ...) are accepted for Gluon's
+        signature."""
         self._hybrid = bool(active)
         self._invalidate_cached_program()
-        super().hybridize(active, **kwargs)
+        super().hybridize(active, remat_backward=remat_backward, **kwargs)
         return self

@@ -176,13 +176,16 @@ class Trainer:
             upd.prog.run(sig, hyper=hyper)
             return
         # the capture runs the body once for real first: keep what it
-        # changes, to put back if the capture fails
-        saved = [t.detach().clone() for t in upd.targets]
+        # changes, to put back if the capture fails; on the host, so that
+        # the capturing step holds no second copy of the weights and
+        # states on the card
+        saved = [t.detach().to("cpu", copy=True) for t in upd.targets]
         try:
             upd.prog.run(sig, hyper=hyper)
         except Exception:
             with torch.no_grad():
-                torch._foreach_copy_(upd.targets, saved)
+                for t, s in zip(upd.targets, saved):
+                    t.copy_(s)
             raise
 
     def flush(self) -> None:

@@ -84,6 +84,9 @@ _F32_MIN = torch.finfo(torch.float32).min
 # ``net._gen_program_cache_cap``
 _PROGRAM_CACHE_CAP = int(os.environ.get("MXTPU_GEN_PROGRAM_CACHE", "32"))
 _PARAMS_CACHE_CAP = 4
+# LRU cap of a long-context net's positional tables, one per width;
+# override per net with ``net._pe_cache_cap``
+_PE_CACHE_CAP = int(os.environ.get("MXTPU_GEN_PE_CACHE", "8"))
 _gather_lock = threading.Lock()
 
 
@@ -165,10 +168,31 @@ def _decode_path(qc) -> str:
     return "int8" if qc is not None else "float"
 
 
-def _gather_params(net, qc=None):
+def _pe_table(net, width):
+    """A long-context net's (``_pe is None``) positional table of
+    ``width`` rows, built once per width on its device and kept in a
+    per-net LRU (``net._pe_cache``, cap ``net._pe_cache_cap``), as the
+    JAX package keeps it: only the rows a decode program reads are ever
+    built."""
+    cache = getattr(net, "_pe_cache", None)
+    if cache is None:
+        cache = net._pe_cache = OrderedDict()
+    pe = _lru_touch(cache, width)
+    if pe is None:
+        from .transformer import positional_encoding
+
+        pe = _lru_put(cache, width, positional_encoding(
+            width, net._units, device=net.embed.weight.device),
+            getattr(net, "_pe_cache_cap", _PE_CACHE_CAP))
+    return pe
+
+
+def _gather_params(net, qc=None, pe_width=None):
     """The live parameter tensors in the JAX package's pytree layout;
     with a `DecodeQuantConfig` ``qc``, its target layers' weights come
-    out as int8 + scale dicts (re-quantized here if they changed)."""
+    out as int8 + scale dicts (re-quantized here if they changed).  A
+    long-context net's positional table is `_pe_table` of ``pe_width``
+    rows (the positions the caller reads)."""
     def wb(layer):
         if qc is not None:
             packed = qc.packed(layer)
@@ -182,7 +206,8 @@ def _gather_params(net, qc=None):
                "ln2": (lyr.ln2.gamma, lyr.ln2.beta),
                "ffn1": wb(lyr.ffn.ffn_dense1),
                "ffn2": wb(lyr.ffn.ffn_dense2)} for lyr in net._layers]
-    return {"embed": net.embed.weight, "pe": net._pe,
+    pe = net._pe if net._pe is not None else _pe_table(net, pe_width)
+    return {"embed": net.embed.weight, "pe": pe,
             "ln": (net.ln.gamma, net.ln.beta), "head": wb(net.head),
             "layers": layers}
 
@@ -206,7 +231,7 @@ def _params_fingerprint(net, qc=None, tensors=None):
 
 def _param_tensors(net):
     """The tensors `_gather_params` reads: every parameter of the net
-    and the positional-encoding table."""
+    and the positional-encoding table where it keeps one."""
     head = net.head
     ts = [net.embed.weight, net._pe, net.ln.gamma, net.ln.beta,
           head.weight, head.bias]
@@ -237,9 +262,10 @@ def _params_sig(params):
                  for t in _leaves(params))
 
 
-def _gathered(net, qc, gather=None, tensors=None):
-    """(`_gather_params(net, qc)`, its `_params_sig`), gathered once per
-    `_params_fingerprint` and cached on the net per weight path (the JAX
+def _gathered(net, qc, gather=None, tensors=None, pe_width=None):
+    """(`_gather_params(net, qc, pe_width)`, its `_params_sig`), gathered
+    once per `_params_fingerprint` and cached on the net per weight path
+    (and per positional width for a net without a table; the JAX
     package's ``PagedPrograms.gather_params``); ``gather`` and
     ``tensors`` name another model family's gather and the tensors it
     reads (`_gather_nmt_params`, `_nmt_param_tensors`)."""
@@ -247,12 +273,16 @@ def _gathered(net, qc, gather=None, tensors=None):
         cache = getattr(net, "_gen_params", None)
         if cache is None:
             cache = net._gen_params = OrderedDict()
-        qkey = None if qc is None else qc.cache_key()
+        key = None if qc is None else qc.cache_key()
+        if gather is None and net._pe is None:
+            # a net without a table: one tree a positional width
+            key = (key, int(pe_width))
         fp = _params_fingerprint(net, qc, tensors)
-        ent = _lru_touch(cache, qkey)
+        ent = _lru_touch(cache, key)
         if ent is None or ent[0] != fp:
-            params = (gather or _gather_params)(net, qc)
-            ent = _lru_put(cache, qkey, (fp, params, _params_sig(params)),
+            params = gather(net, qc) if gather is not None \
+                else _gather_params(net, qc, pe_width)
+            ent = _lru_put(cache, key, (fp, params, _params_sig(params)),
                            _PARAMS_CACHE_CAP)
         return ent[1], ent[2]
 
@@ -730,7 +760,7 @@ def lm_generate(net, prompt, max_new_tokens: int, *, temperature: float = 0.0,
     if prog is None:
         prog = _cache_program(net, sig, _GenerateProgram(
             net, B, Pp, N, float(temperature), int(top_k), int(eos_id)))
-    params, psig = _gathered(net, qc)
+    params, psig = _gathered(net, qc, pe_width=Pp + N)
     padded = prompt if Pp == P else torch.cat(
         [prompt, prompt.new_zeros((B, Pp - P))], dim=1)
     gen = prog(params, psig, padded, P, int(seed))
@@ -743,21 +773,53 @@ def lm_score(net, tokens, *, quantized=None):
     decode stack's numerics (the int8 weight path as ``quantized``
     selects, as in `lm_generate`): f32 (B, T-1), the log-probability of
     ``tokens[:, 1:]`` given each prefix.  The perplexity oracle of the
-    quantization quality contract (``exp(-mean(lm_score(...)))``)."""
+    quantization quality contract (``exp(-mean(lm_score(...)))``).
+
+    One `_ScoreProgram` per (B, T, weight path) signature in the net's
+    program LRU, as the JAX package caches one ``jax.jit``: captured at
+    its first call on the card and replayed after that."""
     tokens = _as_tokens(tokens, net.embed.weight.device)
     B, T = tokens.shape
     if T < 2:
         raise ValueError(f"need >= 2 tokens to score, got {T}")
     if T > net._max_len:
         raise ValueError(f"sequence {T} exceeds max_len {net._max_len}")
-    H = net._layers[0].attn._num_heads
-    acts = tuple(lyr.ffn._act for lyr in net._layers)
-    params = _gather_params(net, _quant_config(net, quantized))
-    h, _, _ = _prefill(params, tokens, acts, H, T, return_h=True)
-    logits = _dense(_ln(h, *params["ln"]), *params["head"],
-                    out_dtype=torch.float32)
-    logp = torch.log_softmax(logits[:, :-1], dim=-1)
-    return logp.gather(2, tokens[:, 1:, None])[..., 0]
+    qc = _quant_config(net, quantized)
+    sig = ("score", B, T, qc.cache_key() if qc is not None else None)
+    prog = _lru_touch(_program_cache(net), sig)
+    if prog is None:
+        prog = _cache_program(net, sig, _ScoreProgram(net, T))
+    params, psig = _gathered(net, qc, pe_width=T)
+    return prog(params, psig, tokens)
+
+
+class _ScoreProgram:
+    """`lm_score`'s program for one signature: ``score`` runs the tokens
+    through the training path's causal attention (`_prefill`'s hidden
+    states, no KV caches), the final LayerNorm and the f32 head, and
+    gathers each next token's log-softmax.  Calls are serialised."""
+
+    def __init__(self, net, T):
+        self._T = T
+        self._H = net._layers[0].attn._num_heads
+        self._acts = tuple(lyr.ffn._act for lyr in net._layers)
+        self._lock = threading.Lock()
+        self._prog = _graphs.Program("score", self._body, _net_pool(net))
+
+    def _body(self, tokens):
+        params = self._params
+        h, _, _ = _prefill(params, tokens, self._acts, self._H, self._T,
+                           return_h=True)
+        logits = _dense(_ln(h, *params["ln"]), *params["head"],
+                        out_dtype=torch.float32)
+        logp = torch.log_softmax(logits[:, :-1], dim=-1)
+        return (logp.gather(2, tokens[:, 1:, None])[..., 0],)
+
+    def __call__(self, params, psig, tokens):
+        with self._lock:
+            self._params = params
+            (out,) = self._prog.run(psig, tokens=tokens)
+            return out.clone()
 
 
 def lm_stream(net, prompt, max_new_tokens: int, *, engine=None,
@@ -879,7 +941,7 @@ def lm_beam_search(net, prompt, max_new_tokens: int, *, beam_size: int = 4,
     if prog is None:
         prog = _cache_program(net, sig, _BeamProgram(
             net, B, P, N, K, int(eos_id), float(alpha)))
-    params, psig = _gathered(net, qc)
+    params, psig = _gathered(net, qc, pe_width=P + N)
     gen, norm = prog(params, psig, prompt)
     seqs = torch.cat([prompt[:, None].expand(B, K, P), gen], dim=2)
     return seqs.to(torch.int32), norm

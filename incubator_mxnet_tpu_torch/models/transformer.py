@@ -31,6 +31,10 @@ __all__ = ["TransformerLM", "Transformer", "TransformerEncoder",
 # std of the normal initialization of weight matrices and embeddings
 _INIT_STD = 0.02
 
+# above this max_len, TransformerLM keeps no positional table and its
+# forward computes the encoding of the sequence it runs, on its device
+_PE_TABLE_MAX = 8192
+
 
 def positional_encoding(T, C, dtype=torch.float32, device=None):
     """(T, C) sinusoids: sin on even columns, cos on odd."""
@@ -87,6 +91,13 @@ class TransformerLM(HybridBlock):
     causal attention's backward is the flash backward kernels on the
     card.  Decoding (`generate`, `score`, the serving engine) runs under
     ``torch.no_grad()`` and records no graph.
+
+    Up to ``max_len`` = `_PE_TABLE_MAX` (8192) the positional encoding is
+    an f32 buffer of ``max_len`` rows; a long-context net keeps none
+    (``_pe is None``): its forward computes the (T, units) encoding of
+    the sequence it runs on the card, inside whatever program runs the
+    forward, and decoding takes a table of the width it needs from a
+    per-net LRU (`generation._pe_table`).
     """
 
     def __init__(self, vocab=32000, units=512, hidden_size=2048,
@@ -104,9 +115,9 @@ class TransformerLM(HybridBlock):
                     _LMLayer(units, hidden_size, num_heads, dropout, **kw))
         self.ln = LayerNorm(units, **kw)
         self.head = Dense(vocab, units, flatten=False, **kw)
-        self.register_buffer("_pe", positional_encoding(max_len, units,
-                                                        device=dev),
-                             persistent=False)
+        self.register_buffer(
+            "_pe", positional_encoding(max_len, units, device=dev)
+            if max_len <= _PE_TABLE_MAX else None, persistent=False)
         self._init_weights(seed)
         # the int8 weight state of `quantize_for_decode` (None: float)
         self._decode_quant = None
@@ -134,7 +145,9 @@ class TransformerLM(HybridBlock):
         if T > self._max_len:
             raise ValueError(f"sequence {T} exceeds max_len {self._max_len}")
         h = self.embed(tokens) * math.sqrt(self._units)
-        h = h + self._pe[:T].to(h.dtype)
+        pe = self._pe[:T] if self._pe is not None else positional_encoding(
+            T, self._units, device=h.device)
+        h = h + pe.to(h.dtype)
         for lyr in self._layers:
             h = lyr(h)
         return self.head(self.ln(h))

@@ -14,7 +14,11 @@ versions of each half:
   `_bwd_block_terms` over the whole score matrix, from the lse).  The
   CPU path, and the oracles the kernels are held to.
   `_flash_bwd_reference` (softmax recomputed, Δ overridable) is the
-  port of the JAX package's exact backward, a second oracle.
+  port of the JAX package's exact backward, a second oracle.  These
+  build the whole (Tq, Tk) score matrix, 64 GB in f32 at B=1, H=16,
+  T=32768; `attention_chunked` / `flash_bwd_chunked` are the same math
+  a block of query rows at a time against the keys it sees, the oracles
+  at long T (no caller on a model's path).
 * CUDA — ``csrc/flash_attention.cu`` replaces the Pallas TPU kernels
   `_fa_kernel_resident` and `_fa_kernel_streamed` (launched by
   `_flash_core`); ``csrc/flash_attention_bwd.cu`` replaces
@@ -45,7 +49,8 @@ from ..base import MXNetError
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "attention_reference", "attention_bthd", "kernel_active",
-           "flash_bwd_plain", "flash_bwd_dkdv", "flash_bwd_dq"]
+           "flash_bwd_plain", "flash_bwd_dkdv", "flash_bwd_dq",
+           "attention_chunked", "flash_bwd_chunked"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 128
@@ -234,6 +239,88 @@ def _flash_bwd_reference(q, k, v, do, causal, scale, delta=None):
     ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _row_blocks(Tq, Tk, causal, rows, device):
+    """The query blocks of the chunked versions: (i0, i1, keys the block
+    sees, its (i1 - i0, keys) validity mask or None)."""
+    for i0 in range(0, Tq, rows):
+        i1 = min(Tq, i0 + rows)
+        if not causal:
+            yield i0, i1, Tk, None
+            continue
+        kend = max(0, min(Tk, i1 + Tk - Tq))
+        qpos = torch.arange(i0, i1, device=device)[:, None] + (Tk - Tq)
+        yield i0, i1, kend, torch.arange(kend, device=device)[None] <= qpos
+
+
+def attention_chunked(q, k, v, causal: bool = False,
+                      scale: Optional[float] = None, rows: int = 1024):
+    """(out, lse) as `_reference_attention_lse` computes them, ``rows``
+    query rows at a time against the keys they see (causal: up to the
+    block's last diagonal), so no (Tq, Tk) tensor exists: f32 scores,
+    −inf mask, f32 PV; out in q's dtype, lse f32 (−inf on rows that see
+    no key, whose out is 0)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    B, H, Tq, _ = q.shape
+    out = torch.zeros_like(q)
+    lse = torch.full((B, H, Tq), float("-inf"), dtype=torch.float32,
+                     device=q.device)
+    kf, vf = k.float(), v.float()
+    for i0, i1, kend, mask in _row_blocks(Tq, k.shape[2], causal, rows,
+                                          q.device):
+        if kend == 0:
+            continue
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, i0:i1].float(),
+                         kf[:, :, :kend]) * scale
+        if mask is not None:
+            s = s.masked_fill(~mask, float("-inf"))
+        m = s.amax(dim=-1)
+        m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        e = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]),
+                        torch.zeros_like(s))
+        del s
+        l = e.sum(dim=-1)
+        lse[:, :, i0:i1] = torch.where(
+            l > 0, m_safe + torch.log(torch.clamp(l, min=1e-30)),
+            torch.full_like(l, float("-inf")))
+        p = e.div_(torch.clamp(l, min=1e-30)[..., None])
+        out[:, :, i0:i1] = torch.einsum("bhqk,bhkd->bhqd", p,
+                                        vf[:, :, :kend]).to(q.dtype)
+    return out, lse
+
+
+def flash_bwd_chunked(q, k, v, do, lse, delta, causal: bool, scale: float,
+                      rows: int = 1024):
+    """(dq, dk, dv) as `flash_bwd_plain` computes them from the saved lse
+    and Δ, ``rows`` query rows at a time: each block's dq whole, its
+    dK/dV terms added into f32 sums over the keys it sees."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for i0, i1, kend, mask in _row_blocks(q.shape[2], k.shape[2], causal,
+                                          rows, q.device):
+        if kend == 0:
+            continue
+        qb, dob = qf[:, :, i0:i1], dof[:, :, i0:i1]
+        kb, vb = kf[:, :, :kend], vf[:, :, :kend]
+        lb = lse[:, :, i0:i1]
+        s = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale
+        finite = torch.isfinite(lb)
+        valid = finite[..., None].expand_as(s)
+        if mask is not None:
+            valid = valid & mask
+        lse0 = torch.where(finite, lb, torch.zeros_like(lb))
+        p = torch.where(valid, torch.exp(s - lse0[..., None]),
+                        torch.zeros_like(s))
+        del s, valid
+        dp = torch.einsum("bhqd,bhkd->bhqk", dob, vb)
+        ds = p * (dp - delta[:, :, i0:i1].float()[..., None]) * scale
+        del dp
+        dv[:, :, :kend] += torch.einsum("bhqk,bhqd->bhkd", p, dob)
+        dk[:, :, :kend] += torch.einsum("bhqk,bhqd->bhkd", ds, qb)
+        dq[:, :, i0:i1] = torch.einsum("bhqk,bhkd->bhqd", ds, kb)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

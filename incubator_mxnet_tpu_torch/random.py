@@ -165,12 +165,17 @@ class SeedTable:
     ``n`` seeds with `draw_seeds` and copies them in with one copy
     (from pinned memory, non-blocking) before each run or replay, and the body
     reads slot ``i`` at its ``i``-th `next_seed`.  A capture records the
-    slots' addresses, so every replay reads the seeds staged for it."""
+    slots' addresses, so every replay reads the seeds staged for it.
+    Until the first `stage` the slots hold the first run's seeds.  A
+    second program may read a table it does not stage (a rematerialising
+    backward reads its forward's): its body then draws the masks of the
+    forward's latest run."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.n = None               # slots, once the first run counted
         self._slots = None
+        self._first = []            # the first run's seeds, drawn by value
         self._i = 0
 
     def stage(self) -> None:
@@ -187,8 +192,10 @@ class SeedTable:
     def next(self) -> torch.Tensor:
         i, self._i = self._i, self._i + 1
         if self.n is None:
-            return torch.tensor([_draw_one()], dtype=torch.int64,
+            seed = torch.tensor([_draw_one()], dtype=torch.int64,
                                 device=self.device)
+            self._first.append(seed)
+            return seed
         if i >= self.n:
             raise MXNetError(f"a program body drew seed {i + 1}, but its "
                              f"first run drew {self.n}: a body's draws "
@@ -199,8 +206,9 @@ class SeedTable:
         if self.n is None:
             self.n = self._i
             if self.n:
-                self._slots = torch.empty(self.n, dtype=torch.int64,
-                                          device=self.device)
+                # the slots start with the first run's seeds: a replay
+                # before the next `stage` redraws that run's masks
+                self._slots = torch.cat(self._first)
         elif self._i != self.n:
             raise MXNetError(f"a program body drew {self._i} seeds, its "
                              f"first run {self.n}")
@@ -211,6 +219,7 @@ def seed_table(table: "SeedTable"):
     """Run a program body with ``table`` answering `next_seed`."""
     saved, _STATE.table = _STATE.table, table
     table._i = 0
+    table._first = []
     try:
         yield
     finally:

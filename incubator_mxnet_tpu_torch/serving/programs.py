@@ -359,13 +359,15 @@ class PagedPrograms:
     def gather_params(self):
         """The target's weights for the bodies, gathered once per
         fingerprint; returns the signature a graph is captured for."""
-        self._params, psig = G._gathered(self._net, self._qc)
+        self._params, psig = G._gathered(self._net, self._qc,
+                                         pe_width=self._msl)
         return psig
 
     def draft_params(self):
         """The draft's weights (the target's int8 weights when it
         self-drafts), as `gather_params`."""
-        self._dparams, psig = G._gathered(self._draft_net, self._draft_qc)
+        self._dparams, psig = G._gathered(self._draft_net, self._draft_qc,
+                                          pe_width=self._msl)
         return psig
 
     def _slots(self, tables, pos, ok):

@@ -72,10 +72,12 @@ def blocked_imports():
     """One interpreter with ``jax`` and the JAX package blocked imports
     each module the per-slice import rules below name, in turn: (module
     -> the error its import raised or None, the jax/jaxlib/JAX-package
-    modules loaded after all of them).  A module that imports JAX fails
+    modules loaded after all of them, what the long-context CPU path
+    `_LONGCTX_RUN` printed or raised).  A module that imports JAX fails
     to import; one that loads jaxlib shows in the list."""
     mods = sorted(set(SLICE4_MODULES + GRAPH_MODULES + NMT_MODULES
-                      + VISION_MODULES + PTQ_MODULES + STATE_MODULES))
+                      + VISION_MODULES + PTQ_MODULES + STATE_MODULES
+                      + LONGCTX_MODULES))
     res = _run(
         "import importlib, json, sys\n"
         "sys.modules['jax'] = None\n"
@@ -87,16 +89,23 @@ def blocked_imports():
         "        errs[mod] = None\n"
         "    except Exception as e:\n"
         "        errs[mod] = repr(e)\n"
-        "print(json.dumps([errs, sorted(\n"
+        "loaded = sorted(\n"
         "    n for n, m in sys.modules.items() if m is not None\n"
         "    and n.split('.')[0] in ('jax', 'jaxlib',\n"
-        "                            'incubator_mxnet_tpu'))]))\n")
+        "                            'incubator_mxnet_tpu'))\n"
+        "def longctx():\n"
+        + "".join("    " + ln + "\n" for ln in _LONGCTX_RUN.splitlines())
+        + "try:\n"
+        "    run = longctx()\n"
+        "except BaseException as e:\n"
+        "    run = repr(e)\n"
+        "print(json.dumps([errs, loaded, run]))\n")
     assert res.returncode == 0, res.stderr
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def _assert_imports_with_jax_blocked(blocked_imports, mod):
-    errs, loaded = blocked_imports
+    errs, loaded = blocked_imports[:2]
     assert errs[mod] is None, errs[mod]
     assert loaded == []
 
@@ -847,3 +856,103 @@ def test_state_cpu_path_never_builds_or_loads_kernels(tmp_path):
         "print('ok')\n")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+# ---- the long-context slice: remat, the in-program encoding, lm_score --
+LONGCTX_MODULES = ["models.transformer", "models.generation", "gluon.block",
+                   "_graphs", "random", "ops.flash_attention"]
+
+# run in `blocked_imports`' interpreter (jax and the JAX package blocked)
+# after its imports: a long-context TransformerLM (no positional table)
+# trained two steps through the remat programs, hybridized with Gluon's
+# other keywords, then scored and decoded, with every kernel build or
+# load, CUDA graph, event and stream refused
+_LONGCTX_RUN = """\
+import ctypes, subprocess, torch
+def refuse(*a, **k):
+    raise AssertionError('kernel build, load or CUDA object')
+subprocess.Popen = refuse
+ctypes.CDLL = refuse
+torch.cuda.graph_pool_handle = refuse
+torch.cuda.CUDAGraph = refuse
+torch.cuda.Event = refuse
+torch.cuda.Stream = refuse
+from incubator_mxnet_tpu_torch import _build, _graphs, autograd
+from incubator_mxnet_tpu_torch.gluon import HybridBlock, Trainer
+from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from incubator_mxnet_tpu_torch.models import TransformerLM, lm_score
+from incubator_mxnet_tpu_torch.models.transformer import _PE_TABLE_MAX
+class M(HybridBlock):
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+        self.loss = SoftmaxCrossEntropyLoss()
+    def forward(self, t, y):
+        return self.loss(self.net(t), y).mean()
+net = TransformerLM(vocab=11, units=16, hidden_size=32, num_layers=1,
+                    num_heads=2, max_len=_PE_TABLE_MAX + 1, dropout=0.1,
+                    device='cpu')
+assert net._pe is None
+m = M(net)
+m.hybridize(True, static_alloc=True, static_shape=True,
+            remat_backward=True)
+assert net.layer0.ffn._remat_backward
+tr = Trainer(m.collect_params(), 'sgd', {'momentum': 0.9},
+             keep_grads=False)
+t = torch.randint(0, 11, (2, 12))
+for _ in range(2):
+    with autograd.record():
+        m(t, t).backward()
+    tr.step(1)
+rec = next(iter(m._graph_cache.values()))[0]
+assert rec.fwd.name == 'fwd_remat' and rec.bwd.name == 'bwd_remat'
+assert lm_score(net, t).shape == (2, 11)
+assert net.generate(t[:, :4], 2).shape == (2, 6)
+assert not _build._libs and not _graphs.captures
+return 'ok'
+"""
+
+
+@pytest.mark.parametrize("mod", LONGCTX_MODULES)
+def test_longctx_modules_import_with_jax_blocked(mod, blocked_imports):
+    _assert_imports_with_jax_blocked(blocked_imports, mod)
+
+
+@pytest.mark.parametrize("name", ["models/transformer.py",
+                                  "models/generation.py", "gluon/block.py",
+                                  "_graphs.py", "random.py",
+                                  "ops/flash_attention.py"])
+def test_longctx_sources_import_neither_jax_nor_the_jax_package(name):
+    mods = [(m or "").split(".")[0]
+            for m in _imported_modules(os.path.join(PKG, name))]
+    assert not {"jax", "jaxlib", "incubator_mxnet_tpu"} & set(mods)
+
+
+def test_hybridize_keeps_gluons_keywords_beside_remat():
+    """``hybridize`` takes Gluon's keywords (static_alloc, static_shape,
+    any other) with ``remat_backward``, on a plain `Block` and a
+    `HybridBlock`, and hands the flag to every child."""
+    from incubator_mxnet_tpu_torch.gluon import Block
+    from incubator_mxnet_tpu_torch.gluon.nn import Dense
+
+    class Outer(Block):
+        def __init__(self):
+            super().__init__()
+            self.a = Dense(3, 4, device="cpu")
+            self.b = Dense(2, 3, device="cpu")
+
+    net = Outer()
+    assert net.hybridize(True, static_alloc=True, static_shape=True,
+                         remat_backward=True, inline_limit=2) is net
+    assert net._remat_backward and net.a._remat_backward \
+        and net.b._remat_backward and net.a._hybrid
+    net.a.hybridize(static_alloc=True)
+    assert not net.a._remat_backward and net.b._remat_backward
+
+
+def test_longctx_cpu_path_never_builds_or_loads_kernels(blocked_imports):
+    """The long-context path on the CPU, with jax blocked (run in the
+    shared interpreter): a TransformerLM above the table's max_len
+    trained through the remat programs, scored and decoded — no build,
+    no library load, no CUDA graph, event or stream."""
+    assert blocked_imports[2] == "ok", blocked_imports[2]
