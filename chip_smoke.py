@@ -405,7 +405,22 @@ Long context (after phase 36; benchmark/longctx_bench.py):
    ``is_causal`` (forward; its backward alone) and the causal bound;
 40. ``lm_score`` at (1, 32768) on phase 37's T=65536 net — one captured
    program, its replay and the first call bit-identical to the eager
-   body; call ms, tokens/s and the perplexity.
+   body; call ms, tokens/s and the perplexity;
+41. telemetry — with telemetry enabled (and the flight recorder, its
+   signal handlers left alone): phase 25's BERT-large step, three steps
+   (``trainer_step_seconds`` p50, the programs' CUDA-event card ms, the
+   ``trainer_step`` record's MFU beside phase 25's own), then one
+   ``CheckpointManager.save`` and its six metrics; phase 20's graphed
+   float engine over phase 4's 8 prompts with telemetry off, on, on, off
+   (decoded tok/s both ways, the tokens equal), the first engine with
+   telemetry on serving its ops endpoints on an ephemeral port, scraped
+   over HTTP: ``serving_admitted_total`` 8, a TPOT count, ``/healthz``
+   healthy, a valid ``/profilez`` trace, every program's MFU <= 1 and
+   roofline fraction <= 1.05, the decode program's card ms within 15% of
+   phase 20's replay, a request profiled on every thread showing the
+   engine's spans as ``record_function`` ranges; ``generate`` B=8 P=128
+   N=32 (its ``decode_float`` record); a flight-recorder bundle with the
+   engine's section and the steps' spans.
 
 The line before the last is a JSON object with every kernel's launches
 (summed over the main paths that ran it, launches inside graph replays
@@ -430,13 +445,14 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from incubator_mxnet_tpu_torch import (MXNetError, _build, _graphs,
-                                       autograd, nd)
+                                       autograd, nd, telemetry)
 from incubator_mxnet_tpu_torch import random as mx_random
 from incubator_mxnet_tpu_torch.contrib.quantization import (
     _QuantizedWrapper, quantize_kv, quantize_net)
@@ -5943,6 +5959,310 @@ def bwd_kernel_info() -> dict:
         for D in (64, 128)}
 
 
+# ---------------------------------------------------------------- phase 41
+# phase 20's float engine over phase 4's 8 prompts, with telemetry; a
+# first request pays the captures (and their counts), so the TTFT target
+# of the burn-rate tracker leaves it room
+TEL_ENGINE = dict(max_batch=8, block_size=16, prefill_chunk=32)
+TEL_SLO_TTFT = 10.0
+# the decode program's event-timed card ms against phase 20's replay
+TEL_DECODE_TOL = 0.15
+TEL_ENDPOINTS = ("/metrics", "/healthz", "/varz", "/requestz", "/stallz",
+                 "/profilez?seconds=0")
+TEL_CHECKPOINT_METRICS = (
+    "checkpoint_step_stall_seconds", "checkpoint_queue_depth",
+    "checkpoint_write_seconds", "checkpoint_bytes_total",
+    "checkpoint_write_retries_total", "checkpoint_restore_skipped_total")
+# the kernels of the paths this phase drives: the engine (paged) and
+# ``generate`` (flash prefill, paged-free decode), the BERT step
+TEL_SERVING = ("paged_attention", "flash_attention")
+TEL_TRAINING = ("dropout_fwd_dev", "dropout_bwd", "xent_forward",
+                "xent_backward")
+
+
+def _scrape(port: int, path: str) -> str:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as resp:
+        assert resp.status == 200, (path, resp.status)
+        return resp.read().decode()
+
+
+def _tel_serve(net, prompts, on: bool, keep_open: bool = False):
+    """A fresh float engine on graphs (phase 20's: 8 lanes, block 16,
+    chunk 32) with telemetry ``on`` or off: a warm-up request (the
+    captures; with telemetry on, the programs' counts), the metrics
+    reset, then phase 4's 8 prompts at once, 32 tokens each.  Returns
+    (the engine, closed unless ``keep_open``; the tokens; decoded
+    tok/s)."""
+    if on:
+        telemetry.enable()
+    else:
+        telemetry.disable()
+    eng = ServingEngine(net, **TEL_ENGINE, slo_ttft=TEL_SLO_TTFT,
+                        http_port=0 if keep_open else None)
+    try:
+        eng.submit(prompts[0][:40], 2).result(timeout=300)
+        telemetry.reset()
+        telemetry.requestlog.clear()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, 32) for p in prompts]
+        toks = [r.result(timeout=600) for r in reqs]
+        tok_s = sum(len(t) for t in toks) / (time.perf_counter() - t0)
+    except BaseException:
+        eng.close()
+        raise
+    if not keep_open:
+        eng.close()
+    return eng, toks, tok_s
+
+
+def _tel_programs(names) -> dict:
+    """{program: (runs, median card ms)} of the resolved runs of
+    ``names`` in perf's timing stream."""
+    by = {}
+    for e in telemetry.perf.recent_timings():
+        if e["program"] in names:
+            by.setdefault(e["program"], []).append(e["dur"] * 1e3)
+    return {k: (len(v), float(np.median(v))) for k, v in by.items()}
+
+
+def _tel_training(smi: str, mfu_25) -> dict:
+    """Phase 25's BERT-large step (B=32, T=128, bf16, dropout 0.1),
+    three steps with telemetry on, then one checkpoint save."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    net, model, trainer = _bert_model(BERT, torch.bfloat16, seed=0)
+    B, T = BERT_BATCH
+    tokens, labels = _bert_batch(BERT["vocab_size"], B, T)
+    n_params = sum(p.numel() for p in net.collect_params().values()
+                   if p.grad_req != "null")
+    losses = []
+    for _ in range(3):
+        with autograd.record():
+            loss = model(tokens, labels)
+        loss.backward()
+        trainer.step(1)
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    telemetry.perf.resolve()
+    assert all(torch.isfinite(torch.stack(losses).float())), losses
+    reg = telemetry.get_registry()
+    step_s = reg.get("trainer_step_seconds")
+    assert step_s.count == 3 and reg.get("trainer_steps_total").value == 3
+    assert reg.get("optimizer_state_bytes_per_device").value \
+        == trainer.optimizer_state_bytes_per_device() > 0
+    progs = {r["program"]: r for r in telemetry.perf.roofline_table()}
+    rec = progs["trainer_step"]
+    runs = _tel_programs({"trainer_step", "fwd_record", "bwd_record",
+                          "update"})
+    assert runs["trainer_step"][0] == 2, runs     # steps 2 and 3
+    # the step's record: its recorded forward and backward and update
+    assert rec["flops"] == sum(progs[p]["flops"] for p in (
+        "fwd_record", "bwd_record", "update")), progs
+    assert rec["mfu"] is not None and rec["mfu"] <= 1.0, rec
+    _, _, fpt = _mfu(n_params, B, T, 1.0)
+    out = {"step_p50_ms": step_s.percentile(0.5) * 1e3,
+           "programs": runs, "mfu": rec["mfu"],
+           "roofline": rec["roofline_fraction"],
+           "flops": rec["flops"], "formula_flops": fpt * B * T,
+           "mfu_25": mfu_25}
+    log(f"telemetry, BERT-large B={B} T={T} step [{smi}]: "
+        f"trainer_step_seconds p50 {out['step_p50_ms']:.2f} ms (host: the "
+        f"update is queued, not waited for); programs (runs, median card "
+        f"ms by CUDA events): {json.dumps(runs)}; trainer_step counted "
+        f"{rec['flops']:.4g} flop against bench.py's formula "
+        f"{out['formula_flops']:.4g}: program_mfu {rec['mfu']:.4f}, "
+        f"roofline fraction {rec['roofline_fraction']:.4f}; phase 25's own "
+        f"MFU in this run " + (f"{mfu_25:.4f}" if mfu_25 else "not measured"))
+    root = tempfile.mkdtemp(prefix="mx_tel_ckpt_")
+    try:
+        mgr = CheckpointManager(os.path.join(root, "ckpt"), keep=1)
+        mgr.save(3, net=net, trainer=trainer)
+        mgr.wait()
+        mgr.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ck = {}
+    for name in TEL_CHECKPOINT_METRICS:
+        m = reg.get(name)
+        ck[name] = None if m is None else (
+            m.snapshot() if m.kind != "histogram"
+            else {"count": m.count, "sum": m.sum})
+    assert ck["checkpoint_step_stall_seconds"]["count"] == 1, ck
+    assert ck["checkpoint_write_seconds"]["count"] == 1, ck
+    assert ck["checkpoint_bytes_total"]["value"] > 0, ck
+    log(f"telemetry, one CheckpointManager.save of that model and trainer "
+        f"[{smi}] (None: never counted): {json.dumps(ck)}")
+    out["checkpoint"] = ck
+    del net, model, trainer, losses
+    return out
+
+
+def _tel_generate(net, prompt) -> dict:
+    """``generate`` B=8, P=128, N=32 (phase 4's prompt) twice with
+    telemetry on, the capture and a replay: the ``decode_float`` record
+    sums the flash prefill and the 32 steps."""
+    for _ in range(2):
+        out = net.generate(prompt, 32)
+    torch.cuda.synchronize()
+    telemetry.perf.resolve()
+    assert out.shape == (8, 160)
+    rec = {r["program"]: r for r in telemetry.perf.roofline_table()}
+    dec = rec["decode_float"]
+    assert dec["mfu"] is not None and dec["seconds"], dec
+    reg = telemetry.get_registry()
+    return {"decode_float": dec,
+            "tok_s_gauge": reg.get("decode_tokens_per_second",
+                                   {"path": "float"}).value}
+
+
+def _profiled_spans(eng, prompt) -> dict:
+    """One request under ``torch.profiler`` profiling every thread: the
+    engine's spans as ``record_function`` ranges, beside the kernels."""
+    kw = {}
+    cfg = getattr(torch._C._profiler, "_ExperimentalConfig", None)
+    if cfg is not None:
+        kw["experimental_config"] = cfg(profile_all_threads=True)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA], **kw) as prof:
+        eng.submit(prompt, 32).result(timeout=600)
+        torch.cuda.synchronize()
+    events = prof.events()
+    names = {e.name for e in events}
+    kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                  for e in events)
+    return {"ranges": sorted(n for n in names if n.startswith("serving/")),
+            "kernels": kernels}
+
+
+def phase_telemetry(smi: str, prompts, prompt, replay_card_ms: float,
+                    mfu_25) -> dict:
+    """The telemetry on the port's main paths at full width: phase 25's
+    BERT-large step with telemetry on (step seconds, the step's program
+    record against the phase's own MFU, a checkpoint's six metrics);
+    phase 20's graphed float engine over phase 4's 8 prompts with
+    telemetry off, on (with its ops server, scraped), on, off — decoded
+    tok/s both ways; the scraped engine's counts, its health, a valid
+    merged trace, a profiled request's record_function ranges, every
+    program's MFU <= 1 and roofline fraction <= 1.05, the decode
+    program's event-timed card ms within 15% of phase 20's replay; a
+    flight-recorder bundle with the engine's and the steps' sections."""
+    net = _build_net(torch.bfloat16, MODEL["num_layers"], seed=0)
+    for name in KERNELS:
+        KERNELS[name]["fn"].launches = 0
+    _graphs.reset_counts()
+    flight = tempfile.mkdtemp(prefix="mx_flight_")
+    telemetry.perf.clear()
+    telemetry.get_registry().clear()
+    telemetry.enable()
+    telemetry.flight_recorder.install(flight, signals=False)
+    eng = None
+    try:
+        train = _tel_training(smi, mfu_25)
+        runs, tok_s = {}, {"off": [], "on": []}
+        for i, on in enumerate((False, True, True, False)):
+            eng, toks, r = _tel_serve(net, prompts, on, keep_open=(i == 1))
+            runs.setdefault("toks", toks)
+            assert toks == runs["toks"], "tokens differ between engines"
+            tok_s["on" if on else "off"].append(r)
+            if i != 1:
+                continue
+            # the scraped engine (closed before the next run, so no idle
+            # engine polls beside a timed one): the counts of the 8
+            # requests, a profiled request, the flight bundle
+            torch.cuda.synchronize()
+            got = {p: _scrape(eng.http_port, p) for p in TEL_ENDPOINTS}
+            decode = _tel_programs({"serving_step", "serving_step_float"})
+            other = ((prompts[5].astype(np.int64) + 1)
+                     % MODEL["vocab"]).astype(np.int32)
+            spans = _profiled_spans(eng, other)
+            paths = telemetry.flight_recorder.dump("manual", flight)
+            lines = [json.loads(ln) for ln in open(paths["jsonl"])]
+            with open(paths["trace"]) as f:
+                json.load(f)
+            name = eng._name
+            eng.close()
+            eng = None
+        telemetry.enable()
+        gen = _tel_generate(net, prompt)
+        text = got["/metrics"]
+        assert "\nserving_admitted_total 8.0\n" in text, \
+            [ln for ln in text.splitlines() if "admitted" in ln]
+        varz = json.loads(got["/varz"])
+        tpot = varz["metrics"]['serving_tpot_seconds{path=float}']
+        assert tpot["count"] >= 1, tpot
+        health = json.loads(got["/healthz"])
+        assert health["status"] == "healthy", health
+        reqz = json.loads(got["/requestz"])
+        assert reqz["ring"]["pushed"] == 8, reqz["ring"]
+        stallz = json.loads(got["/stallz"])["engines"][name]
+        assert stallz["invariant_violations"] == 0, stallz
+        trace = json.loads(got["/profilez?seconds=0"])
+        problems = telemetry.profiler.validate_chrome_trace(trace)
+        assert problems == [], problems[:5]
+        assert varz["perf"]["peak_flops"] is not None, varz["perf"]
+        table = telemetry.perf.roofline_table()
+        for row in table:
+            assert row["mfu"] is None or row["mfu"] <= 1.0, row
+            assert row["roofline_fraction"] is None \
+                or row["roofline_fraction"] <= 1.05, row
+        assert any(r["program"] == "serving_step" and r["mfu"] is not None
+                   for r in table), table
+        n_step, step_ms = decode["serving_step"]
+        dev = abs(step_ms - replay_card_ms) / replay_card_ms
+        assert dev <= TEL_DECODE_TOL, (step_ms, replay_card_ms)
+        assert {"serving/step", "serving/prefill_chunk"} \
+            <= set(spans["ranges"]) and spans["kernels"] > 0, spans
+        sections = {ln["section"]: ln for ln in lines if "section" in ln}
+        assert "in_flight" in sections[name]["data"], sections.keys()
+        assert any(s["name"] == "trainer/step" for ln in lines
+                   for s in ln.get("spans", ())), "no step section"
+        torch.cuda.synchronize()
+        launches = {k: _graphs.launches(KERNELS[k]["fn"]) for k in KERNELS}
+        for k in TEL_SERVING + TEL_TRAINING:
+            assert launches[k] > 0, f"{k} never launched on phase 41"
+    finally:
+        if eng is not None:
+            eng.close()
+        telemetry.disable()
+        telemetry.flight_recorder.uninstall()
+        telemetry.profiler.uninstall_gc_hooks()
+        shutil.rmtree(flight, ignore_errors=True)
+    off, on = float(np.mean(tok_s["off"])), float(np.mean(tok_s["on"]))
+    log(f"telemetry, phase 20's float engine over phase 4's 8 prompts "
+        f"(32 tokens each) [{smi}]: telemetry off "
+        f"{', '.join(f'{x:.1f}' for x in tok_s['off'])} decoded tok/s, on "
+        f"{', '.join(f'{x:.1f}' for x in tok_s['on'])} (order off, on, on, "
+        f"off; on/off {on / off:.4f}); tokens equal")
+    log(f"telemetry, the scraped engine [{smi}]: endpoints "
+        f"{json.dumps({p: len(b) for p, b in got.items()})} bytes; "
+        f"/healthz {health['status']}; /stallz {stallz['steps']} steps, "
+        f"attribution {json.dumps(stallz['attribution'][:4])}; decode "
+        f"program serving_step: {n_step} runs, median {step_ms:.4f} card "
+        f"ms by "
+        f"CUDA events against phase 20's replay {replay_card_ms:.4f} ms "
+        f"({dev:.3f} apart); profiled request: ranges {spans['ranges']} "
+        f"beside {spans['kernels']} kernels")
+    log("telemetry, programs (flop, bytes, card ms of the last run, MFU, "
+        "roofline fraction): " + "; ".join(
+            f"{r['program']} {r['flops']:.4g} {r['hbm_bytes']:.4g} "
+            + (f"{r['seconds'] * 1e3:.4f}" if r["seconds"] else "-") + " "
+            + (f"{r['mfu']:.4f}" if r["mfu"] is not None else "-") + " "
+            + (f"{r['roofline_fraction']:.4f}"
+               if r["roofline_fraction"] is not None else "-")
+            for r in table))
+    del net
+    d = gen["decode_float"]
+    log(f"telemetry, generate B=8 P=128 N=32 [{smi}]: decode_float "
+        f"{d['flops']:.4g} flop over {d['seconds'] * 1e3:.3f} card ms "
+        f"(prefill and 32 steps), MFU {d['mfu']:.4f}, roofline "
+        f"{d['roofline_fraction']:.4f}; decode_tokens_per_second "
+        f"{gen['tok_s_gauge']:.1f} (host clock)")
+    return {"launches": launches, "tok_s": tok_s, "on_off": on / off,
+            "decode_ms": step_ms, "train": train, "generate": gen}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     took = {}
@@ -5985,7 +6305,7 @@ def main() -> int:
         bres = timed("beam", phase_beam, smi, res)
     # the compiled programs as CUDA graphs
     gres = timed("graph_path", phase_graph_path, smi, res)
-    timed("graph_programs", phase_graph_programs, res)
+    gprog = timed("graph_programs", phase_graph_programs, res)
     timed("graph_decode", check_decode_graphs, smi, res)
     timed("weight_writes", check_weight_writes, smi, res)
     timed("hybridize", check_hybridize, smi)
@@ -6059,6 +6379,12 @@ def main() -> int:
     lpar = timed("remat_parity", phase_remat_parity, smi)
     lscore = timed("lm_score_long", phase_lm_score_long, smi,
                    llong.pop("net"))
+    # telemetry on the serving engine, generate and the training step
+    gc.collect()
+    torch.cuda.empty_cache()
+    tel = timed("telemetry", phase_telemetry, smi, res["prompts"],
+                res["prompt"][:8, :128], gprog["host"]["replay_card"],
+                cres["graph"]["mfu"])
     log(f"phases took {time.perf_counter() - t_start:.1f} s: "
         + json.dumps(took))
     for kind in ("step", "chunk"):
@@ -6121,7 +6447,7 @@ def main() -> int:
     # each kernel's launches summed over the main paths that ran it
     launches = {}
     for path in (res, qres, sres, bres, gres, tres, tres512, lres, cres,
-                 cres512, nres, rres, pres, state, llong, lpar, lscore):
+                 cres512, nres, rres, pres, state, llong, lpar, lscore, tel):
         for name, n in path["launches"].items():
             launches[name] = launches.get(name, 0) + n
     rows = []

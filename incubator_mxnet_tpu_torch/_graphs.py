@@ -37,6 +37,14 @@ buffers, captured once into a CUDA graph and replayed after that.
   (`note_launch`): a kernel wrapper's ``launches`` counter ticks where
   the kernel runs, and a replay runs it without calling the wrapper,
   so `launches(fn)` adds replays x launches a replay.
+* With telemetry enabled, each run (a replay, an eager body, a warm-up)
+  is timed in `telemetry.perf` — on the card by a pair of CUDA events
+  on its stream (and by the pair a graph captured while telemetry was
+  enabled records around its work, for a replay launched on an idle
+  stream), by the host clock on the CPU — and the first body run of
+  each program (its warm-up, or its first eager run) is counted there
+  for FLOPs and bytes (`telemetry.perf.counting`).  Disabled, a run
+  reads one flag.
 
 The signature a caller passes (``sig``) names what the body reads
 besides its inputs, such as the addresses of the weights it closes over:
@@ -258,6 +266,13 @@ class Program:
             else seeds
         self.per_replay: dict = {}
         self.last = None
+        # (flops, bytes) of one run, counted at the first body run while
+        # telemetry is enabled (`_timed`); the timing events the graph
+        # records (captured while telemetry is enabled) and its last
+        # timed replay
+        self.cost = None
+        self._events = None
+        self._last_run = None
         # held by a caller across a run and its use of the outputs when
         # other threads may run the same program
         self.lock = threading.Lock()
@@ -295,6 +310,36 @@ class Program:
     def _run_body(self):
         with _body_scope(), _random.seed_table(self.seeds):
             return self._body(**self._static)
+
+    def _timed(self, fn, body: bool = True):
+        """``fn()`` — a body run, or a replay when not ``body`` — noted in
+        `telemetry.perf` while telemetry is enabled (a run inside another
+        program's body is that program's): its time, and its FLOPs and
+        bytes, counted at the program's first body run."""
+        if not _tm_registry._enabled or in_body() or capturing():
+            return fn()
+        if not body and self._events is not None:
+            # the graph records its own pair too, read before it replays
+            # again
+            _perf.retire(self._last_run)
+            run = self._last_run = _perf.start_graph_run(
+                self.name, self._pool.device, self._events)
+        else:
+            run = _perf.start_run(self.name, self._pool.device)
+        if body and self.cost is None:
+            with _perf.counting() as c:
+                out = fn()
+            self.cost = (c.flops, c.bytes)
+            _perf._record_cost(
+                self.name, c.flops, c.bytes,
+                arg_bytes=sum(t.numel() * t.element_size()
+                              for t in self._static.values()),
+                out_bytes=sum(t.numel() * t.element_size()
+                              for t in _tensors(out or ())))
+        else:
+            out = fn()
+        _perf.finish_run(run, self.cost)
+        return out
 
     @torch.no_grad()
     def _stage(self, inputs) -> None:
@@ -335,11 +380,11 @@ class Program:
         self._stage(inputs)
         if self._pool.device.type != "cuda" or _eager_depth:
             self._stage_seeds()
-            self.last = self._run_body()
+            self.last = self._timed(self._run_body)
             return self.last
         if self._graph is not None and sig == self._sig:
             self._stage_seeds()
-            self._replay()
+            self._timed(self._replay, body=False)
             self.last = self._out
             return self._out
         self.last = self._capture(sig)
@@ -370,13 +415,14 @@ class Program:
             # outputs (and autograd graph) dropped, its writes put back
             with torch.cuda.stream(side):
                 if self._replay_result is None:
-                    out = self._run_body()
+                    out = self._timed(self._run_body)
                 else:
                     out = ()
                     first = self._written is None
                     written = put_back(self._replay_result() if first
                                        else self._written,
-                                       self._run_body)[1]
+                                       lambda: self._timed(
+                                           self._run_body))[1]
                     if first:
                         self._written = written
             cur.wait_stream(side)
@@ -384,12 +430,18 @@ class Program:
                 t.record_stream(cur)
             graph = torch.cuda.CUDAGraph()
             tally = Counter()
+            events = _perf.graph_events() if _tm_registry._enabled \
+                else None
             _local.tally = tally
             try:
                 with torch.cuda.graph(graph, pool=self._pool.handle(),
                                       stream=side,
                                       capture_error_mode="thread_local"):
+                    if events is not None:
+                        events[0].record()
                     static_out = self._run_body()
+                    if events is not None:
+                        events[1].record()
             except Exception as e:
                 raise MXNetError(f"capturing program {self.name!r} failed: "
                                  f"{e}") from e
@@ -397,9 +449,10 @@ class Program:
                 _local.tally = None
             self._graph, self._out, self._sig = graph, static_out, sig
             self.per_replay = dict(tally)
+            self._events, self._last_run = events, None
         _report_capture(self.name)
         if self._replay_result is not None:
-            self._replay()
+            self._timed(self._replay, body=False)
             return static_out
         if self._static_out:
             outs = _tensors(static_out)
@@ -407,3 +460,9 @@ class Program:
                 torch._foreach_copy_(outs, _tensors(out))
             return static_out
         return out
+
+
+# last: the package's telemetry enables the capture feed of
+# `retrace_guard`, which subscribes to this module
+from .telemetry import perf as _perf  # noqa: E402
+from .telemetry import registry as _tm_registry  # noqa: E402

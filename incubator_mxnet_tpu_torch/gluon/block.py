@@ -28,6 +28,7 @@ from torch import nn
 
 from .. import _graphs, autograd
 from ..base import MXNetError
+from ..telemetry import perf as _perf
 from .parameter import Parameter, ParameterDict, new_parameter
 
 # per-block LRU cap of captured programs, one per input signature (the
@@ -512,6 +513,9 @@ class _RecordedFn(torch.autograd.Function):
         outs = rec.run_forward(sig, inputs)
         rec.pending = outs
         ctx.rec, ctx.sig = rec, sig
+        # the telemetry scopes B's run joins (autograd may run it on
+        # another thread)
+        ctx.scopes = _perf.current_scopes()
         ctx.shapes = [(o.shape, o.dtype, o.device) for o in outs]
         return tuple(o.detach().clone() for o in outs)
 
@@ -527,7 +531,7 @@ class _RecordedFn(torch.autograd.Function):
         task = torch._C._current_graph_task_id()
         earlier = {id(p): p.take_grad() for p in rec.params
                    if task >= 0 and getattr(p, "_grad_task", -1) == task}
-        with bwd.lock:
+        with bwd.lock, _perf.scopes_of(ctx.scopes):
             grads = bwd.run(ctx.sig, **cot)
         rec.pending = None
         it = iter(grads)

@@ -43,16 +43,28 @@ either package wrote loads in the other; `host_states` and
 `device_states` are what `utils.checkpoint.CheckpointManager` saves.
 Loading copies into the state tensors in place (`restore_states`):
 the update program keeps reading the same addresses.
+
+Telemetry (enabled): each step advances the telemetry step index
+(`telemetry.mark_step`), runs in a ``trainer/step`` span with a
+``trainer/update`` sub-span around the update, and records
+``trainer_step_seconds`` (its host time: on the card the update is
+queued, not waited for) and ``trainer_steps_total``;
+``optimizer_state_bytes_per_device`` is set when the states are made.
+The programs the thread runs from the end of one step to the end of the
+next — the recorded forward and backward, and the update — are summed
+into the ``trainer_step`` record of `telemetry.perf` (their counted
+FLOPs and bytes over their device seconds: the step's MFU).
 """
 from __future__ import annotations
 
 import pickle
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from .. import _graphs
+from .. import _graphs, telemetry
 from .. import optimizer as opt_mod
 from ..base import MXNetError
 from ..optimizer.optimizer import copy_pairs_, state_pairs, state_to_host
@@ -105,6 +117,7 @@ class Trainer:
         self._fuse_step = fuse_step
         self._states: Dict[int, object] = {}
         self._updates = None        # the update programs (`_Update`)
+        self._perf_scope = None     # the telemetry record of the next step
 
     @property
     def learning_rate(self) -> float:
@@ -119,17 +132,45 @@ class Trainer:
         reads it from its staged scalars: no new capture)."""
         self._optimizer.set_learning_rate(lr)
 
+    def optimizer_state_bytes_per_device(self) -> int:
+        """Bytes of every optimizer state tensor (the port's Trainer is
+        single-device: all of it lives on the one card); metadata only."""
+        return sum(t.numel() * t.element_size()
+                   for st in self._states.values()
+                   for t in _state_tensors(st))
+
     def step(self, batch_size) -> None:
         """One optimizer update of every trainable parameter, gradients
         rescaled by ``1/batch_size``."""
+        if not telemetry.enabled():
+            return self._step(batch_size)
+        telemetry.mark_step()
+        t0 = time.perf_counter()
+        with telemetry.span("trainer/step"):
+            self._step(batch_size)
+        dt = time.perf_counter() - t0
+        telemetry.histogram("trainer_step_seconds").observe(dt)
+        telemetry.counter("trainer_steps_total").inc()
+        # what ran since the last step's end, this update included, is
+        # this step's record; the next one starts now
+        if self._perf_scope is not None:
+            self._perf_scope.close()
+        self._perf_scope = telemetry.perf.open_scope("trainer_step")
+
+    def _step(self, batch_size) -> None:
         opt = self._optimizer
         opt.rescale_grad = self._scale / batch_size
         idxs = [i for i, p in enumerate(self._params) if p.requires_grad]
         # every state exists before an update program captures
+        made = False
         for i in idxs:
             if i not in self._states:
                 self._states[i] = opt.create_state_multi_precision(
                     i, self._params[i].detach())
+                made = True
+        if made and telemetry.enabled():
+            telemetry.gauge("optimizer_state_bytes_per_device") \
+                .set(self.optimizer_state_bytes_per_device())
         weights = [self._params[i] for i in idxs]
         states = [self._states[i] for i in idxs]
         grads = [_take_grad(w) for w in weights]
@@ -143,12 +184,15 @@ class Trainer:
             opt._update_count(i)
         groups = [opt.group_of(i) for i in idxs]
         try:
-            if pools:
-                self._fused(idxs, weights, grads, states, pools, groups)
-            elif weights:
-                opt.update_all(weights, [
-                    g if g is not None else torch.zeros_like(w)
-                    for w, g in zip(weights, grads)], states, groups=groups)
+            with telemetry.span("trainer/update"):
+                if pools:
+                    self._fused(idxs, weights, grads, states, pools,
+                                groups)
+                elif weights:
+                    opt.update_all(weights, [
+                        g if g is not None else torch.zeros_like(w)
+                        for w, g in zip(weights, grads)], states,
+                        groups=groups)
         except Exception:
             opt.num_update, opt._index_update_count = counts
             raise

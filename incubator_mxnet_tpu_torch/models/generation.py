@@ -63,13 +63,14 @@ from __future__ import annotations
 import math
 import os
 import threading
+import time
 from collections import OrderedDict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import _graphs
+from .. import _graphs, telemetry
 from ..gluon.nn.basic_layers import layer_norm as _ln
 from ..ops.flash_attention import flash_attention
 from ..random import counter_seed
@@ -295,11 +296,20 @@ def _lru_touch(cache, key):
     return val
 
 
-def _lru_put(cache, key, val, cap):
-    """LRU insert with eviction beyond ``cap``."""
+def _lru_put(cache, key, val, cap, gauge=None):
+    """LRU insert with eviction beyond ``cap``; mirrors the size into
+    the telemetry gauge ``gauge`` and counts evictions into
+    ``gen_program_cache_evictions_total``."""
     cache[key] = val
+    evicted = 0
     while len(cache) > max(1, int(cap)):
         cache.popitem(last=False)
+        evicted += 1
+    if gauge is not None and telemetry.enabled():
+        telemetry.gauge(gauge).set(len(cache))
+        if evicted:
+            telemetry.counter("gen_program_cache_evictions_total") \
+                .inc(evicted)
     return val
 
 
@@ -312,7 +322,62 @@ def _program_cache(net):
 
 def _cache_program(net, sig, prog):
     return _lru_put(_program_cache(net), sig, prog,
-                    getattr(net, "_gen_program_cache_cap", _PROGRAM_CACHE_CAP))
+                    getattr(net, "_gen_program_cache_cap", _PROGRAM_CACHE_CAP),
+                    gauge="gen_program_cache_size")
+
+
+def _weight_nbytes(params) -> int:
+    """Bytes of weights a decode step STREAMS through its products —
+    layer weights and biases, the final LayerNorm and the head (the
+    embedding is a per-token row gather, not a streamed product, so it
+    is left out); int8 weights count their int8 values and scales.
+    Metadata only."""
+    def size(x):
+        if x is None:
+            return 0
+        if isinstance(x, dict):
+            return sum(size(v) for v in x.values()
+                       if isinstance(v, torch.Tensor))
+        if isinstance(x, (tuple, list)):
+            return sum(size(v) for v in x)
+        return telemetry.nbytes_of(x)
+
+    return size(params["ln"]) + size(params["head"]) \
+        + sum(size(v) for lp in params["layers"] for v in lp.values())
+
+
+def _record_decode_weight_bytes(params, qc) -> None:
+    """The ``decode_weight_bytes{path=}`` gauge of a decode call."""
+    if telemetry.enabled():
+        telemetry.gauge("decode_weight_bytes",
+                        labels={"path": _decode_path(qc)}) \
+            .set(_weight_nbytes(params))
+
+
+def _timed_decode(program, path, n_tokens, fn, *args, slo=True):
+    """``fn(*args)``; with telemetry enabled, its program runs summed
+    into the record ``program`` (a `telemetry.perf.scope`: their counted
+    FLOPs and bytes over their device seconds) and the serving SLO
+    gauges set:
+
+    * ``decode_ttft_seconds{path=}`` — host wall time of the call
+      (on the card: its dispatch, and the sync where the call fetches
+      its tokens; the caller's read of them ends it);
+    * ``decode_tokens_per_second{path=}`` — emitted tokens / wall time.
+
+    ``slo=False`` (lm_score) keeps the program record but skips the
+    serving gauges — scores are not tokens."""
+    if not telemetry.enabled():
+        return fn(*args)
+    t0 = time.perf_counter()
+    with telemetry.perf.scope(program):
+        out = fn(*args)
+    dt = time.perf_counter() - t0
+    if slo and dt > 0:
+        telemetry.gauge("decode_ttft_seconds", labels={"path": path}).set(dt)
+        telemetry.gauge("decode_tokens_per_second", labels={"path": path}) \
+            .set(n_tokens / dt)
+    return out
 
 
 def _net_pool(net):
@@ -763,7 +828,10 @@ def lm_generate(net, prompt, max_new_tokens: int, *, temperature: float = 0.0,
     params, psig = _gathered(net, qc, pe_width=Pp + N)
     padded = prompt if Pp == P else torch.cat(
         [prompt, prompt.new_zeros((B, Pp - P))], dim=1)
-    gen = prog(params, psig, padded, P, int(seed))
+    _record_decode_weight_bytes(params, qc)
+    path = _decode_path(qc)
+    gen = _timed_decode(f"decode_{path}", path, B * N, prog, params, psig,
+                        padded, P, int(seed))
     return torch.cat([prompt, gen], dim=1).to(torch.int32)
 
 
@@ -790,7 +858,9 @@ def lm_score(net, tokens, *, quantized=None):
     if prog is None:
         prog = _cache_program(net, sig, _ScoreProgram(net, T))
     params, psig = _gathered(net, qc, pe_width=T)
-    return prog(params, psig, tokens)
+    path = _decode_path(qc)
+    return _timed_decode(f"score_{path}", path, 0, prog, params, psig,
+                         tokens, slo=False)
 
 
 class _ScoreProgram:
@@ -942,7 +1012,10 @@ def lm_beam_search(net, prompt, max_new_tokens: int, *, beam_size: int = 4,
         prog = _cache_program(net, sig, _BeamProgram(
             net, B, P, N, K, int(eos_id), float(alpha)))
     params, psig = _gathered(net, qc, pe_width=P + N)
-    gen, norm = prog(params, psig, prompt)
+    _record_decode_weight_bytes(params, qc)
+    path = _decode_path(qc)
+    gen, norm = _timed_decode(f"beam_decode_{path}", path, B * K * N, prog,
+                              params, psig, prompt)
     seqs = torch.cat([prompt[:, None].expand(B, K, P), gen], dim=2)
     return seqs.to(torch.int32), norm
 
@@ -1228,7 +1301,10 @@ def nmt_translate(net, src, max_len: int, *, beam_size: int = 1,
             net, B, S, N, K, int(eos_id), int(bos_id), float(alpha),
             samp[0], samp[1], masked))
     params, psig = _gathered(net, qc, _gather_nmt_params, _nmt_param_tensors)
-    out = prog(params, psig, mem, mem_mask, int(seed))
+    _record_decode_weight_bytes(params, qc)
+    path = _decode_path(qc)
+    out = _timed_decode(f"nmt_decode_{path}", path, B * K * N, prog, params,
+                        psig, mem, mem_mask, int(seed))
     if K == 1:
         return out.to(torch.int32)
     gen, scores = out

@@ -52,6 +52,7 @@ import torch
 
 from .. import _build, _graphs
 from ..base import MXNetError
+from ..telemetry import perf as _perf
 
 __all__ = ["fused_dropout", "fused_dropout_add", "dropout_mask",
            "dropout_fwd", "dropout_bwd", "dropout_mask_dev",
@@ -209,6 +210,8 @@ def _mask_cuda(numel: int, seed, rate: float, device) -> torch.Tensor:
         fn = dropout_mask
     _raise_on(err, "mask")
     _graphs.note_launch(fn)
+    # telemetry's count: no floating-point work; write the mask
+    _perf.add_kernel_cost(0, numel)
     return mask
 
 
@@ -258,6 +261,10 @@ def _fwd_cuda(x, res, seed, rate: float):
         _build.stream(x.device))
     _raise_on(err, "forward")
     _graphs.note_launch(dropout_fwd_dev if dev else dropout_fwd)
+    # read x (and the residual), write y and the mask
+    _perf.add_kernel_cost(x.numel(), x.numel() * (
+        x.element_size() + y.element_size() + 1)
+        + (0 if res is None else res.numel() * res.element_size()))
     return y, mask
 
 
@@ -278,6 +285,9 @@ def _bwd_cuda(dy, mask, rate: float):
         _scale(rate, dy.dtype), code, _build.stream(dy.device))
     _raise_on(err, "backward")
     _graphs.note_launch(dropout_bwd)
+    # read dy and the mask, write dx
+    _perf.add_kernel_cost(dy.numel(), dy.numel() * (2 * dy.element_size()
+                                                    + 1))
     return dx
 
 

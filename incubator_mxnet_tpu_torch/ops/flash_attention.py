@@ -46,6 +46,7 @@ import torch
 
 from .. import _build, _graphs
 from ..base import MXNetError
+from ..telemetry import perf as _perf
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "attention_reference", "attention_bthd", "kernel_active",
@@ -184,7 +185,24 @@ def _flash_core(q, k, v, causal, scale):
         raise MXNetError(f"flash_attention kernel launch failed "
                          f"(CUDA error {err})")
     _graphs.note_launch(flash_attention)
+    # telemetry's count: 4 flops x D per live (query, key) pair; read q,
+    # k, v, write out and lse
+    _perf.add_kernel_cost(
+        4 * B * H * D * _live_pairs(Tq, Tk, causal),
+        (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        + B * H * Tq * 4)
     return out, lse
+
+
+def _live_pairs(Tq: int, Tk: int, causal: bool) -> int:
+    """(query, key) pairs the rows see: all, or causal bottom-right."""
+    if not causal:
+        return Tq * Tk
+    # row i sees max(i + Tk - Tq + 1, 0) keys: an arithmetic series
+    # from row max(Tq - Tk, 0) on
+    lo = max(0, Tq - Tk)
+    n = Tq - lo
+    return n * (lo + Tk - Tq + 1) + n * (n - 1) // 2
 
 
 def _device_of(q):
@@ -369,6 +387,7 @@ def _dkdv_cuda(q, k, v, do, lse, delta, causal, scale):
     _bwd_launch("mx_flash_attention_dkdv", q, k, v, do, lse, delta,
                 (dk, dv), causal, scale)
     _graphs.note_launch(flash_bwd_dkdv)
+    _bwd_cost(8, q, k, v, causal, (k, v))
     return dk, dv
 
 
@@ -380,7 +399,20 @@ def _dq_cuda(q, k, v, do, lse, delta, causal, scale):
     _bwd_launch("mx_flash_attention_dq", q, k, v, do, lse, delta, (dq,),
                 causal, scale)
     _graphs.note_launch(flash_bwd_dq)
+    _bwd_cost(6, q, k, v, causal, (q,))
     return dq
+
+
+def _bwd_cost(n_flops, q, k, v, causal, outs) -> None:
+    """telemetry's count of a backward kernel: ``n_flops`` x D per live
+    (query, key) pair; read q, k, v, dO, lse and delta, write ``outs``
+    once."""
+    B, H, Tq, D = q.shape
+    el = q.element_size()
+    _perf.add_kernel_cost(
+        n_flops * B * H * D * _live_pairs(Tq, k.shape[2], causal),
+        (2 * q.numel() + k.numel() + v.numel()
+         + sum(t.numel() for t in outs)) * el + 2 * B * H * Tq * 4)
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, causal: bool, scale: float):

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 
 from .. import _build, _graphs
 from ..base import MXNetError
+from ..telemetry import perf as _perf
 
 __all__ = ["int8_conv", "int8_dense", "int8_quantize", "int8_conv_reference",
            "quantize_activation", "quantize_channels_last_reference",
@@ -359,6 +360,8 @@ def _quantize_cuda(x, act_scale: float, dims, xq_shape) -> torch.Tensor:
         raise MXNetError(f"int8 quantize kernel launch failed "
                          f"(CUDA error {err})")
     _graphs.note_launch(int8_quantize)
+    # telemetry's count: read x, write the int8 buffer
+    _perf.add_kernel_cost(0, x.numel() * x.element_size() + xq.numel())
     return xq
 
 
@@ -402,6 +405,11 @@ def _launch(x, w_q, scale, act_scale, bias, stride, pad, dilate, groups,
                      device=x.device) if splits > 1 else None
     _conv_cuda(xq, w_packed, scale, bias, out, ws, geo, splits)
     _graphs.note_launch(fn)
+    # 2 operations a multiply-add (int8); read the buffer and the
+    # weights, write out
+    _perf.add_kernel_cost(
+        2 * out.numel() * (w_q.numel() // w_q.shape[0]),
+        xq.numel() + w_packed.numel() + out.numel() * out.element_size())
     return out
 
 

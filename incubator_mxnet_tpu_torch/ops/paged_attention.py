@@ -47,6 +47,7 @@ import torch
 
 from .. import _build, _graphs
 from ..base import MXNetError
+from ..telemetry import perf as _perf
 
 __all__ = ["paged_attention", "paged_attention_dense",
            "paged_attention_q8", "kernel_shape_problem"]
@@ -170,7 +171,22 @@ def _launch(q, pool_k, pool_v, tables, pos):
         raise MXNetError(f"paged_attention kernel launch failed "
                          f"(CUDA error {err})")
     _graphs.note_launch(paged_attention)
+    _cost(q, pool_k, tables, 0)
     return out
+
+
+def _cost(q, pool_k, tables, scale_bytes) -> None:
+    """telemetry's count of a paged launch, from shapes: the positions
+    live on the card, so every block-table slot counts (4 flops x D a
+    slot and head; read its K and V pages and scales, q, the tables and
+    positions; write out)."""
+    B, H, D = q.shape
+    bs = pool_k.shape[2]
+    slots = tables.numel() * bs
+    _perf.add_kernel_cost(
+        4 * slots * H * D,
+        2 * slots * H * (D * pool_k.element_size() + scale_bytes)
+        + 2 * q.numel() * q.element_size() + tables.numel() * 4 + B * 4)
 
 
 def _launch_q8(q, pool_k, pool_v, scale_k, scale_v, tables, pos):
@@ -188,6 +204,7 @@ def _launch_q8(q, pool_k, pool_v, scale_k, scale_v, tables, pos):
         raise MXNetError(f"paged_attention_q8 kernel launch failed "
                          f"(CUDA error {err})")
     _graphs.note_launch(paged_attention_q8)
+    _cost(q, pool_k, tables, 4)
     return out
 
 

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from .. import _build, _graphs
 from ..base import MXNetError
+from ..telemetry import perf as _perf
 
 __all__ = ["fused_sparse_xent", "fused_smoothed_xent", "should_fuse",
            "FUSED_MIN_CLASSES", "xent_forward", "xent_backward",
@@ -97,6 +98,10 @@ def _fwd_cuda(x2, want_sum):
         raise MXNetError(f"xent forward kernel launch failed "
                          f"(CUDA error {err})")
     _graphs.note_launch(xent_forward)
+    # telemetry's count: ~4 f32 operations an element; read the logits
+    # once, write lse (and the row sum)
+    _perf.add_kernel_cost(4 * N * V, x2.numel() * x2.element_size()
+                          + N * (8 if want_sum else 4))
     return lse, xsum
 
 
@@ -123,6 +128,9 @@ def _bwd_cuda(x2, labels, lse, g, eps):
         raise MXNetError(f"xent backward kernel launch failed "
                          f"(CUDA error {err})")
     _graphs.note_launch(xent_backward)
+    # read the logits and the row vectors, write d(logits)
+    _perf.add_kernel_cost(4 * N * V, 2 * x2.numel() * x2.element_size()
+                          + N * 12)
     return dx
 
 

@@ -12,6 +12,9 @@ error.  This module makes that failure loud.
 raises :class:`RetraceError` when any watched name exceeds its budget.
 The counts come from `_graphs`, which reports every capture by name; the
 JAX package taps JAX's compile log for the same events.
+`install_telemetry_feed` (which ``telemetry.enable()`` calls) feeds the
+same events into telemetry, guard or no guard: ``retraces_total`` and
+``retrace_compiles{program=}``.
 
 Names are the only identity counted, so counting is coarse: every
 engine's step program is ``serving_step``.  Budget accordingly (one
@@ -35,7 +38,8 @@ from typing import Dict, Iterable, Optional, Set
 from . import _graphs
 from .base import MXNetError
 
-__all__ = ["RetraceError", "RetraceGuard", "DEFAULT_BUDGET", "PROGRAM_NAMES"]
+__all__ = ["RetraceError", "RetraceGuard", "DEFAULT_BUDGET", "PROGRAM_NAMES",
+           "install_telemetry_feed", "remove_telemetry_feed"]
 
 DEFAULT_BUDGET = int(os.environ.get("MXTPU_RETRACE_BUDGET", "64"))
 
@@ -52,6 +56,35 @@ PROGRAM_NAMES: Set[str] = {
     "serving_draft_prefill_chunk",              # draft k-step, draft-pool
     "serving_spec_verify", "serving_spec_verify_kv8",  # chunk, verify
 }
+
+
+def _telemetry_sink(name: str) -> None:
+    # the counter/gauge calls no-op if telemetry was disabled again
+    # before a capture arrives
+    from . import telemetry
+
+    telemetry.counter("retraces_total").inc()
+    telemetry.gauge("retrace_compiles", labels={"program": name}).inc()
+
+
+_feed_installed = False
+
+
+def install_telemetry_feed() -> None:
+    """Feed capture counts into telemetry (the ``retraces_total``
+    counter and per-program ``retrace_compiles`` gauges) — so a run with
+    telemetry enabled sees recapture churn without a RetraceGuard."""
+    global _feed_installed
+    if not _feed_installed:
+        _feed_installed = True
+        _graphs.subscribe_captures(_telemetry_sink)
+
+
+def remove_telemetry_feed() -> None:
+    global _feed_installed
+    if _feed_installed:
+        _feed_installed = False
+        _graphs.unsubscribe_captures(_telemetry_sink)
 
 
 class RetraceError(MXNetError):

@@ -54,13 +54,32 @@ the device pools, so device calls run outside the lock: each chunk and
 step is stage (locked) → device call (unlocked) → commit (re-locked,
 with a slot-identity check).
 
-The JAX engine's telemetry, SLO tracker, HTTP endpoints, flight
-recorder, stall profiler and ``varz_config`` are not part of this port
-yet.
+The observability plane (`telemetry`) rides every state transition
+above, as in the JAX engine: each request carries a
+`telemetry.requestlog.RequestTrace` (submit → queued → admitted →
+prefill → a decode mark every ``MXTPU_SERVING_TRACE_EVERY`` steps →
+terminal; requests shed before admission get a complete submit → shed
+trace too) that lands in the process-wide ring ``/requestz`` serves; an
+`SloTracker` feeds ``serving_slo_fraction{window=}`` /
+``serving_slo_burn_rate{window=}`` from TTFT/TPOT targets; `health()`
+reports scheduler liveness, queue and KV headroom and SLO burn; an
+`EngineProfiler` attributes each scheduler iteration's wall time to its
+causes (``/stallz``); the ``/metrics /healthz /varz /requestz /profilez
+/stallz`` server (``http_port`` or ``MXTPU_TELEMETRY_PORT``) starts at
+construction and is JOINED by `close()`; and a flight-recorder section
+puts the in-flight table and recent traces into crash bundles.  The
+``serving_*`` metrics are the JAX engine's names and labels; the device
+calls run inside `models.generation._timed_decode` scopes named as the
+JAX package's programs (``serving_step_float`` ...), and inside the
+telemetry spans ``serving/prefill_chunk`` and ``serving/step``, which
+show as ``record_function`` ranges in a ``torch.profiler`` trace.
+Telemetry disabled, the SLO tracker, the request traces and the stall
+ledger still run (host-side bookkeeping); the registry stays empty.
 """
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 import time
 from collections import OrderedDict, deque
@@ -69,6 +88,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import telemetry
+from ..models import generation as G
 from ..ops.paged_attention import kernel_shape_problem
 from .kv_pool import SCRATCH_BLOCK, BlockPool
 from .programs import PagedPrograms
@@ -82,8 +103,16 @@ _MAX_QUEUE = 16
 # prefill-chunk width in tokens: one chunk of at most this many prompt
 # positions runs between consecutive decode steps
 _PREFILL_CHUNK = 32
+# one trace mark per N decode steps per request (0 disables the marks;
+# admission/terminal events always record)
+_TRACE_EVERY = int(os.environ.get("MXTPU_SERVING_TRACE_EVERY", "8"))
+# default TTFT SLO target (seconds) for the burn-rate tracker when
+# neither slo_ttft nor ttft_budget is given
+_SLO_TTFT_S = float(os.environ.get("MXTPU_SERVING_SLO_TTFT", "1.0"))
+_SLO_TPOT_S = os.environ.get("MXTPU_SERVING_SLO_TPOT", "")
 
-_request_ids = itertools.count(1)
+# engine names for the HTTP/flight-recorder provider registries
+_engine_ids = itertools.count(1)
 
 # terminal request statuses (everything else is live)
 _TERMINAL = ("done", "shed", "evicted", "cancelled", "failed")
@@ -123,13 +152,16 @@ class Request:
     (``t_submit``/``t_first``/``t_done``, ``time.monotonic`` seconds)
     are recorded for every terminal status.  ``cached_tokens`` is the
     prompt length served from the prefix cache at admission.
+
+    ``trace`` is the request's `telemetry.requestlog.RequestTrace`
+    lifecycle timeline; it is pushed into the process-wide recent-trace
+    ring (``/requestz``) when the request reaches a terminal status.
     """
 
     def __init__(self, engine: "ServingEngine", prompt: np.ndarray,
                  max_new_tokens: int, deadline: Optional[float], seed: int):
         self._engine = engine
         self._cond = threading.Condition(engine._lock)
-        self.rid = next(_request_ids)
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
         self.deadline = deadline            # absolute monotonic, or None
@@ -149,6 +181,18 @@ class Request:
         self.spec_proposed = 0              # draft tokens offered for us
         self.spec_accepted = 0              # ... accepted by the target
         self._cancel = False
+        self.trace = telemetry.requestlog.RequestTrace(
+            meta={"prompt_len": int(prompt.shape[0]),
+                  "max_new_tokens": self.max_new_tokens,
+                  "engine": engine._name})
+        self.trace.event("submit", t=self.t_submit,
+                         deadline_in=None if deadline is None
+                         else round(deadline - self.t_submit, 6))
+
+    @property
+    def rid(self) -> int:
+        """Process-unique request id (the trace ring's key)."""
+        return self.trace.rid
 
     # -- engine side (engine lock held) ------------------------------- #
     def _deliver(self, tok: int, now: float) -> None:
@@ -173,6 +217,17 @@ class Request:
             if len(self.tokens) > 1:
                 self.tpot = (self.t_done - self.t_first) \
                     / (len(self.tokens) - 1)
+        attrs = {"tokens": len(self.tokens)}
+        if self.finish_reason is not None:
+            attrs["reason"] = self.finish_reason
+        if self.ttft is not None:
+            attrs["ttft_s"] = round(self.ttft, 6)
+        if self.tpot is not None:
+            attrs["tpot_s"] = round(self.tpot, 6)
+        if self.spec_proposed:
+            attrs["spec_accept_rate"] = round(self.spec_accept_rate, 4)
+        self.trace.event(status, t=self.t_done, **attrs)
+        telemetry.requestlog.push(self.trace)
         self._cond.notify_all()
 
     # -- caller side --------------------------------------------------- #
@@ -331,6 +386,20 @@ class ServingEngine:
                     "prefill"/"draft"/"step" device call — the
                     fault-injection seam tests use (sleep = slow step,
                     raise = scheduler failure).
+    slo_ttft        TTFT target (s) for the burn-rate tracker (default
+                    ``MXTPU_SERVING_SLO_TTFT``, else ``ttft_budget``,
+                    else 1.0 — the tracker is always on so
+                    ``serving_slo_fraction{window=}`` always exists).
+    slo_tpot        mean-TPOT target (s); default
+                    ``MXTPU_SERVING_SLO_TPOT`` else None (off).
+    slo_windows     burn-rate window lengths in seconds (default
+                    (60, 600)); slo_objective the good-fraction target
+                    (default 0.99, i.e. a 1% error budget).
+    http_port       serve /metrics /healthz /varz /requestz /profilez
+                    /stallz on this port (0 = ephemeral; read
+                    ``engine.http_port`` back).  Default:
+                    ``MXTPU_TELEMETRY_PORT`` if set, else no server.
+                    close() joins the server.
     """
 
     def __init__(self, net, *, max_batch: int = 4, block_size: int = 16,
@@ -344,7 +413,12 @@ class ServingEngine:
                  quantized=None, kv_dtype: Optional[str] = None,
                  speculate_k: int = 0, draft_net=None,
                  spec_greedy: bool = False,
-                 poll_interval: Optional[float] = None, fault_hook=None):
+                 poll_interval: Optional[float] = None, fault_hook=None,
+                 slo_ttft: Optional[float] = None,
+                 slo_tpot: Optional[float] = None,
+                 slo_windows=None, slo_objective: float = 0.99,
+                 http_port: Optional[int] = None):
+        self._name = f"serving-{next(_engine_ids)}"
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if block_size < 1 or (block_size & (block_size - 1)):
@@ -405,7 +479,21 @@ class ServingEngine:
             prefill_chunk=self._chunk, quantized=quantized,
             kv_dtype=kv_dtype, speculate_k=self._spec_k,
             draft_net=draft_net, spec_greedy=spec_greedy)
+        self._path = self._programs.path
+        self._label = self._programs.prog_label
         self._pool = BlockPool(self._num_blocks, self._bs)
+        if telemetry.enabled():
+            self._programs.gather_params()
+            G._record_decode_weight_bytes(self._programs._params,
+                                          self._programs._qc)
+            telemetry.gauge("serving_kv_bytes_per_token",
+                            labels={"engine": self._name}) \
+                .set(self.kv_bytes_per_token)
+            impl = self._programs.attn_impl
+            for path in ("kernel", "dense"):
+                telemetry.gauge("paged_attn_kernel",
+                                labels={"path": path}) \
+                    .set(1.0 if path == impl else 0.0)
 
         # per-lane step inputs (scheduler thread only; snapshots are
         # handed to the device programs)
@@ -434,6 +522,49 @@ class ServingEngine:
                        "spec_steps": 0, "spec_proposed": 0,
                        "spec_accepted": 0, "spec_ewma": None,
                        "spec_rollback": OrderedDict()}
+        self._last_tick = time.monotonic()   # scheduler liveness heartbeat
+
+        # SLO burn-rate tracker: always on (host-side booleans; the
+        # gauges it feeds still honour the telemetry disabled path)
+        if slo_ttft is None:
+            slo_ttft = float(os.environ.get("MXTPU_SERVING_SLO_TTFT", "")
+                             or (ttft_budget if ttft_budget is not None
+                                 else _SLO_TTFT_S))
+        if slo_tpot is None and _SLO_TPOT_S:
+            slo_tpot = float(_SLO_TPOT_S)
+        self._slo = telemetry.slo.SloTracker(
+            ttft_target=slo_ttft, tpot_target=slo_tpot,
+            windows=slo_windows if slo_windows is not None
+            else telemetry.slo.DEFAULT_WINDOWS,
+            objective=slo_objective)
+
+        # ops endpoint: explicit port wins, else MXTPU_TELEMETRY_PORT,
+        # else no server.  Best-effort — a taken port degrades to None
+        # (a second engine in the process) instead of killing serving.
+        self._http: Optional[telemetry.http.TelemetryServer] = None
+        if http_port is None:
+            self._http = telemetry.http.start_from_env()
+        else:
+            try:
+                self._http = telemetry.http.TelemetryServer(
+                    port=int(http_port))
+            except OSError:
+                self._http = None
+        if self._http is not None:
+            self._http.register_health(self._name, self.health)
+            self._http.register_requestz(self._name, self.requestz)
+            self._http.register_varz(self._name, self.varz_config)
+        # crash bundles carry the in-flight table + trace ring
+        telemetry.flight_recorder.register_section(
+            self._name, self._flight_section)
+        # per-step stall-attribution ledger: always constructed and fed
+        # by the scheduler loop (MXTPU_SERVING_PROFILER=0 leaves one flag
+        # read per note); registered process-wide so /profilez and
+        # /stallz see every engine's lane
+        self._prof = telemetry.profiler.register(
+            telemetry.profiler.EngineProfiler(self._name))
+        telemetry.profiler.install_gc_hooks()
+
         self._thread = threading.Thread(
             target=self._scheduler, daemon=True,
             name="mxt-serving-scheduler")
@@ -479,8 +610,229 @@ class ServingEngine:
 
     @property
     def kv_bytes_per_token(self) -> int:
-        """Pool bytes one token position costs across all layers."""
+        """Pool bytes one token position costs across all layers — the
+        ``serving_kv_bytes_per_token`` gauge's value."""
         return self.kv_block_bytes // self._bs
+
+    @property
+    def attn_impl(self) -> str:
+        """The paged attention the programs take: "kernel" on the card,
+        "dense" (the plain version) on the CPU — the port has one of
+        each, no switch."""
+        return self._programs.attn_impl
+
+    @property
+    def http(self) -> Optional["telemetry.http.TelemetryServer"]:
+        """The engine's ops endpoint server, or None (not configured /
+        port taken)."""
+        return self._http
+
+    @property
+    def http_port(self) -> Optional[int]:
+        """Bound port of the ops endpoint (useful with port 0)."""
+        return self._http.port if self._http is not None else None
+
+    @property
+    def slo(self) -> "telemetry.slo.SloTracker":
+        return self._slo
+
+    def health(self) -> dict:
+        """Liveness + headroom + SLO burn, the `/healthz` payload.
+
+        status semantics (worst check wins):
+
+        * ``unhealthy`` — stop routing traffic here: the engine is
+          closed, the scheduler thread died, or a scheduler error is
+          parked (every submit will raise).
+        * ``degraded``  — serving but at the edge: admission queue at
+          capacity, zero free KV blocks, the scheduler heartbeat is
+          stale, or the fast SLO window is burning error budget
+          (burn rate > 1).
+        * ``healthy``   — everything above holds headroom.
+        """
+        now = time.monotonic()
+        with self._work:        # same lock the scheduler's tick writes under
+            qd = len(self._queue)
+            active = int(self._active.sum())
+            free = self._pool.num_free
+            tick_age = now - self._last_tick
+        alive = self._thread.is_alive()
+        parked = self._has_pending_err()
+        burning = any(r > 1.0 for r in self._slo.burn_rates(now).values())
+        checks = {
+            "scheduler": {
+                "status": "unhealthy" if (parked or not alive) else
+                          ("degraded" if tick_age > max(2.0, 500 * self._poll)
+                           else "healthy"),
+                "alive": alive, "parked_error": parked,
+                "tick_age_s": round(tick_age, 4)},
+            "queue": {
+                "status": "degraded" if qd >= self._max_queue else "healthy",
+                "depth": qd, "max": self._max_queue},
+            "kv_blocks": {
+                "status": "degraded" if free == 0 else "healthy",
+                "free": free, "total": self._num_blocks - 1,
+                "active_lanes": active, "max_batch": self._B},
+            "slo": {
+                "status": "degraded" if burning else "healthy",
+                **self._slo.snapshot(now)},
+        }
+        if self._closed:
+            checks["scheduler"]["status"] = "unhealthy"
+            checks["scheduler"]["closed"] = True
+        order = {"healthy": 0, "degraded": 1, "unhealthy": 2}
+        status = max((c["status"] for c in checks.values()),
+                     key=lambda s: order[s])
+        return {"status": status, "engine": self._name,
+                "path": self._path,
+                "kv_dtype": self.kv_dtype or "model",
+                "attn_impl": self.attn_impl,
+                "checks": checks}
+
+    def _cache_stats_locked(self) -> dict:
+        return {"hits": self._stats["prefix_hits"],
+                "misses": self._stats["prefix_misses"],
+                **self._pool.prefix_stats()}
+
+    def requestz(self) -> dict:
+        """Currently queued + running requests (the `/requestz`
+        in-flight table; completed traces live in the requestlog ring)."""
+        now = time.monotonic()
+        rows = []
+        with self._lock:
+            for req in self._queue:
+                rows.append(self._request_row(req, now, lane=None))
+            for i, slot in enumerate(self._slots):
+                if slot is not None:
+                    rows.append(self._request_row(slot.req, now, lane=i))
+            stats = {"admitted": self._stats["admitted"],
+                     "done": self._stats["done"],
+                     "steps": self._stats["steps"],
+                     "queue_depth": len(self._queue),
+                     "blocks_free": self._pool.num_free,
+                     "prefill_chunks_pending":
+                         self._pending_chunks_locked(),
+                     "prefix_cache": self._cache_stats_locked()}
+        return {"engine": self._name, "path": self._path,
+                "in_flight": rows, "stats": stats,
+                "slo": self._slo.snapshot(now)}
+
+    @staticmethod
+    def _request_row(req: Request, now: float, lane) -> dict:
+        row = {"rid": req.rid, "status": req.status,
+               "age_s": round(now - req.t_submit, 4),
+               "prompt_len": int(req.prompt.shape[0]),
+               "max_new_tokens": req.max_new_tokens,
+               "tokens": len(req.tokens)}
+        if lane is not None:
+            row["lane"] = lane
+            row["blocks"] = list(req.block_ids)
+        if req.deadline is not None:
+            row["deadline_in_s"] = round(req.deadline - now, 4)
+        if req.t_first is not None:
+            row["ttft_s"] = round(req.t_first - req.t_submit, 6)
+        return row
+
+    def _spec_section(self) -> Optional[dict]:
+        """Speculation config + live acceptance EWMA for `/varz` and
+        the flight recorder; None when speculation is off."""
+        if not self._spec:
+            return None
+        return {"k": self._spec_k,
+                "draft": self._programs.draft_label,
+                "greedy": self._programs.spec_greedy,
+                "accept_rate_ewma":
+                    None if self._stats["spec_ewma"] is None
+                    else round(self._stats["spec_ewma"], 4)}
+
+    def _flight_section(self) -> dict:
+        """Flight-recorder dump hook.  Runs inside a signal handler on
+        whatever thread holds whatever locks — so it TRIES the engine
+        lock instead of deadlocking when the signal lands inside a
+        locked region of this very thread."""
+        if not self._lock.acquire(timeout=0.5):
+            return {"engine": self._name,
+                    "error": "engine lock busy at dump time"}
+        try:
+            now = time.monotonic()
+            rows = [self._request_row(r, now, lane=None)
+                    for r in self._queue]
+            rows += [self._request_row(s.req, now, lane=i)
+                     for i, s in enumerate(self._slots) if s is not None]
+            stats = {"admitted": self._stats["admitted"],
+                     "done": self._stats["done"],
+                     "steps": self._stats["steps"],
+                     "shed": dict(self._stats["shed"]),
+                     "evicted": dict(self._stats["evicted"]),
+                     "prefill_chunks_pending":
+                         self._pending_chunks_locked(),
+                     "prefix_cache": self._cache_stats_locked()}
+            spec = self._spec_section()
+        finally:
+            self._lock.release()
+        return {"engine": self._name, "in_flight": rows, "stats": stats,
+                "speculate": spec,
+                "slo": self._slo.snapshot(now),
+                "stalls": self._prof.recent_stalls(8),
+                "recent_traces": telemetry.requestlog.recent(32)}
+
+    @property
+    def profiler(self) -> "telemetry.profiler.EngineProfiler":
+        """The engine's per-step stall-attribution ledger."""
+        return self._prof
+
+    def capture_profile(self, seconds: float = 1.0) -> dict:
+        """On-demand merged timeline capture (the `/profilez` payload):
+        let ``seconds`` of serving activity accumulate, then return one
+        chrome-trace dict with request, scheduler, program, GC and
+        lock-contention lanes (0 = everything still buffered)."""
+        return telemetry.profiler.capture(seconds)
+
+    def stall_table(self) -> list:
+        """Aggregate stall attribution rows (cause / total_s / share /
+        per_step_ms), biggest cause first."""
+        return self._prof.stall_table()
+
+    def stallz(self) -> dict:
+        """This engine's `/stallz` payload: cause table + worst recent
+        hiccups with their per-cause ledgers."""
+        return self._prof.stallz()
+
+    def varz_config(self) -> dict:
+        """Build/config section for `/varz` — which engine
+        configuration is actually running.  Values are frozen at
+        construction except the profiler toggle and MXTPU_* env knobs,
+        read live."""
+        with self._lock:    # spec_ewma is written under the tick lock
+            spec = self._spec_section()
+        return {
+            "engine": self._name,
+            "path": self._path,
+            "prog_label": self._label,
+            "kv_dtype": self.kv_dtype or "model",
+            "attn_impl": self.attn_impl,
+            "max_batch": self._B,
+            "block_size": self._bs,
+            "max_seq_len": self._msl,
+            "num_blocks": self._num_blocks,
+            "max_queue": self._max_queue,
+            "prefill_chunk": self._chunk,
+            "prefix_cache": True,
+            "kv_pool_bytes": self.kv_pool_bytes,
+            "speculate": spec,
+            "eos_id": self._eos,
+            "poll_interval_s": self._poll,
+            "ttft_budget_s": self._ttft_budget,
+            "default_deadline_s": self._default_deadline,
+            "slo": {"ttft_target_s": self._slo.ttft_target,
+                    "tpot_target_s": self._slo.tpot_target,
+                    "objective": self._slo.objective,
+                    "windows_s": list(self._slo.windows)},
+            "profiler": {"enabled": self._prof.enabled,
+                         "hiccup_k": self._prof.hiccup_k},
+            "env": {k: v for k, v in sorted(os.environ.items())
+                    if k.startswith("MXTPU_")},
+        }
 
     def set_fault_hook(self, hook) -> None:
         with self._lock:
@@ -538,6 +890,8 @@ class ServingEngine:
                 self._check_alive()
             req.status = "queued"
             self._queue.append(req)
+            req.trace.event("queued", queue_depth=len(self._queue))
+            self._note_queue_depth_locked()
             self._work.notify_all()
         return req
 
@@ -558,9 +912,10 @@ class ServingEngine:
             return True
 
     def close(self, timeout: Optional[float] = 10.0) -> None:
-        """Stop and JOIN the scheduler thread, abort any unfinished
-        requests (their handles see `RequestCancelled`), release all
-        blocks, and re-raise a parked scheduler error (idempotent)."""
+        """Stop and JOIN the scheduler thread (and the ops HTTP
+        server), abort any unfinished requests (their handles see
+        `RequestCancelled`), release all blocks, and re-raise a parked
+        scheduler error (idempotent)."""
         with self._work:
             already = self._closed
             self._closed = True
@@ -572,6 +927,11 @@ class ServingEngine:
                 self._abort_all_locked(
                     RequestCancelled("serving engine closed"))
                 self._work.notify_all()
+            telemetry.flight_recorder.unregister_section(self._name)
+            telemetry.profiler.unregister(self._name)
+            if self._http is not None:
+                self._http.unregister(self._name)
+                self._http.close(timeout)
         with self._err_lock:
             err, self._pending_err = self._pending_err, None
         if err is not None:
@@ -665,9 +1025,18 @@ class ServingEngine:
     def _count(table: OrderedDict, reason: str) -> None:
         table[reason] = table.get(reason, 0) + 1
 
+    def _note_queue_depth_locked(self) -> None:
+        if telemetry.enabled():
+            telemetry.gauge("serving_queue_depth").set(len(self._queue))
+
     def _shed_locked(self, req: Request, reason: str) -> None:
         req._finish("shed", RequestShed(reason))
         self._count(self._stats["shed"], reason)
+        self._slo.note_bad()
+        self._slo.observe()
+        if telemetry.enabled():
+            telemetry.counter("serving_shed_total",
+                              labels={"reason": reason}).inc()
 
     def _abort_all_locked(self, error: BaseException,
                           status: str = "cancelled") -> None:
@@ -679,6 +1048,7 @@ class ServingEngine:
                 continue
             self._release_lane_locked(i)
             slot.req._finish(status, error)
+        self._note_queue_depth_locked()
 
     def _release_lane_locked(self, i: int) -> None:
         slot = self._slots[i]
@@ -688,6 +1058,11 @@ class ServingEngine:
         self._active[i] = False
         self._toks[i] = 0
         self._pos[i] = 0
+        if telemetry.enabled():
+            telemetry.gauge("serving_kv_blocks_in_use") \
+                .set(self._pool.num_allocated)
+            telemetry.gauge("serving_kv_blocks_shared") \
+                .set(self._pool.num_shared)
 
     def _evict_locked(self, i: int, reason: str,
                       error: BaseException) -> None:
@@ -696,6 +1071,12 @@ class ServingEngine:
         req._finish("cancelled" if reason == "cancel" else "evicted",
                     error)
         self._count(self._stats["evicted"], reason)
+        if reason != "cancel":              # user cancels are SLO-neutral
+            self._slo.note_bad()
+            self._slo.observe()
+        if telemetry.enabled():
+            telemetry.counter("serving_evicted_total",
+                              labels={"reason": reason}).inc()
 
     # -- scheduler thread ---------------------------------------------- #
     def _scheduler(self) -> None:
@@ -713,12 +1094,19 @@ class ServingEngine:
     def _loop(self) -> None:
         # iteration: reap → admit everything that fits (lanes + blocks
         # claimed, prefix blocks bound) → run at most ONE prefill chunk
-        # → run ONE decode step over live lanes
+        # → run ONE decode step over live lanes.  Every phase feeds the
+        # stall ledger (lock acquisition, reap+admission bookkeeping,
+        # idle polls), so a step's causes sum to its wall time.
+        prof = self._prof
         while True:
+            t_lk = time.perf_counter()
             with self._work:
+                t_bk = time.perf_counter()
+                prof.note("lock_wait", t_bk - t_lk)
                 if self._stop.is_set():
                     return
                 now = time.monotonic()
+                self._last_tick = now       # health(): liveness heartbeat
                 self._reap_locked(now)
                 while self._admit_locked(now):
                     pass
@@ -729,9 +1117,12 @@ class ServingEngine:
                         self._pos.copy(), self._active.copy(),
                         self._seeds.copy()) if live else None
                 hook = self._fault_hook
+                prof.note("bookkeeping", time.perf_counter() - t_bk)
                 if staged is None and not live:
                     if not self._queue:
+                        t_w = time.perf_counter()
                         self._work.wait(self._poll)
+                        prof.note("wait", time.perf_counter() - t_w)
                     continue
             if staged is not None:
                 self._run_chunk(staged, hook)
@@ -755,6 +1146,7 @@ class ServingEngine:
                 # every lock-holding reader (submit/stats/drain)
                 self._queue.clear()
                 self._queue.extend(keep)
+                self._note_queue_depth_locked()
                 self._work.notify_all()     # queue space freed
         # running lanes: evict mid-batch (blocks freed, neighbours
         # untouched — see docs/serving.md for why this is exact)
@@ -785,6 +1177,7 @@ class ServingEngine:
                 if est > self._ttft_budget:
                     self._queue.popleft()
                     self._shed_locked(req, "slo")
+                    self._note_queue_depth_locked()
                     self._work.notify_all()
                     continue
             try:
@@ -812,11 +1205,25 @@ class ServingEngine:
             req.cached_tokens = cached_len
             row = np.full((self._nbps,), SCRATCH_BLOCK, np.int32)
             row[:len(blocks)] = blocks
+            n_chunks = -(-(P - cached_len) // self._chunk)
             self._stats["prefix_hits" if cached_len else
                         "prefix_misses"] += 1
             self._stats["cached_tokens"] += cached_len
+            req.trace.event("admitted", lane=lane,
+                            blocks=[int(b) for b in blocks],
+                            cached_tokens=cached_len, chunks=n_chunks,
+                            queue_wait_s=round(
+                                time.monotonic() - req.t_submit, 6))
             self._prefill_jobs.append(_PrefillJob(
                 lane, req, row, req.seed, req.prompt, P, cached_len))
+            if telemetry.enabled():
+                telemetry.counter(
+                    "serving_prefix_cache_hits_total" if cached_len
+                    else "serving_prefix_cache_misses_total").inc()
+                telemetry.gauge("serving_kv_blocks_shared") \
+                    .set(self._pool.num_shared)
+                self._note_chunk_queue_locked()
+            self._note_queue_depth_locked()
             self._work.notify_all()         # queue space freed
             return True
         return False
@@ -831,6 +1238,7 @@ class ServingEngine:
             slot = self._slots[job.lane]
             if slot is None or slot.req is not job.req:
                 self._prefill_jobs.popleft()
+                self._note_chunk_queue_locked()
                 continue
             start = job.next_pos
             n = min(self._chunk, job.P - start)
@@ -845,55 +1253,91 @@ class ServingEngine:
         Re-locks to commit, with a slot identity check in case the
         request was evicted meanwhile; the FINAL chunk's commit delivers
         the first token and activates the lane."""
+        prof = self._prof
         job, toks, start, n = staged
         req = job.req
+        # the weight gather (fingerprint, re-quantize after a weight
+        # write), timed apart from the device call
+        t_g = time.perf_counter()
+        psig = self._programs.gather_params()
+        dsig = self._programs.draft_params() if self._spec else None
+        t_h = time.perf_counter()
+        prof.note("gather_params", t_h - t_g)
         if hook is not None:
             hook("prefill")                 # fault seam: once per chunk
         final = start + n >= job.P
         t0 = time.perf_counter()
-        tok = self._programs.prefill_chunk(job.row, toks, start, job.P,
-                                           job.seed, final)
-        if self._spec:
-            # the draft's pool takes the same chunk: its first proposal
-            # attends to the whole prompt
-            self._programs.draft_prefill_chunk(job.row, toks, start, job.P)
+        with telemetry.span("serving/prefill_chunk"):
+            tok = G._timed_decode(
+                f"serving_prefill_chunk_{self._label}",
+                f"serving_{self._label}", n, self._programs.prefill_chunk,
+                job.row, toks, start, job.P, job.seed, final, psig)
+            if self._spec:
+                # the draft's pool takes the same chunk: its first
+                # proposal attends to the whole prompt
+                G._timed_decode(
+                    f"serving_draft_prefill_chunk_{self._label}",
+                    f"serving_{self._label}", n,
+                    self._programs.draft_prefill_chunk, job.row, toks,
+                    start, job.P, dsig)
         dt = time.perf_counter() - t0
+        prof.note("prefill_chunk", time.perf_counter() - t_h)
         now = time.monotonic()
+        t_lk = time.perf_counter()
         with self._work:
-            job.t_work += dt
-            slot = self._slots[job.lane]
-            if slot is None or slot.req is not req:
+            t_bk = time.perf_counter()
+            prof.note("lock_wait", t_bk - t_lk)
+            try:
+                job.t_work += dt
+                slot = self._slots[job.lane]
+                if slot is None or slot.req is not req:
+                    self._drop_job_locked(job)
+                    return                  # evicted while chunking
+                job.next_pos = start + n
+                self._note_chunk_queue_locked()
+                if not final:
+                    return
                 self._drop_job_locked(job)
-                return                      # evicted while chunking
-            job.next_pos = start + n
-            if not final:
-                return
-            self._drop_job_locked(job)
-            # EWMA over the request's WHOLE prefill (all chunks)
-            self._prefill_ewma = job.t_work \
-                if self._prefill_ewma is None \
-                else 0.8 * self._prefill_ewma + 0.2 * job.t_work
-            req.status = "running"
-            req._deliver(tok, now)
-            self._stats["admitted"] += 1
-            # publish the prompt's full blocks into the prefix cache now
-            # their content is final (COW: nothing writes positions < P
-            # past this point)
-            self._pool.register(job.prompt, job.row)
-            if tok == self._eos or len(req.tokens) >= req.max_new_tokens:
-                self._retire_locked(job.lane)
-                return
-            self._tables[job.lane, :] = job.row
-            self._toks[job.lane] = tok
-            self._pos[job.lane] = job.P
-            self._active[job.lane] = True
-            self._seeds[job.lane] = job.seed
+                # EWMA over the request's WHOLE prefill (all chunks)
+                self._prefill_ewma = job.t_work \
+                    if self._prefill_ewma is None \
+                    else 0.8 * self._prefill_ewma + 0.2 * job.t_work
+                req.status = "running"
+                req.trace.event("prefill", t=now,
+                                dur_s=round(job.t_work, 6), token=tok,
+                                cached_tokens=job.cached_len)
+                req._deliver(tok, now)
+                self._stats["admitted"] += 1
+                # publish the prompt's full blocks into the prefix cache
+                # now their content is final (COW: nothing writes
+                # positions < P past this point)
+                self._pool.register(job.prompt, job.row)
+                if telemetry.enabled():
+                    telemetry.counter("serving_admitted_total").inc()
+                    telemetry.histogram(
+                        "serving_ttft_seconds",
+                        labels={"path": self._path}) \
+                        .observe(now - req.t_submit)
+                    telemetry.gauge("serving_kv_blocks_in_use") \
+                        .set(self._pool.num_allocated)
+                if tok == self._eos \
+                        or len(req.tokens) >= req.max_new_tokens:
+                    self._retire_locked(job.lane)
+                    return
+                self._tables[job.lane, :] = job.row
+                self._toks[job.lane] = tok
+                self._pos[job.lane] = job.P
+                self._active[job.lane] = True
+                self._seeds[job.lane] = job.seed
+            finally:
+                prof.note("bookkeeping", time.perf_counter() - t_bk)
 
     def _drop_job_locked(self, job: _PrefillJob) -> None:
         try:
             self._prefill_jobs.remove(job)
         except ValueError:
             pass
+        self._note_chunk_queue_locked()
 
     def _pending_chunks_locked(self) -> int:
         """Chunks still to run across live prefill jobs."""
@@ -903,23 +1347,62 @@ class ServingEngine:
                    if (self._slots[j.lane] is not None
                        and self._slots[j.lane].req is j.req))
 
+    def _note_chunk_queue_locked(self) -> None:
+        if telemetry.enabled():
+            telemetry.gauge("serving_prefill_chunk_queue_depth") \
+                .set(self._pending_chunks_locked())
+
     def _retire_locked(self, lane: int) -> None:
         req = self._slots[lane].req
         self._release_lane_locked(lane)
         req._finish("done")
+        self._slo.note_done(req.ttft, req.tpot)
+        self._slo.observe()
         self._stats["done"] += 1
         self._work.notify_all()             # drain()ers and submitters
+
+    def _end_step(self, live, queue_depth: int, step_no: int) -> None:
+        """Close the stall ledger OUTSIDE the engine lock (it takes its
+        own leaf lock + histogram locks; never nested under
+        ``self._work``)."""
+        self._prof.end_step(rids=[req.rid for _, req in live],
+                            occupancy=len(live), queue_depth=queue_depth,
+                            step=step_no)
+        if telemetry.enabled() and step_no % 8 == 0:
+            # keep lock_witness_edges_total / lock_contention_seconds
+            # scrapeable mid-run
+            telemetry.profiler.snapshot_lock_witness()
 
     def _decode_step(self, snap, live, hook) -> None:
         """One batched decode step — device call OUTSIDE the lock, so
         submit()/cancel() never block on compute (a fault hook's
         injected sleep included)."""
+        prof = self._prof
+        t_g = time.perf_counter()
+        psig = self._programs.gather_params()
+        t_h = time.perf_counter()
+        prof.note("gather_params", t_h - t_g)
         if hook is not None:
-            hook("step")
-        nxt = self._programs.step(*snap)    # syncs: tokens consumed now
+            hook("step")                    # fault seam: counts as device
+        t0 = time.perf_counter()
+        with telemetry.span("serving/step"):
+            # syncs: the tokens are consumed now
+            nxt = G._timed_decode(
+                f"serving_step_{self._label}", f"serving_{self._label}",
+                len(live), self._programs.step, *snap, psig)
+        dt = time.perf_counter() - t0
+        # the ledger's device_step cause includes the fault hook (an
+        # injected stall IS device time to the requests waiting on it);
+        # the tpot histogram keeps the pure device call
+        prof.note("device_step", time.perf_counter() - t_h)
         now = time.monotonic()
+        t_lk = time.perf_counter()
         with self._work:
+            t_bk = time.perf_counter()
+            prof.note("lock_wait", t_bk - t_lk)
             self._stats["steps"] += 1
+            step_no = self._stats["steps"]
+            mark = _TRACE_EVERY > 0 and step_no % _TRACE_EVERY == 0
             for lane, req in live:
                 slot = self._slots[lane]
                 if slot is None or slot.req is not req:
@@ -928,9 +1411,28 @@ class ServingEngine:
                 req._deliver(tok, now)
                 self._pos[lane] += 1
                 self._toks[lane] = tok
+                if mark:                    # every Nth step: cheap marks
+                    req.trace.event("decode", t=now,
+                                    pos=int(self._pos[lane]),
+                                    tokens=len(req.tokens),
+                                    occupancy=len(live))
                 if tok == self._eos \
                         or len(req.tokens) >= req.max_new_tokens:
                     self._retire_locked(lane)
+            if telemetry.enabled():
+                telemetry.histogram("serving_tpot_seconds",
+                                    labels={"path": self._path}) \
+                    .observe(dt)
+                telemetry.gauge("serving_batch_occupancy").set(len(live))
+            queue_depth = len(self._queue)
+            prof.note("bookkeeping", time.perf_counter() - t_bk)
+        self._end_step(live, queue_depth, step_no)
+
+    def _note_rollback_locked(self, reason: str) -> None:
+        self._count(self._stats["spec_rollback"], reason)
+        if telemetry.enabled():
+            telemetry.counter("serving_spec_rollback_total",
+                              labels={"reason": reason}).inc()
 
     def _spec_step(self, snap, live, hook) -> None:
         """One speculate-then-verify iteration, `_decode_step`'s shape:
@@ -940,19 +1442,41 @@ class ServingEngine:
         re-locked, truncates each lane at eviction (slot identity), eos
         and ``max_new_tokens``.  Rollback is host-side position
         arithmetic only (see `PagedPrograms.spec_verify`)."""
+        prof = self._prof
         k = self._spec_k
+        t_g = time.perf_counter()
+        psig = self._programs.gather_params()
+        dsig = self._programs.draft_params()
+        t_h = time.perf_counter()
+        prof.note("gather_params", t_h - t_g)
         if hook is not None:
             hook("draft")
-        d_toks, q = self._programs.draft_step(*snap)
-        if hook is not None:
-            hook("step")
-        out, alen = self._programs.spec_verify(*snap, d_toks, q)
+        with telemetry.span("serving/step"):
+            d_toks, q = G._timed_decode(
+                f"serving_draft_step_{self._label}",
+                f"serving_{self._label}", len(live) * k,
+                self._programs.draft_step, *snap, dsig)
+            t1 = time.perf_counter()
+            prof.note("draft_step", t1 - t_h)
+            if hook is not None:
+                hook("step")
+            t0 = time.perf_counter()
+            out, alen = G._timed_decode(
+                f"serving_spec_verify_{self._label}",
+                f"serving_{self._label}", len(live),
+                self._programs.spec_verify, *snap, d_toks, q, psig)
+        dt = time.perf_counter() - t0
+        prof.note("verify_step", time.perf_counter() - t1)
         now = time.monotonic()
+        t_lk = time.perf_counter()
         with self._work:
+            t_bk = time.perf_counter()
+            prof.note("lock_wait", t_bk - t_lk)
             self._stats["steps"] += 1
             self._stats["spec_steps"] += 1
-            rollback = self._stats["spec_rollback"]
-            proposed = accepted = 0
+            step_no = self._stats["steps"]
+            mark = _TRACE_EVERY > 0 and step_no % _TRACE_EVERY == 0
+            proposed = accepted = delivered_total = 0
             for lane, req in live:
                 slot = self._slots[lane]
                 if slot is None or slot.req is not req:
@@ -963,7 +1487,7 @@ class ServingEngine:
                 req.spec_proposed += k
                 req.spec_accepted += a
                 if a < k:
-                    self._count(rollback, "rejected")
+                    self._note_rollback_locked("rejected")
                 delivered, stop = 0, None
                 for j in range(a + 1):      # accepted run + correction/bonus
                     tok = int(out[lane, j])
@@ -976,15 +1500,26 @@ class ServingEngine:
                         stop = "max_tokens"
                         break
                 if stop is not None and delivered < a + 1:
-                    self._count(rollback, stop)
+                    self._note_rollback_locked(stop)
                 self._pos[lane] += delivered
                 self._toks[lane] = int(out[lane, delivered - 1])
+                delivered_total += delivered
                 if not BlockPool.covers(len(slot.blocks), self._bs,
                                         int(self._pos[lane]) - 1):
                     raise RuntimeError(
                         f"speculative commit outran lane {lane}'s "
                         f"reservation: pos {int(self._pos[lane])} vs "
                         f"{len(slot.blocks)} blocks of {self._bs}")
+                if mark:                    # every Nth step: cheap marks
+                    req.trace.event("decode", t=now,
+                                    pos=int(self._pos[lane]),
+                                    tokens=len(req.tokens),
+                                    occupancy=len(live),
+                                    spec_accepted=a)
+                if telemetry.enabled():
+                    telemetry.histogram("serving_spec_tokens_per_step",
+                                        labels={"path": self._path}) \
+                        .observe(delivered)
                 if stop is not None:
                     self._retire_locked(lane)
             if proposed:
@@ -994,6 +1529,22 @@ class ServingEngine:
                 ewma = self._stats["spec_ewma"]
                 self._stats["spec_ewma"] = rate if ewma is None \
                     else 0.9 * ewma + 0.1 * rate
+                if telemetry.enabled():
+                    telemetry.gauge("serving_spec_accept_rate",
+                                    labels={"engine": self._name}) \
+                        .set(self._stats["spec_ewma"])
+            if telemetry.enabled():
+                # per-token time: the iteration's device time over the
+                # mean tokens a lane actually got out of it
+                per_tok = (dt + (t1 - t_h)) \
+                    / max(1.0, delivered_total / max(1, len(live)))
+                telemetry.histogram("serving_tpot_seconds",
+                                    labels={"path": self._path}) \
+                    .observe(per_tok)
+                telemetry.gauge("serving_batch_occupancy").set(len(live))
+            queue_depth = len(self._queue)
+            prof.note("bookkeeping", time.perf_counter() - t_bk)
+        self._end_step(live, queue_depth, step_no)
 
 
 def default_engine(net, **kw) -> ServingEngine:

@@ -73,7 +73,7 @@ from collections import Counter
 import numpy as np
 import torch
 
-from .. import _graphs
+from .. import _graphs, telemetry
 from ..contrib.quantization import quantize_kv
 from ..models import generation as G
 from ..ops.paged_attention import paged_attention
@@ -90,8 +90,8 @@ __all__ = ["PagedPrograms"]
 _ACCEPT_SALT = 0x5ACC
 _RESID_SALT = 0x0E51
 
-# program objects built, by kind (the JAX package's
-# ``serving_program_builds_total``)
+# program objects built, by kind (also the telemetry counter
+# ``serving_program_builds_total{kind=}``)
 program_builds: Counter = Counter()
 
 
@@ -99,6 +99,9 @@ def _note_build(kind: str) -> None:
     """Count a program built (a fresh `_graphs.Program`; its capture
     happens at its first call)."""
     program_builds[kind] += 1
+    if telemetry.enabled():
+        telemetry.counter("serving_program_builds_total",
+                          labels={"kind": kind}).inc()
 
 
 def _stream(seed, t, salt=None) -> int:
@@ -260,6 +263,12 @@ class PagedPrograms:
                       self._body(False, logits=False))
         self._params = self._dparams = None
         self._init_speculative(net, speculate_k, draft_net, spec_greedy)
+        if telemetry.enabled():
+            # the JAX package's net-level program cache size; here the
+            # programs of this family (a graph bakes in its pools, so
+            # nothing is cached on the net)
+            telemetry.gauge("serving_program_cache_size") \
+                .set(len(self.programs))
 
     def _program(self, kind, name, body):
         _note_build(kind)
@@ -327,6 +336,18 @@ class PagedPrograms:
     def kv_dtype(self):
         """None (model dtype) or "int8"."""
         return self._kv_dtype
+
+    @property
+    def attn_impl(self) -> str:
+        """The paged attention the programs take: "kernel" (the CUDA
+        kernel) on the card, "dense" (its plain version) on the CPU."""
+        return "kernel" if self.device.type == "cuda" else "dense"
+
+    @property
+    def prog_label(self) -> str:
+        """Telemetry/program label: the weight path, plus ``_kv8`` for
+        the int8 KV pool (the JAX package's labels)."""
+        return self.path + ("_kv8" if self._kv_dtype == "int8" else "")
 
     @property
     def kv_pool_bytes(self) -> int:
@@ -440,20 +461,23 @@ class PagedPrograms:
 
     # -- the programs --------------------------------------------------- #
     @torch.no_grad()
-    def step(self, tables, toks, pos, active, seeds) -> np.ndarray:
+    def step(self, tables, toks, pos, active, seeds,
+             psig=None) -> np.ndarray:
         """One decode step for every lane (host arrays in: tables
         (B, nbps) int32, toks/pos (B,) int32, active (B,) bool, seeds
         (B,) int64); returns the next token of every lane.  The JAX
-        package's `_build_step` program."""
+        package's `_build_step` program.  ``psig``: what `gather_params`
+        returned just before (the call gathers otherwise), as in every
+        program below."""
         out = self.programs["step"].run(
-            self.gather_params(), toks=toks,
+            psig or self.gather_params(), toks=toks,
             **self._slots(tables, pos, active))
         nxt = out[1] if len(out) > 1 else self._pick(out[0], pos, seeds)
         return nxt.cpu().numpy()
 
     @torch.no_grad()
     def prefill_chunk(self, table_row, toks, start: int, valid_len: int,
-                      seed: int, final: bool):
+                      seed: int, final: bool, psig=None):
         """Positions ``start .. start+chunk-1`` of one sequence's prompt
         (table_row (nbps,) int32, toks (chunk,) int32; positions past
         ``valid_len`` write to scratch).  On the ``final`` chunk,
@@ -461,7 +485,7 @@ class PagedPrograms:
         position ``valid_len - 1``, outside the graph); else None.  The
         JAX package's `_build_prefill_chunk` program."""
         (h,) = self.programs["prefill_chunk"].run(
-            self.gather_params(), toks=toks,
+            psig or self.gather_params(), toks=toks,
             **self._chunk_slots(table_row, start, valid_len))
         if not final:
             return None
@@ -472,16 +496,16 @@ class PagedPrograms:
     # -- speculative decoding ------------------------------------------ #
     @torch.no_grad()
     def draft_prefill_chunk(self, table_row, toks, start: int,
-                            valid_len: int) -> None:
+                            valid_len: int, psig=None) -> None:
         """The chunk program on the draft weights and pools, without the
         pick (the target's chunk picks the first token).  The JAX
         package's `_build_draft_prefill_chunk` program."""
         self.programs["draft_prefill_chunk"].run(
-            self.draft_params(), toks=toks,
+            psig or self.draft_params(), toks=toks,
             **self._chunk_slots(table_row, start, valid_len))
 
     @torch.no_grad()
-    def draft_step(self, tables, toks, pos, active, seeds):
+    def draft_step(self, tables, toks, pos, active, seeds, psig=None):
         """k draft token forwards at ``pos .. pos+k-1`` over the draft
         pools (host arrays in, as `step`).  Step j proposes d_{j+1}:
         the draft's argmax when greedy, else a draw from q_j = softmax
@@ -489,7 +513,7 @@ class PagedPrograms:
         (seed, pos+j), the plain pick's recipe.  Returns (d_toks (B, k)
         on the card, q (B, k, V) or None when greedy).  The JAX
         package's `_build_draft_step` program."""
-        psig = self.draft_params()
+        psig = psig or self.draft_params()
         k = self._spec_k
         prog = self.programs["draft_step"]
         slots = [_host_slots(tables, pos + j, active, self._bs, self._msl)
@@ -510,7 +534,8 @@ class PagedPrograms:
         return torch.stack(d_toks, dim=1), torch.stack(q, dim=1)
 
     @torch.no_grad()
-    def spec_verify(self, tables, toks, pos, active, seeds, d_toks, q):
+    def spec_verify(self, tables, toks, pos, active, seeds, d_toks, q,
+                    psig=None):
         """The verifier: ONE target forward of every lane's window
         ``[tok, d_1 .. d_k]`` at ``pos .. pos+k`` as B·(k+1) rows (lane
         b's row j is row b·(k+1)+j).  Per layer every row's K/V is
@@ -535,7 +560,7 @@ class PagedPrograms:
         T = self._spec_k + 1
         posw = (pos[:, None] + np.arange(T)).reshape(-1)
         out = self.programs["spec_verify"].run(
-            self.gather_params(), toks=toks, d_toks=d_toks,
+            psig or self.gather_params(), toks=toks, d_toks=d_toks,
             **self._slots(np.repeat(tables, T, axis=0), posw,
                           np.repeat(active, T)))
         if self._spec_greedy:

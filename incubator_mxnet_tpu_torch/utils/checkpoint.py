@@ -48,6 +48,14 @@ package restores a port bundle; restoring a bundle without
 (`random.jax_pair_seed`).  Dropout masks after a cross-package resume
 therefore do not match the other package's, whose stream differs anyway.
 
+**Telemetry** (enabled; the JAX package's names):
+``checkpoint_step_stall_seconds`` (the caller's time in ``save()``),
+``checkpoint_queue_depth``, ``checkpoint_write_seconds`` and
+``checkpoint_bytes_total`` (each committed write),
+``checkpoint_write_retries_total`` and
+``checkpoint_restore_skipped_total``; the snapshot's copy is counted
+once as the ``checkpoint_snapshot`` record of `telemetry.perf`.
+
 Not ported yet: the multi-process shards and the ZeRO-sharded state;
 this manager writes and reads process 0's shard only.
 """
@@ -69,6 +77,7 @@ import numpy as np
 import torch
 
 from .. import random as _random
+from .. import telemetry
 from ..optimizer.optimizer import state_to_host
 from . import serialization
 
@@ -228,7 +237,9 @@ class CheckpointManager:
              extra=None) -> None:
         """Snapshot the state on its device (one copy; training may go on
         at once), then fetch and write it in the background worker
-        (``async_save``) or here.  ``net`` and ``trainer`` may be None."""
+        (``async_save``) or here.  ``net`` and ``trainer`` may be None.
+        The caller-visible stall is ``checkpoint_step_stall_seconds``."""
+        t0 = time.perf_counter()
         self._raise_pending_error()
         work: Dict[str, Any] = {"step": int(step)}
         to_snap: Dict[str, Any] = {}
@@ -240,7 +251,13 @@ class CheckpointManager:
                 "index_update_count": dict(opt._index_update_count)}
         if net is not None:
             to_snap["params"] = dict(net._collect_params_with_prefix())
-        work["snap"], work["events"] = _snapshot(to_snap)
+        if telemetry.enabled() \
+                and "checkpoint_snapshot" not in telemetry.perf.programs():
+            # the copy's bytes, counted once
+            work["snap"], work["events"] = telemetry.perf.capture(
+                "checkpoint_snapshot", _snapshot, to_snap)
+        else:
+            work["snap"], work["events"] = _snapshot(to_snap)
         # the stream's state is a few kilobytes: taken here, at the step
         state = _random.get_state()
         work["torch_rng"] = state.numpy()
@@ -255,9 +272,11 @@ class CheckpointManager:
         else:
             self._run_write(work)
             self._raise_pending_error()
-        # checkpoint_step_stall_seconds (this call's time) and
-        # checkpoint_queue_depth are observed here once the port has its
-        # telemetry
+        if telemetry.enabled():
+            telemetry.histogram("checkpoint_step_stall_seconds") \
+                .observe(time.perf_counter() - t0)
+            telemetry.gauge("checkpoint_queue_depth") \
+                .set(self._queue.qsize())
 
     def _ensure_worker(self):
         if self._worker is None or not self._worker.is_alive():
@@ -295,13 +314,17 @@ class CheckpointManager:
                                   ignore_errors=True)
                     if attempt >= self.retries:
                         raise
-                    # checkpoint_write_retries_total counts here
+                    if telemetry.enabled():
+                        telemetry.counter(
+                            "checkpoint_write_retries_total").inc()
                     time.sleep(delay)
                     delay *= 2
             self.last_write = {"step": step, "bytes": written,
                                "seconds": time.perf_counter() - t0}
-            # checkpoint_write_seconds and checkpoint_bytes_total are
-            # observed here
+            if telemetry.enabled():
+                telemetry.histogram("checkpoint_write_seconds") \
+                    .observe(self.last_write["seconds"])
+                telemetry.counter("checkpoint_bytes_total").inc(written)
         except Exception as e:  # surfaced on the next save()/wait()/close()
             with self._err_lock:
                 self._error = e
@@ -594,7 +617,9 @@ class CheckpointManager:
                         f"checkpoint step {s} unusable "
                         f"({type(e).__name__}: {e}) — falling back to the "
                         f"previous complete step", RuntimeWarning)
-                    # checkpoint_restore_skipped_total counts here
+                    if telemetry.enabled():
+                        telemetry.counter(
+                            "checkpoint_restore_skipped_total").inc()
             if chosen is None:
                 raise CheckpointCorrupt(
                     f"no restorable checkpoint in {self.directory}: every "

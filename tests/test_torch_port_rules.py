@@ -77,7 +77,7 @@ def blocked_imports():
     to import; one that loads jaxlib shows in the list."""
     mods = sorted(set(SLICE4_MODULES + GRAPH_MODULES + NMT_MODULES
                       + VISION_MODULES + PTQ_MODULES + STATE_MODULES
-                      + LONGCTX_MODULES))
+                      + LONGCTX_MODULES + TELEMETRY_MODULES))
     res = _run(
         "import importlib, json, sys\n"
         "sys.modules['jax'] = None\n"
@@ -956,3 +956,63 @@ def test_longctx_cpu_path_never_builds_or_loads_kernels(blocked_imports):
     trained through the remat programs, scored and decoded — no build,
     no library load, no CUDA graph, event or stream."""
     assert blocked_imports[2] == "ok", blocked_imports[2]
+
+
+# ---- the telemetry slice: the registry, spans, perf, the ops server ---
+TELEMETRY_MODULES = ["telemetry", "telemetry.registry", "telemetry.tracer",
+                     "telemetry.exporters", "telemetry.requestlog",
+                     "telemetry.slo", "telemetry.profiler",
+                     "telemetry.http", "telemetry.flight_recorder",
+                     "telemetry.perf", "lock_witness"]
+
+
+@pytest.mark.parametrize("mod", TELEMETRY_MODULES)
+def test_telemetry_modules_import_with_jax_blocked(mod, blocked_imports):
+    _assert_imports_with_jax_blocked(blocked_imports, mod)
+
+
+def _telemetry_sources():
+    tdir = os.path.join(PKG, "telemetry")
+    return sorted(os.path.join(tdir, f) for f in os.listdir(tdir)
+                  if f.endswith(".py")) + [os.path.join(PKG,
+                                                        "lock_witness.py")]
+
+
+@pytest.mark.parametrize("path", _telemetry_sources(),
+                         ids=os.path.basename)
+def test_telemetry_sources_import_neither_jax_nor_the_jax_package(path):
+    mods = [(m or "").split(".")[0] for m in _imported_modules(path)]
+    assert not {"jax", "jaxlib", "incubator_mxnet_tpu"} & set(mods)
+
+
+_SYNC_ATTRS = {"synchronize", "item", "cpu", "tolist"}
+
+
+@pytest.mark.parametrize("path", _telemetry_sources()[:-1],
+                         ids=os.path.basename)
+def test_telemetry_never_forces_a_device_sync(path):
+    """No file of the port's telemetry calls ``synchronize(``,
+    ``.item()``, ``.cpu()`` or ``.tolist()``: instrumentation reads host
+    clocks, metadata, allocator counters and ``Event.query()``."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = [(node.lineno, node.func.attr) for node in ast.walk(tree)
+           if isinstance(node, ast.Call)
+           and isinstance(node.func, ast.Attribute)
+           and node.func.attr in _SYNC_ATTRS]
+    assert bad == []
+
+
+def test_chip_smoke_has_the_telemetry_phase():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert callable(cs.phase_telemetry)
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        src = f.read()
+    assert "\n41. telemetry" in src
+    main = src[src.index("def main() -> int:"):]
+    assert "phase_telemetry" in main and "lscore, tel)" in main
