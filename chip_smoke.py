@@ -417,10 +417,44 @@ Long context (after phase 36; benchmark/longctx_bench.py):
    over HTTP: ``serving_admitted_total`` 8, a TPOT count, ``/healthz``
    healthy, a valid ``/profilez`` trace, every program's MFU <= 1 and
    roofline fraction <= 1.05, the decode program's card ms within 15% of
-   phase 20's replay, a request profiled on every thread showing the
+   its graph replayed on an idle stream (phase 20's back-to-back replay
+   printed beside), a request profiled on every thread showing the
    engine's spans as ``record_function`` ranges; ``generate`` B=8 P=128
    N=32 (its ``decode_float`` record); a flight-recorder bundle with the
-   engine's section and the steps' spans.
+   engine's section and the steps' spans;
+42. fed training — train.py's loop on ResNet-50 v1 (bf16, f32 masters,
+   B=128, 224x224, SGD momentum 0.9, wd 1e-4) fed from a .rec of 1,280
+   JPEG class templates plus noise (1,000 classes, quality 90, packed
+   under a temporary directory as train.py's `make_synthetic_rec`
+   does): `ImageRecordIter(shuffle, rand_mirror, mean/std,
+   device_normalize=True, preprocess_threads=4)` behind
+   `PrefetchingIter(prefetch_to_device=True)`, `wrap_net(body,
+   "bfloat16")`, hybridized, `Accuracy` and `Speedometer`, 70 steps over
+   seven epochs with ``reset()`` between, under deterministic cuDNN.
+   The decoder that ran is printed: libjpeg where the host builds it,
+   else nvJPEG, whose pixels are held to PIL's (on 4:4:4 copies of the
+   images, where only the IDCT's rounding differs, and on the 4:2:0
+   records, where the chroma upsampling differs too); a record that
+   does not decode is counted (with nvJPEG its batch raises
+   ``IOError``), and the fed run counts none.  The uint8 batch
+   on the card equals the pipeline's host batch byte for byte for 6
+   steps; the first 3 steps' batches, fed as card tensors to a net
+   built afresh with no prefetcher, give bit-identical losses, f32
+   masters, momenta and running stats; one capture each of
+   ``fwd_record``, ``bwd_record`` and ``update``, one launch each of the
+   cross-entropy kernels a step; the launches reported are the fed
+   path's (its 70 steps, the step after ``reset()`` and the profiled
+   step).  Printed: img/s over epochs 1-4 (40 steps, telemetry off) and
+   each epoch's, the step ms, the share of their wall the loop waited
+   for input, beside phase 30's synthetic-batch graphed step;
+   ``data_wait_seconds`` over epoch 5 (telemetry on, untimed); the
+   card's busy share over epoch 6 (the profiler on the card's kernels
+   only) and in one profiled step; `Accuracy` at each epoch's end; the
+   pipeline alone at 1, 2, 4, 8 threads and ``nproc``, and at 4 threads
+   split by stage (``ImRecIterNext``, the host float32 → uint8 cast,
+   pinning and the copy); a pinned `DataLoader` batch, a prefetched one
+   on the card, and `PrefetchingIter(ImageRecordIter)` read on a side
+   stream.
 
 The line before the last is a JSON object with every kernel's launches
 (summed over the main paths that ran it, launches inside graph replays
@@ -437,6 +471,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import importlib
+import itertools
 import json
 import math
 import os
@@ -453,6 +488,12 @@ import torch.nn.functional as F
 
 from incubator_mxnet_tpu_torch import (MXNetError, _build, _graphs,
                                        autograd, nd, telemetry)
+from incubator_mxnet_tpu_torch import callback as mx_callback
+from incubator_mxnet_tpu_torch import io as mx_io
+from incubator_mxnet_tpu_torch import metric as mx_metric
+from incubator_mxnet_tpu_torch import native as mx_native
+from incubator_mxnet_tpu_torch import recordio
+from incubator_mxnet_tpu_torch.gluon import data as mx_data
 from incubator_mxnet_tpu_torch import random as mx_random
 from incubator_mxnet_tpu_torch.contrib.quantization import (
     _QuantizedWrapper, quantize_kv, quantize_net)
@@ -5965,8 +6006,12 @@ def bwd_kernel_info() -> dict:
 # of the burn-rate tracker leaves it room
 TEL_ENGINE = dict(max_batch=8, block_size=16, prefill_chunk=32)
 TEL_SLO_TTFT = 10.0
-# the decode program's event-timed card ms against phase 20's replay
+# the decode program's event-timed card ms against its own graph replayed
+# on an idle stream in the same phase (phase 20's back-to-back replay,
+# printed beside, overlaps a replay's start with the one before it)
 TEL_DECODE_TOL = 0.15
+TEL_ISOLATED_REPLAYS = 20
+TEL_STEP_GAP_S = 0.002      # the engine's host time between steps, about
 TEL_ENDPOINTS = ("/metrics", "/healthz", "/varz", "/requestz", "/stallz",
                  "/profilez?seconds=0")
 TEL_CHECKPOINT_METRICS = (
@@ -6014,6 +6059,31 @@ def _tel_serve(net, prompts, on: bool, keep_open: bool = False):
     if not keep_open:
         eng.close()
     return eng, toks, tok_s
+
+
+def _isolated_replay_ms(eng, n=TEL_ISOLATED_REPLAYS) -> float:
+    """The median card ms of the engine's step graph replayed ``n``
+    times as the engine runs a step: its last inputs staged from host
+    arrays (pinned, ``non_blocking``), the replay launched on an idle
+    stream, the result read back, then a host gap of a step's length;
+    each replay timed by a pair of events recorded on the stream around
+    it: the card time the event-timed decode program must read, plus
+    the host's launch latency.  Not a counted launch (the graph is
+    replayed directly); each replay rewrites the K/V its last step
+    wrote with the same values."""
+    prog = eng._programs.programs["step"]
+    host = {k: v.cpu().numpy() for k, v in prog.static_inputs.items()}
+    ms = []
+    for _ in range(n):
+        prog._stage(host)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        prog._graph.replay()
+        e1.record()
+        prog._out[-1].cpu()
+        ms.append(e0.elapsed_time(e1))
+        time.sleep(TEL_STEP_GAP_S)
+    return float(np.median(ms))
 
 
 def _tel_programs(names) -> dict:
@@ -6146,7 +6216,8 @@ def phase_telemetry(smi: str, prompts, prompt, replay_card_ms: float,
     tok/s both ways; the scraped engine's counts, its health, a valid
     merged trace, a profiled request's record_function ranges, every
     program's MFU <= 1 and roofline fraction <= 1.05, the decode
-    program's event-timed card ms within 15% of phase 20's replay; a
+    program's event-timed card ms within 15% of its graph replayed on an
+    idle stream (phase 20's back-to-back replay beside it); a
     flight-recorder bundle with the engine's and the steps' sections."""
     net = _build_net(torch.bfloat16, MODEL["num_layers"], seed=0)
     for name in KERNELS:
@@ -6174,6 +6245,7 @@ def phase_telemetry(smi: str, prompts, prompt, replay_card_ms: float,
             torch.cuda.synchronize()
             got = {p: _scrape(eng.http_port, p) for p in TEL_ENDPOINTS}
             decode = _tel_programs({"serving_step", "serving_step_float"})
+            isolated_ms = _isolated_replay_ms(eng)
             other = ((prompts[5].astype(np.int64) + 1)
                      % MODEL["vocab"]).astype(np.int32)
             spans = _profiled_spans(eng, other)
@@ -6210,8 +6282,8 @@ def phase_telemetry(smi: str, prompts, prompt, replay_card_ms: float,
         assert any(r["program"] == "serving_step" and r["mfu"] is not None
                    for r in table), table
         n_step, step_ms = decode["serving_step"]
-        dev = abs(step_ms - replay_card_ms) / replay_card_ms
-        assert dev <= TEL_DECODE_TOL, (step_ms, replay_card_ms)
+        dev = abs(step_ms - isolated_ms) / isolated_ms
+        assert dev <= TEL_DECODE_TOL, (step_ms, isolated_ms)
         assert {"serving/step", "serving/prefill_chunk"} \
             <= set(spans["ranges"]) and spans["kernels"] > 0, spans
         sections = {ln["section"]: ln for ln in lines if "section" in ln}
@@ -6240,9 +6312,11 @@ def phase_telemetry(smi: str, prompts, prompt, replay_card_ms: float,
         f"/healthz {health['status']}; /stallz {stallz['steps']} steps, "
         f"attribution {json.dumps(stallz['attribution'][:4])}; decode "
         f"program serving_step: {n_step} runs, median {step_ms:.4f} card "
-        f"ms by "
-        f"CUDA events against phase 20's replay {replay_card_ms:.4f} ms "
-        f"({dev:.3f} apart); profiled request: ranges {spans['ranges']} "
+        f"ms by CUDA events against {isolated_ms:.4f} ms, the median of "
+        f"{TEL_ISOLATED_REPLAYS} replays of its graph each on an idle "
+        f"stream ({dev:.3f} apart; phase 20's back-to-back replay "
+        f"{replay_card_ms:.4f} ms); profiled request: ranges "
+        f"{spans['ranges']} "
         f"beside {spans['kernels']} kernels")
     log("telemetry, programs (flop, bytes, card ms of the last run, MFU, "
         "roofline fraction): " + "; ".join(
@@ -6260,7 +6334,459 @@ def phase_telemetry(smi: str, prompts, prompt, replay_card_ms: float,
         f"{d['roofline_fraction']:.4f}; decode_tokens_per_second "
         f"{gen['tok_s_gauge']:.1f} (host clock)")
     return {"launches": launches, "tok_s": tok_s, "on_off": on / off,
-            "decode_ms": step_ms, "train": train, "generate": gen}
+            "decode_ms": step_ms, "isolated_ms": isolated_ms,
+            "train": train, "generate": gen}
+
+
+# --------------------------------------------------------------- phase 42
+FED_RECORDS = 1280                  # 10 batches of RESNET_BATCH
+FED_QUALITY = 90                    # train.py's make_synthetic_rec
+# epoch 0 captures and checks; then FED_TIMED_EPOCHS timed with
+# telemetry off; one with telemetry on; one under the profiler
+FED_TIMED_EPOCHS = 4
+FED_EPOCHS = FED_TIMED_EPOCHS + 3
+# train.py's ImageRecordIter arguments (examples/image_classification)
+FED_ITER = dict(shuffle=True, rand_mirror=True, mean_r=123.68,
+                mean_g=116.78, mean_b=103.94, std_r=58.4, std_g=57.1,
+                std_b=57.4, device_normalize=True, preprocess_threads=4)
+FED_DISP_BATCHES = 20               # train.py's --disp-batches
+FED_BYTE_STEPS = 6
+FED_REPLAY_STEPS = 3
+FED_THREADS = (1, 2, 4, 8)
+FED_SWEEP_BATCHES = 4
+FED_SPLIT_BATCHES = 5
+# a decoder's pixels against PIL's (libjpeg-turbo), in levels of 255:
+# on 4:4:4 JPEGs only the IDCT's rounding differs (max, mean |diff|);
+# on the 4:2:0 records the chroma upsampling differs too (libjpeg
+# filters, nvJPEG replicates), held by the mean
+DECODE_TOL_444 = (4, 1.0)
+DECODE_TOL_420_MEAN = 16.0
+FED_CHECK_IMAGES = 32
+
+
+def make_fed_rec(path, n, classes, hw, seed=7):
+    """train.py's `make_synthetic_rec`: JPEG class templates plus noise,
+    labels from a seed; returns the first `FED_CHECK_IMAGES` images."""
+    from PIL import Image   # noqa: F401  (pack_img's codec; fail early)
+
+    rng = np.random.RandomState(seed)
+    templates = rng.randint(0, 255, (classes, hw, hw, 3), dtype=np.uint8)
+    order = np.random.RandomState(1).randint(0, classes, n)
+    rec = recordio.MXRecordIO(path, "w")
+    imgs = []
+    for i, cls in enumerate(order):
+        noise = rng.randint(-20, 20, templates[cls].shape).astype(np.int16)
+        img = np.clip(templates[cls].astype(np.int16) + noise, 0,
+                      255).astype(np.uint8)
+        if i < FED_CHECK_IMAGES:
+            imgs.append(img)
+        rec.write(recordio.pack_img(recordio.IRHeader(0, float(cls), i, 0),
+                                    img, quality=FED_QUALITY))
+    rec.close()
+    return imgs
+
+
+def _fed_decoder() -> str:
+    """libjpeg where this host builds the pipeline with it, else nvJPEG;
+    the reason is printed either way."""
+    try:
+        mx_native.image_pipeline_lib("libjpeg")
+        log("fed: the native pipeline builds with libjpeg on this host")
+        return "libjpeg"
+    except MXNetError as e:
+        lines = str(e).splitlines()
+        why = next((ln for ln in lines if "error" in ln), lines[0])
+        log(f"fed: the libjpeg pipeline does not build on this host "
+            f"({why.strip()}); decoding with nvJPEG")
+        return "nvjpeg"
+
+
+def _pil_pixels(path, n) -> np.ndarray:
+    r = recordio.MXRecordIO(path, "r")
+    out = np.stack([recordio.unpack_img(r.read())[1] for _ in range(n)])
+    r.close()
+    return out.transpose(0, 3, 1, 2).astype(np.int16)
+
+
+def check_decoder(decoder, path, imgs, tmp, smi) -> dict:
+    """The pipeline's uint8 pixels (224² records at 224²: the center crop
+    is the whole image; no mirror) against PIL's decode of the same
+    records: the train records (4:2:0) and 4:4:4 JPEGs of their first
+    images at the same quality (`DECODE_TOL_444`, `DECODE_TOL_420_MEAN`)."""
+    from io import BytesIO
+
+    from PIL import Image
+
+    p444 = os.path.join(tmp, "check444.rec")
+    w = recordio.MXRecordIO(p444, "w")
+    for i, img in enumerate(imgs):
+        buf = BytesIO()
+        Image.fromarray(img).save(buf, format="JPEG", quality=FED_QUALITY,
+                                  subsampling=0)
+        w.write(recordio.pack(recordio.IRHeader(0, 0.0, i, 0),
+                              buf.getvalue()))
+    w.close()
+    out = {}
+    for tag, p, n in (("4:2:0", path, RESNET_BATCH), ("4:4:4", p444,
+                                                      len(imgs))):
+        it = mx_io.ImageRecordIter(p, (3, RESNET_HW, RESNET_HW), n,
+                                   device_normalize=True, decoder=decoder,
+                                   device=DEV)
+        got = it.next().data[0].cpu().numpy().astype(np.int16)
+        d = np.abs(got - _pil_pixels(p, n))
+        out[tag] = (int(d.max()), float(d.mean()))
+    assert out["4:4:4"][0] <= DECODE_TOL_444[0] \
+        and out["4:4:4"][1] <= DECODE_TOL_444[1], out
+    assert out["4:2:0"][1] <= DECODE_TOL_420_MEAN, out
+    # a record that does not decode: nvJPEG fails its batch, libjpeg
+    # zero-fills the sample (the JAX package's bits); counted either way
+    bad = os.path.join(tmp, "bad.rec")
+    w = recordio.MXRecordIO(bad, "w")
+    w.write(recordio.pack_img(recordio.IRHeader(0, 0.0, 0, 0), imgs[0],
+                              quality=FED_QUALITY))
+    w.write(recordio.pack(recordio.IRHeader(0, 1.0, 1, 0), b"no jpeg" * 9))
+    w.close()
+    it = mx_io.ImageRecordIter(bad, (3, RESNET_HW, RESNET_HW), 2,
+                               device_normalize=True, decoder=decoder,
+                               device=DEV)
+    if decoder == "nvjpeg":
+        try:
+            it.next()
+            raise AssertionError("nvJPEG: a record that does not decode "
+                                 "gave a batch")
+        except IOError:
+            pass
+    else:
+        assert not it.next().data[0][1].any()
+    assert it.decode_failures == 1, it.decode_failures
+    log(f"fed decoder {decoder} [{smi}] against PIL's decode of the same "
+        f"records (levels of 255): {len(imgs)} 4:4:4 JPEGs max "
+        f"{out['4:4:4'][0]}, mean {out['4:4:4'][1]:.4f} (bound "
+        f"{DECODE_TOL_444}); {RESNET_BATCH} train records (4:2:0) max "
+        f"{out['4:2:0'][0]}, mean {out['4:2:0'][1]:.4f} (mean bound "
+        f"{DECODE_TOL_420_MEAN}); a record that does not decode counted "
+        f"and " + ("its batch raised IOError" if decoder == "nvjpeg" else
+                   "its sample zero-filled"))
+    return out
+
+
+def _fed_model(it):
+    """train.py's net behind ``wrap_net``: ``get_model("resnet50_v1",
+    classes=1000)`` from seed 0, ``cast("bfloat16")``, wrapped,
+    hybridized, and its SGD Trainer (f32 masters)."""
+    mx_random.seed(0, device=DEV)
+    body = vision.get_model("resnet50_v1", classes=RESNET_CLASSES,
+                            device=DEV)
+    body.initialize()
+    body.cast("bfloat16")
+    net = it.wrap_net(body, "bfloat16")
+    net.hybridize()
+    trainer = Trainer(net.collect_params(), "sgd", dict(RESNET_SGD),
+                      keep_grads=False)
+    return body, net, trainer
+
+
+def _fed_step(net, trainer, loss_fn, x, y):
+    with autograd.record():
+        out = net(x)
+        loss = loss_fn(out, y)
+    autograd.backward(loss)
+    trainer.step(RESNET_BATCH)
+    return out, loss.detach()
+
+
+def _fed_state(trainer, body) -> list:
+    states = [trainer._states[i] for i in sorted(trainer._states)]
+    return [[s[0].clone() for s in states], [s[1].clone() for s in states],
+            [t.detach().clone() for t in _running_stats(body)]]
+
+
+def time_fed_pipeline(decoder, path, smi) -> dict:
+    """The pipeline alone (``ImRecIterNext`` back to back, the native
+    prefetch one batch ahead) at 1, 2, 4, 8 threads and nproc (at most
+    32); then at train.py's 4 threads the PrefetchingIter worker's
+    stages in turn (`ImageRecordIter.next`'s work): ``ImRecIterNext``,
+    the host float32 → uint8 cast, pinning and the copy to the card
+    through the iterator's stager (synchronised)."""
+    B, hw = RESNET_BATCH, RESNET_HW
+    kw = {k: v for k, v in FED_ITER.items() if k != "preprocess_threads"}
+    nproc = min(os.cpu_count() or 1, 32)
+    rates = {}
+    for th in sorted(set(FED_THREADS + (nproc,))):
+        nat = mx_io.ImageRecordIter(path, (3, hw, hw), B, decoder=decoder,
+                                    preprocess_threads=th, device=DEV,
+                                    **kw)._native
+        nat.next()
+        t0 = time.perf_counter()
+        for _ in range(FED_SWEEP_BATCHES):
+            nat.next()
+        rates[th] = FED_SWEEP_BATCHES * B / (time.perf_counter() - t0)
+        del nat
+    # ImageRecordIter.next's work, stage by stage, through the iterator's
+    # own stager (its pinned ring warmed by one batch first)
+    it = mx_io.ImageRecordIter(path, (3, hw, hw), B, decoder=decoder,
+                               device=DEV, **FED_ITER)
+    nat = it._native
+    d, lab, pad = nat.next()
+    it._emit(d.astype("uint8"), lab, pad)
+    torch.cuda.synchronize()
+    split = {"ImRecIterNext": 0.0, "float32 -> uint8 cast": 0.0,
+             "pinning + copy": 0.0}
+    for _ in range(FED_SPLIT_BATCHES):
+        t0 = time.perf_counter()
+        d, lab, pad = nat.next()
+        t1 = time.perf_counter()
+        u = d.astype("uint8")
+        t2 = time.perf_counter()
+        it._emit(u, lab, pad)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[k] += dt * 1e3 / FED_SPLIT_BATCHES
+    total = sum(split.values())
+    log(f"fed pipeline alone [{smi}] decoder {decoder}, B={B} {hw}x{hw}: "
+        + ", ".join(f"{th} threads {r:.1f} img/s" for th, r in
+                    rates.items())
+        + f" (nproc {os.cpu_count()}); at 4 threads the worker's stages a "
+        f"batch: " + "; ".join(f"{k} {ms:.2f} ms = {ms / total:.3f}"
+                               for k, ms in split.items())
+        + f" (sum {total:.2f} ms = {B / total * 1e3:.1f} img/s)")
+    return {"threads": rates, "split_ms": split}
+
+
+def check_fed_loaders(decoder, path, smi) -> None:
+    """A pinned `DataLoader` batch, and a prefetched one on the card equal
+    to its host batch; `ImageRecordIter` behind `PrefetchingIter` read
+    on a side stream, which waits for each copy (the card's bytes equal
+    the host's after work queued on that stream reads them)."""
+    x = np.arange(24, dtype=np.float32).reshape(6, 4)
+    ds = mx_data.ArrayDataset(x)
+    pb = next(iter(mx_data.DataLoader(ds, batch_size=3, pin_memory=True)))
+    assert isinstance(pb, torch.Tensor) and pb.is_pinned()
+    cb = list(mx_data.DataLoader(ds, batch_size=3, prefetch_to_device=True,
+                                 device=DEV))
+    assert all(b.device.type == DEV.type for b in cb)
+    assert torch.equal(torch.cat(cb).cpu(), torch.from_numpy(x))
+    it = mx_io.ImageRecordIter(path, (3, RESNET_HW, RESNET_HW), RESNET_BATCH,
+                               decoder=decoder, device=DEV, **FED_ITER)
+    host, emit = [], it._emit
+
+    def keep(d, l, pad):
+        host.append(d.copy())
+        return emit(d, l, pad)
+
+    it._emit = keep
+    feed = mx_io.PrefetchingIter(it, prefetch_to_device=True, device=DEV)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        for k in range(3):
+            x = feed.next().data[0]
+            sums = x.to(torch.int64).sum((1, 2, 3))     # queued on `side`
+            want = torch.from_numpy(host[k].astype(np.int64)).sum((1, 2, 3))
+            assert torch.equal(sums.cpu(), want), k
+            assert np.array_equal(x.cpu().numpy(), host[k]), k
+    feed.close()
+    torch.cuda.synchronize()
+    log(f"fed [{smi}]: DataLoader(pin_memory=True) gives pinned CPU "
+        f"tensors; DataLoader(prefetch_to_device=True) card tensors equal "
+        f"to the host batches; PrefetchingIter(ImageRecordIter) read on a "
+        f"side stream: 3 batches equal to the host's")
+
+
+def phase_fed_training(smi: str, synthetic: dict) -> dict:
+    """Phase 42: train.py's loop fed from a .rec (see the docstring)."""
+    tmp = tempfile.mkdtemp(prefix="fed_")
+    try:
+        return _fed_run(smi, synthetic, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _fed_run(smi, synthetic, tmp) -> dict:
+    B, hw = RESNET_BATCH, RESNET_HW
+    path = os.path.join(tmp, "train.rec")
+    t0 = time.perf_counter()
+    imgs = make_fed_rec(path, FED_RECORDS, RESNET_CLASSES, hw)
+    log(f"fed [{smi}]: packed {FED_RECORDS} JPEG records ({RESNET_CLASSES} "
+        f"classes, {hw}x{hw}, quality {FED_QUALITY}) into "
+        f"{os.path.getsize(path)} bytes in {time.perf_counter() - t0:.2f} s")
+    decoder = _fed_decoder()
+    check_decoder(decoder, path, imgs, tmp, smi)
+    check_fed_loaders(decoder, path, smi)
+    it = mx_io.ImageRecordIter(path, (3, hw, hw), B, decoder=decoder,
+                               device=DEV, **FED_ITER)
+    assert it._native is not None and it.decoder == decoder
+    host = []
+    emit = it._emit
+
+    def keep(d, l, pad):
+        if len(host) < FED_BYTE_STEPS:
+            host.append((d.copy(), l.copy()))
+        return emit(d, l, pad)
+
+    it._emit = keep
+    feed = mx_io.PrefetchingIter(it, prefetch_to_device=True, device=DEV)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    acc = mx_metric.Accuracy()
+    speed = mx_callback.Speedometer(B, FED_DISP_BATCHES)
+    per_step = {n: 0 for n in TRAINING_KERNELS + FLASH_KERNELS}
+    per_step.update(xent_forward=1, xent_backward=1)
+    progs = ("fwd_record", "bwd_record", "update")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero_counts()
+    tel_epoch, prof_epoch = FED_EPOCHS - 2, FED_EPOCHS - 1
+    with cudnn_mode(True):
+        t0 = time.perf_counter()
+        body, net, trainer = _fed_model(it)
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t0
+        kept, losses, accs, walls, waits = [], [], [], [], []
+        step, state, tel = 0, None, {}
+        for epoch in range(FED_EPOCHS):
+            if epoch == tel_epoch:
+                telemetry.reset()
+                telemetry.enable()
+            torch.cuda.synchronize()
+            if epoch == prof_epoch:
+                # the card's kernels only: no host-side tracing
+                prof_ep = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                prof_ep.start()
+            t_ep, wait = time.perf_counter(), 0.0
+            if epoch:
+                feed.reset()
+            acc.reset()
+            for nbatch in itertools.count():
+                t0 = time.perf_counter()
+                try:
+                    batch = feed.next()
+                except StopIteration:
+                    break
+                wait += time.perf_counter() - t0
+                x, y = batch.data[0], batch.label[0]
+                if step < FED_BYTE_STEPS:
+                    assert x.dtype == torch.uint8 and x.device.type == DEV.type
+                    assert np.array_equal(x.cpu().numpy(), host[step][0]) \
+                        and np.array_equal(y.cpu().numpy(),
+                                           host[step][1]), step
+                if step < FED_REPLAY_STEPS:
+                    kept.append((x.cpu(), y.cpu()))
+                c0 = _counts()
+                out, loss = _fed_step(net, trainer, loss_fn, x, y)
+                c1 = _counts()
+                assert {n: c1[n] - c0[n] for n in per_step} == per_step, \
+                    (step, c0, c1)
+                acc.update([y], [out])
+                speed(mx_callback.BatchEndParam(epoch, nbatch, acc, None))
+                losses.append(loss)
+                step += 1
+                if step == FED_REPLAY_STEPS:
+                    state = _fed_state(trainer, body)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t_ep)
+            waits.append(wait)
+            accs.append(acc.get()[1])
+            if epoch == tel_epoch:
+                h = telemetry.histogram("data_wait_seconds")
+                tel = {"wait_s": h.sum, "gets": h.count,
+                       "h2d": telemetry.counter("h2d_bytes_total").value,
+                       "depth": telemetry.gauge("prefetch_queue_depth").value}
+                telemetry.disable()
+                telemetry.reset()
+            if epoch == prof_epoch:
+                prof_ep.stop()
+                epoch_busy = device_busy(prof_ep, walls[-1])
+        captures = {k: _graphs.captures.get(k) for k in progs}
+        assert captures == dict.fromkeys(progs, 1), captures
+        assert step == FED_EPOCHS * FED_RECORDS // B, step
+        # one profiled step, its batch already decoded
+        feed.reset()
+        b = feed.next()
+        _fed_step(net, trainer, loss_fn, b.data[0], b.label[0])
+        torch.cuda.synchronize()
+        time.sleep(0.2)     # the worker stages the next batch
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            b = feed.next()
+            _fed_step(net, trainer, loss_fn, b.data[0], b.label[0])
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        feed.close()
+        # the fed path's launches only, not the direct-fed check's below
+        launches = _counts()
+        assert it.decode_failures == 0, it.decode_failures
+        busy = device_busy(prof, prof_s)
+        losses = torch.stack(losses).float().cpu()
+        assert torch.isfinite(losses).all(), losses
+        del net, body, trainer, out, batch, b, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the first steps' batches fed directly to a net built afresh
+        body, net, trainer = _fed_model(it)
+        again = [_fed_step(net, trainer, loss_fn, x.to(DEV), y.to(DEV))[1]
+                 for x, y in kept]
+        replay = _fed_state(trainer, body)
+    assert torch.equal(torch.stack(again).float().cpu(),
+                       losses[:FED_REPLAY_STEPS]), (again, losses)
+    for what, a, b in zip(("masters", "momenta", "running stats"), state,
+                          replay):
+        assert len(a) == len(b) and all(torch.equal(u, v)
+                                        for u, v in zip(a, b)), what
+    del net, body, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_epoch = FED_RECORDS // B
+    timed = slice(1, 1 + FED_TIMED_EPOCHS)
+    epoch_img_s = [per_epoch * B / w for w in walls[timed]]
+    timed_s = sum(walls[timed])
+    n_timed = FED_TIMED_EPOCHS * per_epoch
+    img_s, step_ms = n_timed * B / timed_s, timed_s / n_timed * 1e3
+    wait_share = sum(waits[timed]) / timed_s
+    tel_share = tel["wait_s"] / walls[tel_epoch]
+    pipe = time_fed_pipeline(decoder, path, smi)
+    log(f"fed ResNet-50 v1 training [{smi}] decoder {decoder}, "
+        f"{FED_ITER['preprocess_threads']} threads, B={B} {hw}x{hw} bf16: "
+        f"built in {built_s:.1f} s; {step} steps over {FED_EPOCHS} epochs "
+        f"(walls {', '.join(f'{w:.3f}' for w in walls)} s), losses finite "
+        f"(mean first/last {losses[0].mean():.4f}/{losses[-1].mean():.4f}); "
+        f"the card's uint8 batch equal to the host's for {FED_BYTE_STEPS} "
+        f"steps; {FED_REPLAY_STEPS} steps bit-identical to the same "
+        f"batches fed directly (losses, {len(state[0])} f32 masters and "
+        f"momenta, {len(state[2])} running stats); captures {captures}, "
+        f"1 + 1 cross-entropy launches a step, {launches['xent_forward']} "
+        f"+ {launches['xent_backward']} on the fed path; no decode failure")
+    log(f"fed ResNet-50 v1 timed [{smi}]: epochs 1-{FED_TIMED_EPOCHS}, "
+        f"telemetry off: {img_s:.1f} img/s over {n_timed} steps (step "
+        f"{step_ms:.2f} ms; by epoch "
+        f"{', '.join(f'{r:.1f}' for r in epoch_img_s)} img/s, min "
+        f"{min(epoch_img_s):.1f}, max {max(epoch_img_s):.1f}) against phase "
+        f"30's synthetic-batch graphed step {synthetic['step_ms']:.2f} ms = "
+        f"{synthetic['img_s']:.1f} img/s in this run "
+        f"({img_s / synthetic['img_s']:.3f} of it); the loop waited for "
+        f"input {wait_share:.3f} of those steps' wall")
+    log(f"fed ResNet-50 v1 epoch {tel_epoch}, telemetry on, untimed "
+        f"[{smi}]: data_wait_seconds {tel['wait_s']:.4f} s over "
+        f"{tel['gets']} gets = {tel_share:.3f} of its "
+        f"{walls[tel_epoch]:.3f} s, h2d_bytes_total {tel['h2d']:.0f}, "
+        f"prefetch_queue_depth {tel['depth']:.0f}; epoch {prof_epoch} "
+        f"under the profiler (card kernels only): the card busy "
+        f"{epoch_busy['busy_share']:.3f} of its {walls[prof_epoch]:.3f} s "
+        f"wall (idle {1 - epoch_busy['busy_share']:.3f}); Accuracy at "
+        f"each epoch's end {', '.join(f'{a:.4f}' for a in accs)}")
+    log(f"fed one profiled step [{smi}]: {prof_s * 1e3:.2f} ms wall, card "
+        f"busy {busy['busy_s'] * 1e3:.2f} ms = {busy['busy_share']:.3f} "
+        f"(idle {1 - busy['busy_share']:.3f}), {busy['kernels']} kernels; "
+        f"device ms by kernel: " + "; ".join(f"{n} {ms:.3f}"
+                                             for n, ms in busy["top"]))
+    return {"launches": launches, "decoder": decoder, "img_s": img_s,
+            "epoch_img_s": epoch_img_s, "step_ms": step_ms,
+            "wait_share": wait_share, "tel_wait_share": tel_share,
+            "busy": busy["busy_share"],
+            "card_share": epoch_busy["busy_share"],
+            "accuracy": accs, "pipeline": pipe}
 
 
 def main() -> int:
@@ -6385,6 +6911,10 @@ def main() -> int:
     tel = timed("telemetry", phase_telemetry, smi, res["prompts"],
                 res["prompt"][:8, :128], gprog["host"]["replay_card"],
                 cres["graph"]["mfu"])
+    # train.py's loop fed from a .rec: the native pipeline, the prefetcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    fed = timed("fed_training", phase_fed_training, smi, rres["graph"])
     log(f"phases took {time.perf_counter() - t_start:.1f} s: "
         + json.dumps(took))
     for kind in ("step", "chunk"):
@@ -6450,6 +6980,8 @@ def main() -> int:
                  cres512, nres, rres, pres, state, llong, lpar, lscore, tel):
         for name, n in path["launches"].items():
             launches[name] = launches.get(name, 0) + n
+    for name, n in fed["launches"].items():
+        launches[name] = launches.get(name, 0) + n
     rows = []
     for name in ("paged_attention", "paged_attention_q8") + FLASH_KERNELS \
             + TRAINING_KERNELS:

@@ -6,12 +6,14 @@ easy to find; it imports torch, numpy and the standard library, never
 JAX and nothing of the JAX package.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.
 """
-from . import (autograd, context, contrib, convert, gluon, initializer,
-               lr_scheduler, models, optimizer, ops, random, serving)
+from . import (autograd, callback, context, contrib, convert, gluon, image,
+               initializer, io, lr_scheduler, metric, models, optimizer, ops,
+               random, recordio, serving)
 from . import ndarray as nd
 from .base import MXNetError
 from .context import cpu, gpu, num_gpus
 
-__all__ = ["MXNetError", "autograd", "context", "contrib", "convert", "cpu",
-           "gluon", "gpu", "initializer", "lr_scheduler", "models", "nd",
-           "num_gpus", "ops", "optimizer", "random", "serving"]
+__all__ = ["MXNetError", "autograd", "callback", "context", "contrib",
+           "convert", "cpu", "gluon", "gpu", "image", "initializer", "io",
+           "lr_scheduler", "metric", "models", "nd", "num_gpus", "ops",
+           "optimizer", "random", "recordio", "serving"]

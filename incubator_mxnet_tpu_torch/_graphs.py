@@ -39,9 +39,9 @@ buffers, captured once into a CUDA graph and replayed after that.
   so `launches(fn)` adds replays x launches a replay.
 * With telemetry enabled, each run (a replay, an eager body, a warm-up)
   is timed in `telemetry.perf` — on the card by a pair of CUDA events
-  on its stream (and by the pair a graph captured while telemetry was
-  enabled records around its work, for a replay launched on an idle
-  stream), by the host clock on the CPU — and the first body run of
+  on its stream (or by the pair a graph captured while telemetry was
+  enabled records around its work, which leaves out the replay's launch
+  latency), by the host clock on the CPU — and the first body run of
   each program (its warm-up, or its first eager run) is counted there
   for FLOPs and bytes (`telemetry.perf.counting`).  Disabled, a run
   reads one flag.

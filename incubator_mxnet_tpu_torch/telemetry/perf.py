@@ -38,11 +38,13 @@ decode of N tokens counts its N steps.
 **Program time.**  A graph replay returns as soon as it is queued, so
 host time around it is dispatch time, and an MFU computed from it can
 read above 1.  On the card each run is timed by a pair of CUDA events
-recorded on its stream around it (a replay or an eager body).  A replay
-launched on an idle stream would count the host's launch latency too:
-it is timed by the pair its graph records at the start and the end of
-its work (captured as event-record nodes), read before the graph
-replays again.  The pairs are resolved lazily: `resolve()` — run at every later run, at ``telemetry.dump()``,
+recorded on its stream around it (a replay or an eager body).  That
+pair also counts any time the stream waits for the host to launch the
+replay (on an idle stream, or one whose queued work ends before the
+launch does), so a replay is timed by the pair its graph records at the
+start and the end of its work (captured as event-record nodes) when that
+pair is read before the graph replays again; the stream's pair times it
+only when the graph was replayed again first.  The pairs are resolved lazily: `resolve()` — run at every later run, at ``telemetry.dump()``,
 at ``/metrics`` and ``/varz`` — asks each pair ``Event.query()`` and
 never waits.  On the CPU, which is synchronous, host time stands.  A
 resolved run feeds ``program_device_seconds{program=}`` and, with its
@@ -477,7 +479,7 @@ class _Run:
     its stream's pair of events, or from its graph's own pair)."""
 
     __slots__ = ("program", "flops", "bytes", "t0", "e0", "e1", "graph",
-                 "idle", "seconds")
+                 "seconds")
 
     def __init__(self, program, t0, e0):
         self.program = program
@@ -486,7 +488,6 @@ class _Run:
         self.e0 = e0
         self.e1 = None
         self.graph = None
-        self.idle = False
         self.seconds = None
 
 
@@ -607,14 +608,13 @@ def graph_events():
 
 def start_graph_run(program: str, device, events) -> Optional[_Run]:
     """`start_run` for a replay of a graph that records ``events``
-    (`graph_events`) at the start and the end of its work.  Whether the
-    stream was idle is noted: then the host's launch latency would sit
-    inside the stream's pair, and the graph's own pair times the run,
-    if it is read before the graph replays again (`retire`)."""
+    (`graph_events`) at the start and the end of its work: the graph's
+    own pair times the run if it is read before the graph replays again
+    (`retire`); the stream's pair, which may hold the host's launch
+    latency, only then."""
     run = start_run(program, device)
     if run is not None:
         run.graph = events
-        run.idle = torch.cuda.current_stream(device).query()
     return run
 
 
@@ -650,7 +650,7 @@ def resolve() -> None:
     with _pending_lock:
         while _pending and _pending[0].e1.query():
             run = _pending.popleft()
-            e0, e1 = run.graph if run.graph is not None and run.idle \
+            e0, e1 = run.graph if run.graph is not None \
                 else (run.e0, run.e1)
             try:
                 run.seconds = e0.elapsed_time(e1) / 1e3

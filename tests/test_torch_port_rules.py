@@ -77,7 +77,7 @@ def blocked_imports():
     to import; one that loads jaxlib shows in the list."""
     mods = sorted(set(SLICE4_MODULES + GRAPH_MODULES + NMT_MODULES
                       + VISION_MODULES + PTQ_MODULES + STATE_MODULES
-                      + LONGCTX_MODULES + TELEMETRY_MODULES))
+                      + LONGCTX_MODULES + TELEMETRY_MODULES + DATA_MODULES))
     res = _run(
         "import importlib, json, sys\n"
         "sys.modules['jax'] = None\n"
@@ -1016,3 +1016,68 @@ def test_chip_smoke_has_the_telemetry_phase():
     assert "\n41. telemetry" in src
     main = src[src.index("def main() -> int:"):]
     assert "phase_telemetry" in main and "lscore, tel)" in main
+
+
+# ---- the data and IO slice: RecordIO, the native pipeline, io, data ---
+DATA_MODULES = ["recordio", "image", "native", "native.build", "io",
+                "io.io", "io.prefetcher", "gluon.data", "gluon.data.dataset",
+                "gluon.data.sampler", "gluon.data.dataloader",
+                "gluon.data.vision", "gluon.data.vision.datasets",
+                "gluon.data.vision.transforms", "metric", "callback"]
+
+
+@pytest.mark.parametrize("mod", DATA_MODULES)
+def test_data_modules_import_with_jax_blocked(mod, blocked_imports):
+    _assert_imports_with_jax_blocked(blocked_imports, mod)
+
+
+def test_no_port_file_names_the_jax_packages_native_build():
+    """The port builds its own copies of the C++ sources into its own
+    ``_build/native/``: no file of it names the JAX package's native
+    directory or module."""
+    bad = []
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith((".py", ".cc", ".h", ".cu", ".cuh")):
+                path = os.path.join(dirpath, f)
+                with open(path) as fh:
+                    text = fh.read()
+                if "incubator_mxnet_tpu/native" in text \
+                        or "incubator_mxnet_tpu.native" in text:
+                    bad.append(os.path.relpath(path, ROOT))
+    assert bad == []
+
+
+def test_data_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    import numpy as np
+
+    from incubator_mxnet_tpu_torch import io
+    from incubator_mxnet_tpu_torch.gluon import data
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((4, 2), np.float32)
+    calls = [lambda: io.to_device(x),
+             lambda: io.DevicePrefetcher([x]),
+             lambda: io.NDArrayIter(x, batch_size=2),
+             lambda: io.PrefetchingIter(
+                 io.NDArrayIter(x, batch_size=2, device="cpu"),
+                 prefetch_to_device=True),
+             lambda: data.DataLoader(data.ArrayDataset(x), batch_size=2,
+                                     prefetch_to_device=True),
+             lambda: io.ImageRecordIter(str(tmp_path / "none.rec"),
+                                        (3, 8, 8), 2)]
+    for call in calls:
+        with pytest.raises(MXNetError, match="no CUDA device"):
+            call()
+    assert io.to_device(x, device="cpu").device.type == "cpu"
+    # without prefetching a DataLoader gives host batches
+    batch = next(iter(data.DataLoader(data.ArrayDataset(x), batch_size=2)))
+    assert isinstance(batch, np.ndarray)
+
+
+def test_chip_smoke_has_the_fed_training_phase():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        src = f.read()
+    assert "\n42. fed training" in src
+    main = src[src.index("def main() -> int:"):]
+    assert "phase_fed_training" in main and "fed[\"launches\"]" in main
