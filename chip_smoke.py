@@ -478,6 +478,41 @@ Long context (after phase 36; benchmark/longctx_bench.py):
    `Accuracy` updated at flush boundaries: ``chain_steps=4`` against
    ``chain_steps=1`` over 10 steps, bit for bit (losses, outputs, f32
    masters, momenta, running stats, accuracy).
+44. word-level LSTM LM — the loop of `examples/gluon/word_language_model.py`
+   on `models.WordLM` at the upstream examples' 650-wide configuration
+   (2 layers, tied, dropout 0.5; V=33,278, WikiText-2's vocabulary;
+   bptt 35, batch 20) in f32, hybridized (the model and the loss block
+   as CUDA graphs), SGD momentum 0 at lr 1, ``clip_global_norm(grads,
+   0.25 x 20)`` between ``backward()`` and ``step(1)`` (the norm kept on
+   the card), the hidden state carried across windows and detached:
+   30 windows, three passes over the example's synthetic Markov corpus
+   cut to 10 windows (reset at each pass).  The first 4 windows are
+   bit-identical to the same windows never hybridized from the same
+   seed (losses, every weight, the states); each window after the
+   first launches the device-seed dropout forward and the dropout
+   backward 3 times each (the embedding's, the LSTM's inter-layer and
+   the output's dropout) and each cross-entropy kernel once, counted
+   inside replays; the mean loss of the last 10 windows is below the
+   first window's and below ln 33,278.  The dropout kernels at the
+   embedding site's (35, 20, 650) and the cross-entropy kernels at
+   (700, 33,278) are held to their plain versions there and timed
+   beside them, ``F.dropout`` / ``native_dropout_backward`` /
+   ``F.cross_entropy`` and the bounds.  Printed: host ms a window,
+   ms between CUDA events, tokens/s, the card's busy share over one
+   profiled window, and the LSTM alone (forward and backward) on the
+   port's graphs beside cuDNN's ``torch.nn.LSTM`` with the same weights
+   (a yardstick the port never calls);
+45. DCGAN — the loop of `examples/gluon/dc_gan.py` on `models.dcgan_nets`
+   at the upstream example's widths (ngf = ndf = 64, latent 100, batch
+   64, 32x32), weights ``Normal(0.02)``, two Trainers under Adam(2e-4,
+   beta1 0.5) and `SigmoidBinaryCrossEntropyLoss`, images from the
+   port's `SyntheticImageDataset` squashed to (-1, 1), under
+   deterministic cuDNN: 20 iterations with both nets hybridized (G's
+   inference program outside ``record()``, D recorded twice in one
+   ``record()``); the first 3 bit-identical to the nets never
+   hybridized (both losses, both nets' weights, every BatchNorm's
+   running stats after each).  Printed: img/s, ms an iteration and the
+   card's busy share over one profiled iteration.
 
 The line before the last is a JSON object with every kernel's launches
 (summed over the main paths that ran it, launches inside graph replays
@@ -521,9 +556,14 @@ from incubator_mxnet_tpu_torch.gluon import data as mx_data
 from incubator_mxnet_tpu_torch import random as mx_random
 from incubator_mxnet_tpu_torch.contrib.quantization import (
     _QuantizedWrapper, quantize_kv, quantize_net)
+from incubator_mxnet_tpu_torch import initializer as mx_init
 from incubator_mxnet_tpu_torch.gluon import HybridBlock, Trainer
+from incubator_mxnet_tpu_torch.gluon import nn as gluon_nn
+from incubator_mxnet_tpu_torch.gluon import rnn as gluon_rnn
+from incubator_mxnet_tpu_torch.gluon import utils as gluon_utils
 from incubator_mxnet_tpu_torch.gluon.trainer import _Update
-from incubator_mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from incubator_mxnet_tpu_torch.gluon.loss import (
+    SigmoidBinaryCrossEntropyLoss, SoftmaxCrossEntropyLoss)
 from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
 from incubator_mxnet_tpu_torch.gluon.nn import Dense
 from incubator_mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
@@ -531,7 +571,9 @@ from incubator_mxnet_tpu_torch.optimizer import optimizer as opt_mod
 from incubator_mxnet_tpu_torch.lr_scheduler import InvSqrtScheduler
 from incubator_mxnet_tpu_torch.models import (BERTForPretraining,
                                               LabelSmoothedCELoss,
-                                              Transformer, TransformerLM)
+                                              Transformer, TransformerLM,
+                                              WordLM, dcgan_nets)
+from incubator_mxnet_tpu_torch.ndarray import rnn_impl as rnn_impl_mod
 from incubator_mxnet_tpu_torch.models import generation as gen_mod
 from incubator_mxnet_tpu_torch.ops import flash_attention as _fa_fn
 from incubator_mxnet_tpu_torch.ops import paged_attention as _pa_fn
@@ -7070,6 +7112,495 @@ def phase_chained_steps(smi: str) -> dict:
                      for m, r in runs.items()}}
 
 
+# ------------------------------------------------------ phases 44 and 45
+# the word-level LSTM LM that the upstream Gluon and PyTorch
+# word_language_model examples document at 650 wide: 2 layers, tied,
+# dropout 0.5, bptt 35, batch 20, over WikiText-2's vocabulary
+WORD_LM = dict(vocab_size=33278, emsize=650, nhid=650, nlayers=2,
+               dropout=0.5, tied=True)
+LM_BPTT, LM_BATCH = 35, 20
+# the repo example's SGD (lr 1, momentum 0) and clip (0.25 x batch).  At
+# the upstream examples' lr 20 the loss diverged within 30 windows under
+# this clip (PERF.md)
+LM_LR, LM_CLIP = 1.0, 0.25
+LM_WINDOWS = 30
+# the repo example's synthetic Markov corpus (word_language_model.py's
+# `synthetic_corpus`), of a length whose 90% train split holds 10
+# windows: 30 windows are three passes over it
+LM_CORPUS_TOKENS = 8000
+LM_EAGER_WINDOWS = 4
+
+
+def synthetic_corpus(vocab, n_tokens, seed=7):
+    """Markov bigram chain: each token strongly prefers 4 successors
+    (`examples/gluon/word_language_model.py`)."""
+    rng = np.random.RandomState(seed)
+    successors = rng.randint(0, vocab, size=(vocab, 4))
+    toks = np.empty(n_tokens, dtype="int32")
+    toks[0] = 0
+    choices = rng.randint(0, 4, size=n_tokens)          # which successor
+    noise = rng.rand(n_tokens) < 0.05                   # 5% random jumps
+    jumps = rng.randint(0, vocab, size=n_tokens)
+    for i in range(1, n_tokens):
+        toks[i] = jumps[i] if noise[i] else successors[toks[i - 1], choices[i]]
+    return toks
+
+
+def _lm_windows():
+    """The train split batchified (one column a batch lane) and cut into
+    (x, y) windows of bptt rows, int64 on the card."""
+    toks = synthetic_corpus(WORD_LM["vocab_size"], LM_CORPUS_TOKENS)
+    toks = toks[:int(len(toks) * 0.9)]
+    nbatch = len(toks) // LM_BATCH
+    data = torch.from_numpy(toks[:nbatch * LM_BATCH].astype(np.int64)) \
+        .reshape(LM_BATCH, nbatch).t().contiguous().to(DEV)
+    return [(data[i:i + LM_BPTT], data[i + 1:i + 1 + LM_BPTT])
+            for i in range(0, nbatch - 1 - LM_BPTT + 1, LM_BPTT)]
+
+
+def _lm_counts():
+    return {n: _graphs.launches(KERNELS[n]["fn"])
+            for n in ("dropout_fwd", "dropout_fwd_dev", "dropout_bwd",
+                      "dropout_mask", "dropout_mask_dev", "xent_forward",
+                      "xent_backward")}
+
+
+def _lm_loop(hybrid, n_windows, rec=None, snapshot_at=None):
+    """The example's training loop on `WordLM` from seed 0 (Uniform(0.1)
+    weights): ``n_windows`` windows, three passes over the corpus, the
+    states carried and detached (reset at each pass's start, as the
+    example resets them each epoch), ``clip_global_norm`` (on the card,
+    no host sync) between ``backward()`` and ``step(1)``.  ``hybrid``:
+    the model and the loss block hybridized (CUDA graphs), else never
+    hybridized.  Returns the losses and norms (on the card), each
+    window's launches, and at ``snapshot_at`` windows the weights and
+    states."""
+    mx_random.seed(0, device=DEV)
+    model = WordLM(**WORD_LM, device=DEV)
+    model.initialize(mx_init.Uniform(0.1))
+    loss_fn = SoftmaxCrossEntropyLoss()
+    if hybrid:
+        model.hybridize()
+        loss_fn.hybridize()
+    trainer = Trainer(model.collect_params(), "sgd",
+                      {"learning_rate": LM_LR, "momentum": 0.0})
+    params = [p for p in model.collect_params().values()
+              if p.grad_req != "null"]
+    wins = _lm_windows()
+    out = {"losses": [], "norms": [], "launches": [], "model": model}
+
+    def keep_first(key):
+        def keep(args, kw):
+            if rec is not None:
+                rec.setdefault(key, _kept(args))
+        return keep
+
+    def window(k, states, clip):
+        x, y = wins[k % len(wins)]
+        if k % len(wins) == 0:
+            states = model.begin_state(LM_BATCH)
+        states = [s.detach() for s in states]
+        with autograd.record():
+            logits, states = model(x, states)
+            loss = loss_fn(logits, y).mean()
+        loss.backward()
+        norm = gluon_utils.clip_global_norm(
+            [p.grad for p in params], LM_CLIP * LM_BATCH,
+            check_isfinite=False) if clip else None
+        trainer.step(1)
+        return states, loss.detach(), norm
+
+    box = [None]                # the states carried to the next window
+
+    def step(k, clip=True):
+        box[0], loss, norm = window(k, box[0], clip)
+        return loss, norm
+
+    with recording(dk_mod, "_fwd_cuda", keep_first("dropout_fwd")), \
+            recording(dk_mod, "_bwd_cuda", keep_first("dropout_bwd")), \
+            recording(xk_mod, "_fwd_cuda", keep_first("xent_fwd")), \
+            recording(xk_mod, "_bwd_cuda", keep_first("xent_bwd")):
+        for k in range(n_windows):
+            c0 = _lm_counts()
+            loss, norm = step(k)
+            c1 = _lm_counts()
+            out["launches"].append({n: c1[n] - c0[n] for n in c0})
+            out["losses"].append(loss)
+            out["norms"].append(norm)
+            if snapshot_at == k + 1:
+                out["weights"] = [p.detach().clone() for p in params]
+                out["states"] = [s.detach().clone() for s in box[0]]
+    out["window"] = step
+    return out
+
+
+def _lm_yardstick(model, smi):
+    """The LSTM alone at the window's shapes, (35, 20, 650) in, its two
+    layers' states: the port's time loop (the hybridized layer, a
+    recorded forward and backward replayed as CUDA graphs) against
+    cuDNN's ``torch.nn.LSTM`` loaded with the same weights (the
+    yardstick, never a route of the port), forward and backward, no
+    dropout in either; outputs held to each other within 1e-4 of their
+    largest value."""
+    lstm = model.lstm
+    H, L = WORD_LM["nhid"], WORD_LM["nlayers"]
+    same = gluon_rnn.LSTM(H, num_layers=L, input_size=WORD_LM["emsize"],
+                          device=DEV)
+    with torch.no_grad():
+        same.blob().copy_(lstm.blob())
+    same.hybridize()
+    g = torch.Generator(device=DEV).manual_seed(3)
+    x = torch.randn(LM_BPTT, LM_BATCH, WORD_LM["emsize"], device=DEV,
+                    generator=g)
+    h0 = [torch.randn(L, LM_BATCH, H, device=DEV, generator=g) * 0.1
+          for _ in range(2)]
+    dy = torch.randn(LM_BPTT, LM_BATCH, H, device=DEV, generator=g)
+    xr = x.clone().requires_grad_()
+
+    def port():
+        with autograd.record():
+            y, _ = same(xr, h0)
+        y.backward(dy)
+        return y
+
+    cudnn = torch.nn.LSTM(WORD_LM["emsize"], H, L).to(DEV)
+    weights, biases = rnn_impl_mod._unpack(
+        lstm.blob().detach(), "lstm", WORD_LM["emsize"], H, L, False)
+    with torch.no_grad():
+        for i, ((wi, wh), (bi, bh)) in enumerate(zip(weights, biases)):
+            getattr(cudnn, f"weight_ih_l{i}").copy_(wi)
+            getattr(cudnn, f"weight_hh_l{i}").copy_(wh)
+            getattr(cudnn, f"bias_ih_l{i}").copy_(bi)
+            getattr(cudnn, f"bias_hh_l{i}").copy_(bh)
+    xc = x.clone().requires_grad_()
+
+    def library():
+        y, _ = cudnn(xc, tuple(h0))
+        y.backward(dy)
+        return y
+
+    yp, yc = port().detach(), library().detach()
+    err = (yp - yc).abs().max().item()
+    assert err <= 1e-4 * yc.abs().max().item(), \
+        f"the port's LSTM against cuDNN's: {err}"
+    return {"port_ms": time_ms(port, iters=20),
+            "cudnn_ms": time_ms(library, iters=20), "err": err}
+
+
+def time_lm_dropout(rec) -> dict:
+    """The dropout kernels at the word LM's first dropout site (the
+    embedding's, (35, 20, 650) f32, rate 0.5, the seed in the slot its
+    captured program read) and its backward: held bit for bit to the
+    plain versions there, timed beside them, ``F.dropout`` (forward) and
+    ``native_dropout_backward`` (the library's backward of the same
+    mask) and the byte bounds."""
+    x, res, slot, rate = rec["dropout_fwd"]
+    dy, mask, brate = rec["dropout_bwd"]
+    assert res is None and isinstance(slot, torch.Tensor), (res, slot)
+    y, m = dropout_fwd_dev(x, None, slot, rate)
+    ry, rm = dropout_fwd_reference(x, None, slot, rate)
+    assert torch.equal(m, rm) and torch.equal(_bits(y), _bits(ry)), \
+        "dropout forward at the word LM's inputs differs"
+    dx = dropout_bwd(dy, mask, brate)
+    assert torch.equal(_bits(dx), _bits(dropout_bwd_reference(
+        dy, mask, brate))), "dropout backward at the word LM's inputs differs"
+    n, e = x.numel(), x.element_size()
+    fwd_bound, fwd_by = _bound(n * (2 * e + 1) + 8, 0,
+                               PEAK_FLOPS[torch.float32])
+    bwd_bound, bwd_by = _bound(n * (2 * e + 1), 0, PEAK_FLOPS[torch.float32])
+    return {
+        "dropout_fwd_dev": {
+            "shape": f"{tuple(x.shape)} {x.dtype} rate={rate}",
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: dropout_fwd_dev(x, None, slot, rate)),
+            "plain_ms": time_ms(lambda: dropout_fwd_reference(
+                x, None, slot, rate)),
+            "library_ms": time_ms(lambda: F.dropout(x, rate)),
+            "bound_ms": fwd_bound, "bound_by": fwd_by},
+        "dropout_bwd": {
+            "shape": f"{tuple(dy.shape)} {dy.dtype} rate={brate}",
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: dropout_bwd(dy, mask, brate)),
+            "plain_ms": time_ms(lambda: dropout_bwd_reference(dy, mask,
+                                                              brate)),
+            "library_ms": time_ms(
+                lambda: torch.ops.aten.native_dropout_backward(
+                    dy, mask.view(torch.bool), dk_mod._scale(brate,
+                                                             dy.dtype))),
+            "bound_ms": bwd_bound, "bound_by": bwd_by}}
+
+
+def phase_word_lm(smi: str) -> dict:
+    """Phase 44 (see the module docstring)."""
+    rec = {}
+    t0 = time.perf_counter()
+    _zero_counts()
+    graph = _lm_loop(True, LM_WINDOWS, rec, snapshot_at=LM_EAGER_WINDOWS)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    eager = _lm_loop(False, LM_EAGER_WINDOWS, snapshot_at=LM_EAGER_WINDOWS)
+    losses = torch.stack(graph["losses"]).cpu()
+    elosses = torch.stack(eager["losses"]).cpu()
+    assert torch.equal(losses[:LM_EAGER_WINDOWS], elosses), \
+        (losses[:LM_EAGER_WINDOWS], elosses)
+    for key in ("weights", "states"):
+        assert all(torch.equal(a, b) for a, b in zip(graph[key],
+                                                     eager[key])), \
+            f"word LM: {key} after {LM_EAGER_WINDOWS} windows differ " \
+            f"between graphs and the body never hybridized"
+    assert torch.isfinite(losses).all(), losses
+    first, last10 = losses[0].item(), losses[-10:].mean().item()
+    assert last10 < first and last10 < math.log(WORD_LM["vocab_size"]), \
+        (first, last10, losses.tolist())
+    # launches a window once every program is captured: 3 dropout sites
+    # (the embedding's, the LSTM's inter-layer, the output's) forward and
+    # backward, one cross-entropy forward and backward
+    steady = {"dropout_fwd": 0, "dropout_fwd_dev": 3, "dropout_bwd": 3,
+              "dropout_mask": 0, "dropout_mask_dev": 0, "xent_forward": 1,
+              "xent_backward": 1}
+    for k, c in enumerate(graph["launches"][1:], 2):
+        assert c == steady, (k, c)
+    eager_win = {"dropout_fwd": 3, "dropout_fwd_dev": 0, "dropout_bwd": 3,
+                 "dropout_mask": 0, "dropout_mask_dev": 0,
+                 "xent_forward": 1, "xent_backward": 1}
+    assert all(c == eager_win for c in eager["launches"]), eager["launches"]
+    caps = {k: _graphs.captures.get(k, 0) for k in ("fwd_record",
+                                                    "bwd_record")}
+    reps = {k: _graphs.replays.get(k, 0) for k in ("fwd_record",
+                                                   "bwd_record")}
+    launches = {n: sum(c[n] for c in graph["launches"] + eager["launches"])
+                for n in steady}
+    # timing: windows of the graphed loop, each synchronised, then 10
+    # between two CUDA events; one profiled window
+    model = graph["model"]
+    k0 = LM_WINDOWS
+    torch.cuda.synchronize()
+    host = []
+    for k in range(k0, k0 + 5):
+        t1 = time.perf_counter()
+        graph["window"](k)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t1) * 1e3)
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    t1 = time.perf_counter()
+    for k in range(k0 + 5, k0 + 15):
+        graph["window"](k)
+    end.record()
+    end.synchronize()
+    ev_ms = start.elapsed_time(end) / 10
+    run_ms = (time.perf_counter() - t1) * 1e3 / 10
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        graph["window"](k0 + 15)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t1
+    busy = device_busy(prof, prof_s)
+    # what clip_global_norm costs: reading the gradients before step()
+    # takes the eager update (and the gradients' copies); without it the
+    # update is the captured program U (two windows to capture it)
+    for k in range(k0 + 16, k0 + 18):
+        graph["window"](k, clip=False)
+    start.record()
+    t1 = time.perf_counter()
+    for k in range(k0 + 18, k0 + 28):
+        graph["window"](k, clip=False)
+    end.record()
+    end.synchronize()
+    noclip_ev_ms = start.elapsed_time(end) / 10
+    noclip_run_ms = (time.perf_counter() - t1) * 1e3 / 10
+    assert _graphs.captures.get("update", 0) == 1, dict(_graphs.captures)
+    yard = _lm_yardstick(model, smi)
+    card_ms = busy["busy_s"] * 1e3
+    tok = LM_BPTT * LM_BATCH
+    errs = {}
+    times = time_xent(*rec["xent_fwd"], *rec["xent_bwd"], "word LM")
+    times.update(time_lm_dropout(rec))
+    for name, r in times.items():
+        errs[name] = r["max_abs_err"]
+    log(f"word LM [{smi}] WordLM(V={WORD_LM['vocab_size']}, "
+        f"{WORD_LM['emsize']} wide, {WORD_LM['nlayers']} layers, tied, "
+        f"dropout {WORD_LM['dropout']}) f32, bptt {LM_BPTT}, batch "
+        f"{LM_BATCH}, SGD lr {LM_LR} momentum 0, clip_global_norm "
+        f"{LM_CLIP * LM_BATCH}: {LM_WINDOWS} windows on graphs in "
+        f"{loop_s:.2f} s, losses {[round(v, 4) for v in losses.tolist()]} "
+        f"(first {first:.4f}, mean of the last 10 {last10:.4f}, ln V "
+        f"{math.log(WORD_LM['vocab_size']):.4f}); norms "
+        f"{[round(float(v), 3) for v in graph['norms'][:5]]}...; "
+        f"{LM_EAGER_WINDOWS} graphed windows bit-identical to the body "
+        f"never hybridized (losses, {len(graph['weights'])} weights, "
+        f"{len(graph['states'])} states); captures {caps}, replays {reps}")
+    log(f"word LM [{smi}]: launches a window on graphs, inside replays "
+        f"(window 1, which captures: {graph['launches'][0]}) "
+        + json.dumps(graph["launches"][1]) + "; never hybridized "
+        + json.dumps(eager["launches"][0]))
+    log(f"word LM [{smi}]: window {run_ms:.3f} host ms (10 back to back; "
+        f"{', '.join(f'{t:.2f}' for t in host)} each synchronised), "
+        f"{ev_ms:.3f} ms between CUDA events, {tok / run_ms * 1e3:.1f} "
+        f"tokens/s; one profiled window {prof_s * 1e3:.2f} ms wall, card "
+        f"busy {card_ms:.3f} ms = {busy['busy_share']:.3f}, "
+        f"{busy['kernels']} kernels; device ms by kernel: "
+        + "; ".join(f"{n} {ms:.3f}" for n, ms in busy["top"]))
+    log(f"word LM [{smi}]: clip_global_norm before step() (the eager "
+        f"update): {run_ms:.3f} host ms / {ev_ms:.3f} ms between events a "
+        f"window, against {noclip_run_ms:.3f} / {noclip_ev_ms:.3f} without "
+        f"it (the captured update): {ev_ms - noclip_ev_ms:.3f} ms a window")
+    log(f"word LM [{smi}]: the LSTM alone at ({LM_BPTT}, {LM_BATCH}, "
+        f"{WORD_LM['emsize']}), forward and backward: the port's time loop "
+        f"on graphs {yard['port_ms']:.3f} ms ({yard['port_ms'] / card_ms:.3f}"
+        f" of the profiled window's card time), cuDNN's torch.nn.LSTM with "
+        f"the same weights {yard['cudnn_ms']:.3f} ms (yardstick; outputs "
+        f"within {yard['err']:.2e})")
+    for name, r in times.items():
+        log(f"{name} at the word LM's inputs {r['shape']}: {r['ms']:.4f} "
+            f"ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {launches[name]} launches on phase 44's "
+            f"path ({steady[name]} a graphed window) [{smi}]")
+    del graph["model"], graph["window"]
+    return {"launches": launches, "errs": errs, "times": times,
+            "window_ms": run_ms, "card_ms": card_ms,
+            "clip_ms": ev_ms - noclip_ev_ms,
+            "busy": busy["busy_share"], "yardstick": yard}
+
+
+# DCGAN at the upstream example/gluon/dc_gan widths on the repo
+# example's 32x32 networks
+DCGAN = dict(ngf=64, ndf=64, latent=100)
+GAN_BATCH, GAN_ITERS, GAN_EAGER_ITERS = 64, 20, 3
+GAN_ADAM = {"learning_rate": 2e-4, "beta1": 0.5}
+
+
+def _gan_batches():
+    """Images of the port's `SyntheticImageDataset` (4 classes, 3x32x32,
+    noise 0.2, seed 3, templates 11; HWC) in a shuffled order, NCHW,
+    squashed into (-1, 1) by tanh as the example's ``real_batches``
+    does, full batches only, on the card."""
+    ds = mx_data.vision.SyntheticImageDataset(
+        num_samples=GAN_BATCH * 10, num_classes=4, shape=(3, 32, 32),
+        noise=0.2, seed=3, template_seed=11)
+    order = np.random.RandomState(0).permutation(len(ds))
+    imgs = np.stack([ds[i][0] for i in order]).transpose(0, 3, 1, 2)
+    imgs = torch.from_numpy(np.tanh(imgs).astype(np.float32)).to(DEV)
+    return list(imgs.split(GAN_BATCH))
+
+
+def _gan_loop(hybrid, n_iters):
+    """The example's loop from seed 0 (``Normal(0.02)`` weights), the
+    latent codes from a card generator seeded 1: ``hybrid`` both nets
+    hybridized (CUDA graphs), else never hybridized.  Returns each
+    iteration's two losses, and the weights and running stats of both
+    nets after each iteration."""
+    mx_random.seed(0, device=DEV)
+    netG, netD = dcgan_nets(**DCGAN, device=DEV)
+    netG.initialize(mx_init.Normal(0.02))
+    netD.initialize(mx_init.Normal(0.02))
+    if hybrid:
+        netG.hybridize()
+        netD.hybridize()
+    loss_fn = SigmoidBinaryCrossEntropyLoss()
+    trG = Trainer(netG.collect_params(), "adam", dict(GAN_ADAM))
+    trD = Trainer(netD.collect_params(), "adam", dict(GAN_ADAM))
+    ones = torch.ones(GAN_BATCH, 1, device=DEV)
+    zeros = torch.zeros(GAN_BATCH, 1, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    batches = _gan_batches()
+    lat = (GAN_BATCH, DCGAN["latent"], 1, 1)
+
+    def iteration(k):
+        real = batches[k % len(batches)]
+        z = torch.randn(lat, device=DEV, generator=gen)
+        fake = netG(z).detach()
+        with autograd.record():
+            lossD = (loss_fn(netD(real), ones)
+                     + loss_fn(netD(fake), zeros)).mean()
+        lossD.backward()
+        trD.step(1)
+        z = torch.randn(lat, device=DEV, generator=gen)
+        with autograd.record():
+            lossG = loss_fn(netD(netG(z)), ones).mean()
+        lossG.backward()
+        trG.step(1)
+        return lossD.detach(), lossG.detach()
+
+    out = {"losses": [], "states": [], "iteration": iteration,
+           "nets": (netG, netD), "captures": []}
+    for k in range(n_iters):
+        out["losses"].append(torch.stack(iteration(k)))
+        out["captures"].append(sum(_graphs.captures.values()))
+        if k < GAN_EAGER_ITERS:
+            out["states"].append([t.detach().clone() for net in (netG, netD)
+                                  for t in net.parameters()])
+    return out
+
+
+def phase_dcgan(smi: str) -> dict:
+    """Phase 45 (see the module docstring)."""
+    _graphs.reset_counts()
+    with cudnn_mode(True):
+        t0 = time.perf_counter()
+        graph = _gan_loop(True, GAN_ITERS)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        eager = _gan_loop(False, GAN_EAGER_ITERS)
+        for k in range(GAN_EAGER_ITERS):
+            assert torch.equal(graph["losses"][k], eager["losses"][k]), \
+                (k, graph["losses"][k], eager["losses"][k])
+            assert all(torch.equal(a, b) for a, b in zip(
+                graph["states"][k], eager["states"][k])), \
+                f"DCGAN: weights or running stats differ after iteration " \
+                f"{k + 1} between graphs and the body never hybridized"
+        losses = torch.stack(graph["losses"]).cpu()
+        assert torch.isfinite(losses).all(), losses
+        caps = {k: _graphs.captures.get(k, 0) for k in
+                ("raw_fn", "fwd_record", "bwd_record", "update")}
+        it = graph["iteration"]
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        for k in range(GAN_ITERS, GAN_ITERS + 10):
+            it(k)
+        end.record()
+        end.synchronize()
+        iter_ms = (time.perf_counter() - t1) * 1e3 / 10
+        ev_ms = start.elapsed_time(end) / 10
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            it(GAN_ITERS + 10)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t1
+        busy = device_busy(prof, prof_s)
+        netG, netD = graph["nets"]
+        n_bn = sum(1 for net in (netG, netD) for m in net.modules()
+                   if isinstance(m, gluon_nn.BatchNorm))
+    log(f"DCGAN [{smi}] ngf={DCGAN['ngf']} ndf={DCGAN['ndf']} latent "
+        f"{DCGAN['latent']} batch {GAN_BATCH}, 32x32, Adam {GAN_ADAM}, "
+        f"deterministic cuDNN: {GAN_ITERS} iterations on graphs in "
+        f"{loop_s:.2f} s, losses (D, G) "
+        f"{[[round(v, 4) for v in r] for r in losses.tolist()]}; "
+        f"{GAN_EAGER_ITERS} graphed iterations bit-identical to the "
+        f"bodies never hybridized (both losses, both nets' weights and "
+        f"the running stats of all {n_bn} BatchNorms after each); "
+        f"captures {caps}, their running total after each iteration "
+        f"{graph['captures']}")
+    log(f"DCGAN [{smi}]: iteration {iter_ms:.3f} host ms (10 back to "
+        f"back), {ev_ms:.3f} ms between CUDA events, "
+        f"{GAN_BATCH / iter_ms * 1e3:.1f} img/s; one profiled iteration "
+        f"{prof_s * 1e3:.2f} ms wall, card busy {busy['busy_s'] * 1e3:.3f} "
+        f"ms = {busy['busy_share']:.3f}, {busy['kernels']} kernels; device "
+        f"ms by kernel: " + "; ".join(f"{n} {ms:.3f}" for n, ms in
+                                      busy["top"]))
+    return {"iter_ms": iter_ms, "card_ms": busy["busy_s"] * 1e3,
+            "busy": busy["busy_share"], "img_s": GAN_BATCH / iter_ms * 1e3}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     took = {}
@@ -7202,6 +7733,15 @@ def main() -> int:
     chain = timed("chained_steps", phase_chained_steps, smi)
     for name, e in chain["errs"].items():
         errs.setdefault(name, {})["chained"] = e
+    # recurrent and generative Gluon: the word LM and DCGAN
+    gc.collect()
+    torch.cuda.empty_cache()
+    wlm = timed("word_lm", phase_word_lm, smi)
+    for name, e in wlm["errs"].items():
+        errs.setdefault(name, {})["word_lm"] = e
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("dcgan", phase_dcgan, smi)
     log(f"phases took {time.perf_counter() - t_start:.1f} s: "
         + json.dumps(took))
     for kind in ("step", "chunk"):
@@ -7270,6 +7810,8 @@ def main() -> int:
     for name, n in fed["launches"].items():
         launches[name] = launches.get(name, 0) + n
     for name, n in chain["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in wlm["launches"].items():
         launches[name] = launches.get(name, 0) + n
     rows = []
     for name in ("paged_attention", "paged_attention_q8") + FLASH_KERNELS \

@@ -12,8 +12,10 @@ from . import (autograd, callback, context, contrib, convert, gluon, image,
 from . import ndarray as nd
 from .base import MXNetError
 from .context import cpu, gpu, num_gpus
+from .initializer import init
 
 __all__ = ["MXNetError", "autograd", "callback", "context", "contrib",
-           "convert", "cpu", "gluon", "gpu", "image", "initializer", "io",
+           "convert", "cpu", "gluon", "gpu", "image", "init", "initializer",
+           "io",
            "lr_scheduler", "metric", "models", "nd", "num_gpus", "ops",
            "optimizer", "random", "recordio", "serving"]

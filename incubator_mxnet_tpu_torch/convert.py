@@ -8,13 +8,17 @@ writes (``embed.weight``, ``layer0.attn.qkv.weight``,
 ``features.4.0.body.1.running_mean``, ``output.weight``).  The port's
 blocks use the same names and layouts (`Dense` weight (out, in),
 `LayerNorm` gamma/beta, convolution weights (out, in/groups, *k),
-BatchNorm's running stats as parameters), so the copy is one-to-one;
-each array is cast to the parameter's dtype and moved to its device.
+BatchNorm's running stats as parameters; a fused RNN layer's packed
+blob ``lstm.parameters``; a word LM's ``decoder_bias``), so the copy is
+one-to-one; each array is cast to the parameter's dtype and moved to
+its device.
 
 A parameter shared by two blocks (the `Transformer`'s tied source and
 target embedding) has one name in the port (``named_parameters()``
 gives it once) and every name in the JAX package's dict: the other
-names are aliases, taken when their array equals the parameter's.
+names are aliases, taken when their array equals the parameter's.  A
+tied word LM's decoder reads ``embed.weight`` itself, so that weight
+has one name in both packages.
 """
 from __future__ import annotations
 

@@ -465,7 +465,9 @@ def call_block(block, args, kwargs, call_now):
     inputs, deferred as a new step, or run now (``call_now()``), its
     output spec learned for the next call of this signature (the first
     call of a signature runs, as JAX's ``eval_shape`` cannot be had).
-    What decides reads metadata alone, with the parameters' chain hook
+    A call with tensors inside a list or tuple argument (a recurrent
+    layer's states) runs now: a stage holds tensors only at the top
+    level.  What decides reads metadata alone, with the parameters' chain hook
     off (`_meta`)."""
     if block._forward_pre_hooks or block._forward_hooks:
         return call_now()
@@ -476,6 +478,9 @@ def call_block(block, args, kwargs, call_now):
         except TypeError:           # an argument that no signature holds
             key = None
         leaves = list(itertools.chain(args, kwargs.values()))
+        if any(isinstance(a, (list, tuple)) and _holds_tensor(a)
+               for a in leaves):
+            key = None              # tensors in a list (an RNN's states)
         defer = None
         if key is not None and any(isinstance(a, Deferred) for a in leaves):
             out = _splice(block, args, kwargs, key, leaves)
@@ -497,6 +502,13 @@ def call_block(block, args, kwargs, call_now):
     trainer._open_step = step
     with _meta():
         return step.add_stage(block, args, kwargs, spec, own)
+
+
+def _holds_tensor(a) -> bool:
+    """Whether a list or tuple argument holds a tensor, at any depth."""
+    return any(isinstance(e, torch.Tensor)
+               or (isinstance(e, (list, tuple)) and _holds_tensor(e))
+               for e in a)
 
 
 def _meta():

@@ -55,10 +55,75 @@ def _lru_store(cache: "OrderedDict", key, val, cap: int):
 
 def _arg_key(a):
     """An argument's part of a program's signature: a tensor's shape,
-    dtype and device, any other value itself."""
+    dtype and device, a list or tuple by its items, any other value
+    itself."""
     if isinstance(a, torch.Tensor):
         return ("tensor", tuple(a.shape), a.dtype, a.device)
+    if isinstance(a, (list, tuple)):
+        return ("seq", type(a).__name__, tuple(_arg_key(e) for e in a))
     return ("value", a)
+
+
+# where a tensor sits in an argument's template (`_template`)
+_SLOT = object()
+
+
+def _leaves(name, a):
+    """(name, tensor) of every tensor in argument ``a``: ``name`` itself
+    for a tensor, ``name.j`` for the j-th item of a list or tuple (the
+    states of a recurrent layer), recursively."""
+    if isinstance(a, torch.Tensor):
+        yield name, a
+    elif isinstance(a, (list, tuple)):
+        for j, e in enumerate(a):
+            yield from _leaves(f"{name}.{j}", e)
+
+
+def _template(a):
+    """Argument ``a`` with each tensor replaced by `_SLOT`."""
+    if isinstance(a, torch.Tensor):
+        return _SLOT
+    if isinstance(a, (list, tuple)):
+        return type(a)(_template(e) for e in a)
+    return a
+
+
+def _fill(name, t, static):
+    """The argument of template ``t`` with each slot the static buffer
+    of its name."""
+    if t is _SLOT:
+        return static[name]
+    if isinstance(t, (list, tuple)):
+        return type(t)(_fill(f"{name}.{j}", e, static)
+                       for j, e in enumerate(t))
+    return t
+
+
+def _flatten_out(out):
+    """A forward's output as (tensors, structure): a tensor, or lists and
+    tuples of tensors nested (a recurrent layer's ``(out, [h, c])``)."""
+    if isinstance(out, torch.Tensor):
+        return [out], _SLOT
+    if isinstance(out, (list, tuple)):
+        leaves, spec = [], []
+        for e in out:
+            got, sub = _flatten_out(e)
+            leaves += got
+            spec.append(sub)
+        return leaves, (type(out), tuple(spec))
+    raise TypeError(type(out).__name__)
+
+
+def _unflatten_out(spec, it):
+    if spec is _SLOT:
+        return next(it)
+    kind, subs = spec
+    return kind(_unflatten_out(s, it) for s in subs)
+
+
+def _output(prog, outs):
+    """A program's flat outputs in its forward's structure."""
+    return _unflatten_out(prog.out_spec, iter(outs))
 
 __all__ = ["Block", "HybridBlock", "new_parameter"]
 
@@ -267,7 +332,7 @@ class Block(nn.Module):
         with prog.lock, torch.no_grad():
             out = prog.run(self._sig(), **_inputs(args, kwargs))
             out = tuple(t.clone() for t in out)
-        return out[0] if prog.single else out
+        return _output(prog, out)
 
     def _call_recorded(self, args, kwargs):
         """The hybridized call under ``record()``: a `_Recorded` forward
@@ -279,35 +344,34 @@ class Block(nn.Module):
         graph pool) only while every one awaits a backward, so that no
         replay overwrites activations a pending backward reads.  A
         training loop (call, backward, step) keeps using the first."""
-        need = tuple(i for i, a in enumerate(args)
-                     if isinstance(a, torch.Tensor) and a.requires_grad)
-        need_kw = tuple(sorted(k for k, v in kwargs.items()
-                               if isinstance(v, torch.Tensor)
-                               and v.requires_grad))
+        inputs = _inputs(args, kwargs)
+        need = tuple(k for k, v in inputs.items() if v.requires_grad)
         targets = tuple(p.requires_grad for p in self.parameters())
         recs = self._cached(
-            self._key(args, kwargs, "record", need, need_kw, targets), list)
+            self._key(args, kwargs, "record", need, targets), list)
         rec = next((r for r in recs if not r.busy()), None)
         if rec is None:
             rec = (_Remat if self._remat_backward else _Recorded)(
-                self, args, kwargs, need, need_kw, own_pool=bool(recs))
+                self, args, kwargs, need, own_pool=bool(recs))
             recs.append(rec)
-        grad_in = [args[i] for i in need] + [kwargs[k] for k in need_kw]
         with rec.fwd.lock:
-            out = _RecordedFn.apply(rec.anchor, rec, self._sig(),
-                                    _inputs(args, kwargs), *grad_in)
+            out = _RecordedFn.apply(rec.anchor, rec, self._sig(), inputs,
+                                    *(inputs[k] for k in need))
         rec.node = weakref.ref(out[0].grad_fn)
-        return out[0] if rec.fwd.single else out
+        return _output(rec.fwd, out)
 
-    def _program(self, args, kwargs, name="raw_fn", need=(), need_kw=(),
+    def _program(self, args, kwargs, name="raw_fn", need=(),
                  own_pool=False, **program_kw):
         """A `_graphs.Program` running ``forward`` on static copies of
-        the tensor arguments (the others fixed by the signature); the
-        static copies at ``need`` and ``need_kw`` require a gradient.
-        It captures into the block's graph pool, or with ``own_pool``
-        into a new one; ``program_kw`` go to the `_graphs.Program`."""
-        dev = next((a.device for a in itertools.chain(args, kwargs.values())
-                    if isinstance(a, torch.Tensor)), None)
+        the tensor arguments, those inside list and tuple arguments
+        too (`_inputs`; the other values fixed by the signature); the
+        static copies named in ``need`` require a gradient.  Its output
+        is the forward's tensors, flat, with the structure kept in
+        ``out_spec``.  It captures into the block's graph pool, or with
+        ``own_pool`` into a new one; ``program_kw`` go to the
+        `_graphs.Program`."""
+        inputs = _inputs(args, kwargs)
+        dev = next((a.device for a in inputs.values()), None)
         if dev is None:
             raise MXNetError("a hybridized block takes at least one tensor "
                              "argument")
@@ -316,32 +380,26 @@ class Block(nn.Module):
             pool = _graphs.Pool(dev)
         elif pool is None or pool.device != dev:
             pool = self._graph_pool = _graphs.Pool(dev)
-        fixed = [None if isinstance(a, torch.Tensor) else a for a in args]
-        fixed_kw = {k: v for k, v in kwargs.items()
-                    if not isinstance(v, torch.Tensor)}
-
-        grad_keys = [f"a{i}" for i in need] + [f"k_{k}" for k in need_kw]
+        fixed = [_template(a) for a in args]
+        fixed_kw = {k: _template(v) for k, v in kwargs.items()}
+        grad_keys = list(need)
 
         def raw_fn(**static):
             for k in grad_keys:
                 static[k].requires_grad_(True)
-            call = [static[f"a{i}"] if a is None and f"a{i}" in static
-                    else a for i, a in enumerate(fixed)]
-            kw = dict(fixed_kw)
-            kw.update((k[2:], v) for k, v in static.items()
-                      if k.startswith("k_"))
+            call = [_fill(f"a{i}", t, static) for i, t in enumerate(fixed)]
+            kw = {k: _fill(f"k_{k}", t, static) for k, t in fixed_kw.items()}
             out = self.forward(*call, **kw)
-            prog.single = isinstance(out, torch.Tensor)
-            if prog.single:
-                return (out,)
-            if isinstance(out, (tuple, list)) and all(
-                    isinstance(t, torch.Tensor) for t in out):
-                return tuple(out)
-            raise MXNetError(f"a hybridized {type(self).__name__} must "
-                             f"return a tensor or a tuple of tensors")
+            try:
+                leaves, prog.out_spec = _flatten_out(out)
+            except TypeError:
+                raise MXNetError(
+                    f"a hybridized {type(self).__name__} must return a "
+                    f"tensor, or lists and tuples of tensors") from None
+            return tuple(leaves)
 
         prog = _graphs.Program(name, raw_fn, pool, **program_kw)
-        prog.single = False             # forward returns one tensor
+        prog.out_spec = _SLOT           # set by the body's first run
         prog.grad_keys = grad_keys
         return prog
 
@@ -356,11 +414,13 @@ def _state(block) -> list:
 
 def _inputs(args, kwargs) -> dict:
     """A program's tensor inputs by name: ``a<i>`` for positional,
-    ``k_<name>`` for keyword arguments."""
-    inputs = {f"a{i}": a for i, a in enumerate(args)
-              if isinstance(a, torch.Tensor)}
-    inputs.update((f"k_{k}", v) for k, v in kwargs.items()
-                  if isinstance(v, torch.Tensor))
+    ``k_<name>`` for keyword arguments, ``.j`` after either for the
+    j-th item of a list or tuple (`_leaves`)."""
+    inputs = {}
+    for i, a in enumerate(args):
+        inputs.update(_leaves(f"a{i}", a))
+    for k, v in kwargs.items():
+        inputs.update(_leaves(f"k_{k}", v))
     return inputs
 
 
@@ -385,9 +445,9 @@ class _Recorded:
     gradient to the first's, as torch's accumulation does for a block
     never hybridized."""
 
-    def __init__(self, block, args, kwargs, need, need_kw, own_pool=False):
+    def __init__(self, block, args, kwargs, need, own_pool=False):
         self.block = block
-        self.fwd = self._forward_program(block, args, kwargs, need, need_kw,
+        self.fwd = self._forward_program(block, args, kwargs, need,
                                          own_pool)
         self.params = [p for p in block.parameters() if p.requires_grad]
         self.bwd = None
@@ -400,9 +460,9 @@ class _Recorded:
                                   requires_grad=True)
 
     @staticmethod
-    def _forward_program(block, args, kwargs, need, need_kw, own_pool):
-        return block._program(args, kwargs, "fwd_record", need, need_kw,
-                              own_pool, replay_result=lambda: _state(block))
+    def _forward_program(block, args, kwargs, need, own_pool):
+        return block._program(args, kwargs, "fwd_record", need, own_pool,
+                              replay_result=lambda: _state(block))
 
     def run_forward(self, sig, inputs):
         """F's run for one call: its outputs, carrying F's autograd
@@ -475,9 +535,8 @@ class _Remat(_Recorded):
     not the step's peak."""
 
     @staticmethod
-    def _forward_program(block, args, kwargs, need, need_kw, own_pool):
-        return block._program(args, kwargs, "fwd_remat", need, need_kw,
-                              own_pool)
+    def _forward_program(block, args, kwargs, need, own_pool):
+        return block._program(args, kwargs, "fwd_remat", need, own_pool)
 
     def run_forward(self, sig, inputs):
         # the train-mode flag of the recorded call (part of its

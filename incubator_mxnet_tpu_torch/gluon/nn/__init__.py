@@ -1,16 +1,24 @@
 """Neural-network layers (counterpart of
 `incubator_mxnet_tpu/gluon/nn/`)."""
-from .activations import Activation
+from .activations import (ELU, GELU, SELU, Activation, LeakyReLU, PReLU,
+                          SiLU, Swish)
 from .basic_layers import (BatchNorm, Dense, Dropout, DropoutAdd, Embedding,
-                           Flatten, HybridSequential, LayerNorm, Sequential)
-from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D, Conv1D, Conv2D,
-                          Conv3D, GlobalAvgPool1D, GlobalAvgPool2D,
+                           Flatten, GroupNorm, HybridLambda,
+                           HybridSequential, Identity, InstanceNorm, Lambda,
+                           LayerNorm, Sequential)
+from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D, Conv1D,
+                          Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
+                          Conv3DTranspose, GlobalAvgPool1D, GlobalAvgPool2D,
                           GlobalAvgPool3D, GlobalMaxPool1D, GlobalMaxPool2D,
-                          GlobalMaxPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
+                          GlobalMaxPool3D, MaxPool1D, MaxPool2D, MaxPool3D,
+                          ReflectionPad2D)
 
 __all__ = ["Activation", "AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm",
-           "Conv1D", "Conv2D", "Conv3D", "Dense", "Dropout", "DropoutAdd",
-           "Embedding", "Flatten", "GlobalAvgPool1D", "GlobalAvgPool2D",
-           "GlobalAvgPool3D", "GlobalMaxPool1D", "GlobalMaxPool2D",
-           "GlobalMaxPool3D", "HybridSequential", "LayerNorm", "MaxPool1D",
-           "MaxPool2D", "MaxPool3D", "Sequential"]
+           "Conv1D", "Conv1DTranspose", "Conv2D", "Conv2DTranspose",
+           "Conv3D", "Conv3DTranspose", "Dense", "Dropout", "DropoutAdd",
+           "ELU", "Embedding", "Flatten", "GELU", "GlobalAvgPool1D",
+           "GlobalAvgPool2D", "GlobalAvgPool3D", "GlobalMaxPool1D",
+           "GlobalMaxPool2D", "GlobalMaxPool3D", "GroupNorm", "HybridLambda",
+           "HybridSequential", "Identity", "InstanceNorm", "Lambda",
+           "LayerNorm", "LeakyReLU", "MaxPool1D", "MaxPool2D", "MaxPool3D",
+           "PReLU", "ReflectionPad2D", "SELU", "Sequential", "SiLU", "Swish"]

@@ -1,7 +1,8 @@
 """Basic layers (counterpart of
 `incubator_mxnet_tpu/gluon/nn/basic_layers.py`): Sequential,
 HybridSequential, Dense, Dropout, DropoutAdd, BatchNorm, LayerNorm,
-Embedding and Flatten, trainable.
+GroupNorm, InstanceNorm, Embedding, Flatten, Identity, Lambda and
+HybridLambda, trainable.
 
 Parameter names and layouts are the JAX package's: `Dense` keeps
 ``weight`` (out, in) and ``bias`` and computes ``x @ W.T + b``, by
@@ -12,7 +13,8 @@ weight/bias); `BatchNorm` keeps ``gamma``, ``beta`` and its running
 stats ``running_mean`` and ``running_var`` as parameters with
 ``grad_req="null"`` (the JAX package's aux params), so ``cast`` and
 `convert.load_jax_params` carry them and the Trainer skips them;
-`Embedding` keeps ``weight`` (vocab, units); a sequential container
+`GroupNorm` and `InstanceNorm` keep ``gamma`` and ``beta`` per
+channel; `Embedding` keeps ``weight`` (vocab, units); a sequential container
 names its children ``"0"``, ``"1"``, ...  The math is
 `ndarray.nn_ops`'.  Every layer is given its input width, so no
 parameter waits for a first forward to learn its shape.
@@ -24,10 +26,12 @@ import torch
 from ... import autograd
 from ... import ndarray as nd
 from ...base import MXNetError
+from ...context import resolve_device
 from ..block import Block, HybridBlock, new_parameter
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
            "DropoutAdd", "BatchNorm", "Embedding", "Flatten", "LayerNorm",
+           "GroupNorm", "InstanceNorm", "Identity", "Lambda", "HybridLambda",
            "layer_norm"]
 
 
@@ -201,3 +205,86 @@ class DropoutAdd(HybridBlock):
 
     def forward(self, y, residual):
         return nd.DropoutAdd(y, residual, p=self._rate)
+
+
+class _ChannelNorm(HybridBlock):
+    """``gamma`` and ``beta`` over ``in_channels`` (axis 1), made on
+    ``device`` (default the card); ``scale=False`` / ``center=False``
+    keep gamma (1) / beta (0) with ``grad_req="null"``."""
+
+    def __init__(self, epsilon, center, scale, in_channels, device, dtype):
+        super().__init__()
+        self._epsilon = epsilon
+        dev = resolve_device(device)
+        shape = (_width(type(self).__name__, in_channels),)
+        self.gamma = new_parameter(shape, dev, dtype,
+                                   "write" if scale else "null")
+        self.beta = new_parameter(shape, dev, dtype,
+                                  "write" if center else "null")
+
+
+class GroupNorm(_ChannelNorm):
+    """`nd.GroupNorm`: each sample's channels in ``num_groups`` groups,
+    normalized over the group and the spatial axes."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 in_channels=0, *, device=None, dtype=torch.float32):
+        super().__init__(epsilon, center, scale, in_channels, device, dtype)
+        self._num_groups = num_groups
+
+    def forward(self, x):
+        return nd.GroupNorm(x, self.gamma, self.beta,
+                            num_groups=self._num_groups, eps=self._epsilon)
+
+
+class InstanceNorm(_ChannelNorm):
+    """`nd.InstanceNorm`: each sample's channel normalized over the
+    spatial axes; gamma is not learned by default (``scale=False``), as
+    in the JAX package."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 in_channels=0, *, device=None, dtype=torch.float32):
+        super().__init__(epsilon, center, scale, in_channels, device, dtype)
+
+    def forward(self, x):
+        return nd.InstanceNorm(x, self.gamma, self.beta, eps=self._epsilon)
+
+
+class Identity(HybridBlock):
+    def forward(self, x):
+        return x
+
+
+def _function(function):
+    """A callable, or the `nd` op (else the torch function) of that
+    name."""
+    if isinstance(function, str):
+        fn = getattr(nd, function, None) or getattr(torch, function, None)
+        if fn is None:
+            raise MXNetError(f"Lambda: no nd op or torch function named "
+                             f"{function!r}")
+        return fn
+    return function
+
+
+class Lambda(Block):
+    """A block calling ``function`` (a callable, or the name of an `nd`
+    op or else of a torch function) on its arguments."""
+
+    def __init__(self, function):
+        super().__init__()
+        self._func = _function(function)
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """`Lambda`, hybridizable."""
+
+    def __init__(self, function):
+        super().__init__()
+        self._func = _function(function)
+
+    def forward(self, *args):
+        return self._func(*args)

@@ -80,6 +80,7 @@ class Parameter(nn.Parameter):
         p.wd_mult = wd_mult
         p._req = "add" if grad_req == "add" else "write"
         p._initialized = False
+        p.init = None               # its own initializer, before the global
         p._grad_src = None          # a recorded program's gradient buffer
         p._grad_pool = None         # and that program's graph pool
         p._grad_task = -1           # the backward that set it
@@ -172,11 +173,14 @@ class Parameter(nn.Parameter):
             self.grad = None
 
 
-def new_parameter(shape, device, dtype, grad_req: str = "write") -> Parameter:
+def new_parameter(shape, device, dtype, grad_req: str = "write",
+                  init=None) -> Parameter:
     """An uninitialized parameter (``initialize()`` or a weight loader
-    fills it)."""
-    return Parameter(torch.empty(shape, device=device, dtype=dtype),
-                     grad_req)
+    fills it); ``init`` its own initializer (an instance or a name),
+    which ``initialize()`` takes before the one it is given."""
+    p = Parameter(torch.empty(shape, device=device, dtype=dtype), grad_req)
+    p.init = init
+    return p
 
 
 class ParameterDict(dict):
@@ -185,14 +189,17 @@ class ParameterDict(dict):
 
     def initialize(self, init=None, force_reinit: bool = False) -> None:
         """Fill every parameter not filled yet (all of them with
-        ``force_reinit``) with ``init`` (default ``Uniform(0.07)``),
-        after the name rules of `initializer.Initializer`."""
+        ``force_reinit``) with its own initializer (``p.init``) or else
+        ``init`` (default ``Uniform(0.07)``), after the name rules of
+        `initializer.Initializer`, as the JAX package does."""
         initializer = init_mod.create(init) if init is not None \
             else init_mod.Uniform()
         for name, p in self.items():
             if getattr(p, "_initialized", False) and not force_reinit:
                 continue
-            initializer(name, p)
+            own = getattr(p, "init", None)
+            (initializer if own is None else init_mod.create(own))(
+                init_mod.InitDesc(name), p)
             p._initialized = True
 
     def zero_grad(self) -> None:

@@ -1,14 +1,22 @@
 """``mx.nd`` of the PyTorch/CUDA port: ops on `torch.Tensor`s
 (counterpart of `incubator_mxnet_tpu/ndarray/`).  The port has no
-NDArray class; the ops of the BERT and ResNet training paths are
-ported, and ``save``/``load``, the ``.params`` codec."""
-from .nn_ops import (Activation, BatchNorm, Convolution, Dropout, DropoutAdd,
-                     Embedding, FullyConnected, LayerNorm, Pooling, flatten,
-                     gelu, log_softmax, softmax_cross_entropy)
+NDArray class; the neural-network ops (`nn_ops`) and the fused RNN
+(`rnn_impl`) are ported, and ``save``/``load``, the ``.params``
+codec."""
+from .nn_ops import (RNN, Activation, BatchNorm, Convolution, Deconvolution,
+                     Dropout, DropoutAdd, Embedding, FullyConnected,
+                     GroupNorm, InstanceNorm, L2Normalization, LayerNorm,
+                     LeakyReLU, Pooling, SoftmaxOutput, UpSampling, flatten,
+                     gelu, log_softmax, masked_log_softmax, masked_softmax,
+                     smooth_l1, softmax, softmax_cross_entropy, softmin)
 
-__all__ = ["Activation", "BatchNorm", "Convolution", "Dropout", "DropoutAdd",
-           "Embedding", "FullyConnected", "LayerNorm", "Pooling", "flatten",
-           "gelu", "load", "log_softmax", "save", "softmax_cross_entropy"]
+__all__ = ["Activation", "BatchNorm", "Convolution", "Deconvolution",
+           "Dropout", "DropoutAdd", "Embedding", "FullyConnected",
+           "GroupNorm", "InstanceNorm", "L2Normalization", "LayerNorm",
+           "LeakyReLU", "Pooling", "RNN", "SoftmaxOutput", "UpSampling",
+           "flatten", "gelu", "load", "log_softmax", "masked_log_softmax",
+           "masked_softmax", "save", "smooth_l1", "softmax",
+           "softmax_cross_entropy", "softmin"]
 
 
 def save(fname, data) -> None:

@@ -1,7 +1,9 @@
 """Neural-network ops of the PyTorch/CUDA port on plain tensors
 (counterpart of `incubator_mxnet_tpu/ndarray/nn_ops.py` and the
-embedding and flatten of `ndarray/ops.py`): the ops of the BERT and
-ResNet training paths.
+embedding and flatten of `ndarray/ops.py`): the ops of the BERT,
+ResNet, word-level LSTM and DCGAN training paths, with the transposed
+convolution, upsampling, the activations and softmaxes, group,
+instance and L2 normalisation and the fused RNN.
 
 The port's arrays are `torch.Tensor`s (there is no NDArray class);
 each function takes and returns tensors and is differentiable through
@@ -10,7 +12,8 @@ and activations are torch ops (cuDNN and cuBLAS on the card), as the
 JAX package leaves them to XLA; dropout and the vocabulary-wide
 cross-entropy go through the port's kernels (`ops.dropout_kernel`,
 `ops.xent_kernel`).  Layouts are the JAX package's: NCW / NCHW / NCDHW
-activations, (out, in/groups, *kernel) convolution weights.
+activations, (out, in/groups, *kernel) convolution weights, (in,
+out/groups, *kernel) transposed-convolution weights (torch's own).
 """
 from __future__ import annotations
 
@@ -22,11 +25,16 @@ import torch.nn.functional as F
 from .. import autograd
 from .. import random as _random
 from ..base import MXNetError
-from ..ops.dropout_kernel import fused_dropout, fused_dropout_add
+from ..ops.dropout_kernel import (fused_dropout, fused_dropout_add,
+                                  fused_dropout_shared)
 
-__all__ = ["FullyConnected", "Convolution", "Pooling", "Activation", "gelu",
-           "log_softmax", "softmax_cross_entropy", "BatchNorm", "LayerNorm",
-           "Embedding", "Dropout", "DropoutAdd", "flatten"]
+__all__ = ["FullyConnected", "Convolution", "Deconvolution", "Pooling",
+           "UpSampling", "Activation", "LeakyReLU", "gelu", "softmax",
+           "log_softmax", "softmin", "masked_softmax", "masked_log_softmax",
+           "SoftmaxOutput", "softmax_cross_entropy", "smooth_l1",
+           "BatchNorm", "LayerNorm", "GroupNorm", "InstanceNorm",
+           "L2Normalization", "Embedding", "Dropout", "DropoutAdd",
+           "flatten", "RNN"]
 
 
 def _tuple(v, n):
@@ -64,6 +72,32 @@ def Convolution(data, weight, bias=None, kernel=None, stride=None,
     return _CONV[nd](x, weight, b, _tuple(stride or 1, nd),
                      _tuple(pad or 0, nd), _tuple(dilate or 1, nd),
                      num_group)
+
+
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def Deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, num_filter: int = 0,
+                  num_group: int = 1, no_bias: bool = True,
+                  layout: str = "NCHW", **kwargs):
+    """1-, 2- or 3-D transposed convolution, NC(D)(H)W; weight (in,
+    out/groups, *kernel), torch's layout.  Each output axis is
+    ``stride·(i - 1) + dilate·(k - 1) + 1 - 2·pad + adj`` long (``adj``
+    is torch's ``output_padding``).  As in the JAX package the bias is
+    left out unless ``no_bias=False``, and the input follows the
+    weight's dtype; the JAX package computes the same function as a
+    dilated convolution with the flipped kernel."""
+    nd = len(kernel) if kernel is not None else weight.dim() - 2
+    if nd not in _DECONV or not layout.startswith("NC"):
+        raise MXNetError(f"Deconvolution: {nd}-D {layout} is not ported "
+                         f"(1-3-D, channels first)")
+    x = data.to(weight.dtype) if data.dtype != weight.dtype else data
+    b = None if no_bias or bias is None else bias.to(x.dtype)
+    return _DECONV[nd](x, weight, b, _tuple(stride or 1, nd),
+                       _tuple(pad or 0, nd), _tuple(adj or 0, nd),
+                       num_group, _tuple(dilate or 1, nd))
 
 
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
@@ -126,6 +160,17 @@ def Pooling(data, kernel=None, pool_type: str = "max", stride=None,
     return ssum.squeeze(2) if nd == 1 else ssum
 
 
+def UpSampling(data, scale: int = 2, sample_type: str = "nearest",
+               **kwargs):
+    """NCHW upsampled ``scale`` times along H and W: each pixel repeated
+    (``nearest``), or bilinear with half-pixel centres, which at an
+    integer scale up is ``jax.image.resize``'s bilinear."""
+    if sample_type == "nearest":
+        return data.repeat_interleave(scale, 2).repeat_interleave(scale, 3)
+    return F.interpolate(data, scale_factor=scale, mode="bilinear",
+                         align_corners=False)
+
+
 def gelu(data, approximate: bool = True):
     """GELU; the tanh approximation by default, as ``jax.nn.gelu``."""
     return F.gelu(data, approximate="tanh" if approximate else "none")
@@ -144,8 +189,92 @@ def Activation(data, act_type: str = "relu"):
     return fn(data)
 
 
-def log_softmax(data, axis: int = -1):
-    return F.log_softmax(data, dim=axis)
+def LeakyReLU(data, gamma=None, act_type: str = "leaky",
+              slope: float = 0.25, lower_bound: float = 0.125,
+              upper_bound: float = 0.334):
+    """``leaky`` (and ``rrelu``, at its fixed ``slope`` as in the JAX
+    package): ``x`` where x >= 0, else ``slope·x``; ``elu``:
+    ``slope·(eˣ - 1)`` there; ``selu``; ``gelu`` (the tanh
+    approximation); ``prelu``: ``gamma·x`` there, ``gamma`` per channel
+    (axis 1)."""
+    x = data
+    if act_type in ("leaky", "rrelu"):
+        return torch.where(x >= 0, x, slope * x)
+    if act_type == "elu":
+        return torch.where(x >= 0, x, slope * (torch.exp(x) - 1))
+    if act_type == "selu":
+        return F.selu(x)
+    if act_type == "gelu":
+        return gelu(x)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (x.dim() - 2)) \
+            if x.dim() > 2 else gamma
+        return torch.where(x >= 0, x, g * x)
+    raise MXNetError(f"LeakyReLU: unknown act_type {act_type!r}")
+
+
+def _length_mask(data, length, axis):
+    """1 where the step along ``axis`` is below the row's length (rows
+    along axis 0), else 0."""
+    steps = torch.arange(data.shape[axis], device=data.device)
+    shape = [1] * data.dim()
+    shape[axis] = -1
+    lshape = [1] * data.dim()
+    lshape[0] = -1
+    length = torch.as_tensor(length, device=data.device)
+    return (steps.reshape(shape) < length.reshape(lshape)).float()
+
+
+def softmax(data, axis: int = -1, temperature=None, length=None):
+    """Softmax over ``axis`` of ``data / temperature``; with ``length``,
+    over each row's first ``length`` steps (`masked_softmax`)."""
+    if length is not None:
+        return masked_softmax(data, _length_mask(data, length, axis),
+                              axis=axis)
+    x = data / temperature if temperature else data
+    return F.softmax(x, dim=axis)
+
+
+def log_softmax(data, axis: int = -1, temperature=None):
+    x = data / temperature if temperature else data
+    return F.log_softmax(x, dim=axis)
+
+
+def softmin(data, axis: int = -1):
+    return F.softmax(-data, dim=axis)
+
+
+def masked_softmax(data, mask, axis: int = -1, temperature: float = 1.0):
+    """Softmax over the entries where ``mask`` is nonzero (the others
+    enter as the dtype's lowest value and come out 0)."""
+    m = mask.to(torch.bool)
+    neg = torch.finfo(data.dtype).min
+    y = F.softmax(torch.where(m, data / temperature, neg), dim=axis)
+    return torch.where(m, y, 0.0)
+
+
+def masked_log_softmax(data, mask, axis: int = -1):
+    """Log-softmax with the masked-out entries entering as the dtype's
+    lowest value (they come out hugely negative, not -inf)."""
+    neg = torch.finfo(data.dtype).min
+    return F.log_softmax(torch.where(mask.to(torch.bool), data, neg),
+                         dim=axis)
+
+
+def SoftmaxOutput(data, label=None, grad_scale: float = 1.0,
+                  ignore_label: float = -1.0, use_ignore: bool = False,
+                  multi_output: bool = False, **kwargs):
+    """The legacy softmax output: its forward is the softmax (over axis
+    1 with ``multi_output``, else the last); ``label`` is not read, as
+    in the JAX package, whose backward is the softmax's own."""
+    return softmax(data, axis=1 if multi_output else -1)
+
+
+def smooth_l1(data, scalar: float = 1.0):
+    """``s²x²/2`` where |x| < 1/s², else ``|x| - 1/(2s²)``."""
+    s2 = scalar * scalar
+    ax = data.abs()
+    return torch.where(ax < 1.0 / s2, 0.5 * s2 * data * data, ax - 0.5 / s2)
 
 
 def softmax_cross_entropy(data, label):
@@ -240,6 +369,48 @@ def LayerNorm(data, gamma, beta, axis: int = -1, eps: float = 1e-5):
     return out.movedim(-1, axis) if x is not data else out
 
 
+def GroupNorm(data, gamma, beta, num_groups: int = 1, eps: float = 1e-5):
+    """Statistics over each of ``num_groups`` channel groups and the
+    spatial axes, in data's dtype; then the per-channel affine."""
+    x = data
+    n, c = x.shape[:2]
+    xg = x.reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.dim()))
+    mean = xg.mean(axes, keepdim=True)
+    var = xg.var(axes, unbiased=False, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    return y * gamma.reshape(shape) + beta.reshape(shape)
+
+
+def InstanceNorm(data, gamma, beta, eps: float = 1e-5):
+    """Statistics over each sample's and channel's spatial axes; then the
+    per-channel affine."""
+    x = data
+    axes = tuple(range(2, x.dim()))
+    mean = x.mean(axes, keepdim=True)
+    var = x.var(axes, unbiased=False, keepdim=True)
+    shape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+    return (x - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
+
+
+def L2Normalization(data, eps: float = 1e-10, mode: str = "instance"):
+    """``x / sqrt(sum(x²) + eps)``, the sum over each sample
+    (``instance``), over the channels (``channel``) or over the spatial
+    axes (``spatial``)."""
+    x = data
+    if mode == "channel":
+        denom = torch.sqrt((x * x).sum(1, keepdim=True) + eps)
+    elif mode == "spatial":
+        denom = torch.sqrt((x * x).sum(tuple(range(2, x.dim())),
+                                       keepdim=True) + eps)
+    else:
+        denom = torch.sqrt(x.reshape(x.shape[0], -1).square().sum(1) + eps)
+        denom = denom.reshape((-1,) + (1,) * (x.dim() - 1))
+    return x / denom
+
+
 def Embedding(data, weight):
     """Rows of ``weight`` at the indices ``data``, clipped into range as
     the JAX package's gather is."""
@@ -257,13 +428,16 @@ def Dropout(data, p: float = 0.5, axes=()):
     `torch.nn.Module.training`.  Each active call draws a fresh seed
     from `random.next_seed`: a Python int passed by value, or inside a
     captured program's body a slot of its seed table, which the `_dev`
-    kernels read on the card, so each replay draws a fresh mask.  The
-    ``axes`` (shared-mask) form is not ported."""
-    if axes:
-        raise MXNetError("Dropout with axes (a mask shared along axes) is "
-                         "not ported")
+    kernels read on the card, so each replay draws a fresh mask.  With
+    ``axes`` one mask is shared along those axes: the mask-only kernel
+    draws it at the shape with those axes 1 and the apply broadcasts it
+    (`fused_dropout_shared`); the JAX package draws that mask with
+    ``jax.random``, so its bits differ, as every dropout's do."""
     if not (autograd.is_training() and p > 0.0):
         return data
+    if axes:
+        return fused_dropout_shared(data, _random.next_seed(), float(p),
+                                    axes)
     return fused_dropout(data, _random.next_seed(), float(p))
 
 
@@ -273,3 +447,17 @@ def DropoutAdd(data, residual, p: float = 0.5):
     if not (autograd.is_training() and p > 0.0):
         return data + residual
     return fused_dropout_add(data, residual, _random.next_seed(), float(p))
+
+
+def RNN(data, parameters, state, state_cell=None, mode: str = "lstm",
+        state_size: int = 0, num_layers: int = 1,
+        bidirectional: bool = False, p: float = 0.0,
+        state_outputs: bool = True, training: bool = False, **kwargs):
+    """The fused multi-layer RNN over the packed parameter blob
+    (`rnn_impl.fused_rnn`): (out, h, c) for ``lstm``, else (out, h)."""
+    from .rnn_impl import fused_rnn
+
+    return fused_rnn(data, parameters, state, state_cell, mode=mode,
+                     state_size=state_size, num_layers=num_layers,
+                     bidirectional=bidirectional, dropout=p,
+                     training=training)

@@ -54,7 +54,8 @@ from .. import _build, _graphs
 from ..base import MXNetError
 from ..telemetry import perf as _perf
 
-__all__ = ["fused_dropout", "fused_dropout_add", "dropout_mask",
+__all__ = ["fused_dropout", "fused_dropout_add", "fused_dropout_shared",
+           "dropout_mask",
            "dropout_fwd", "dropout_bwd", "dropout_mask_dev",
            "dropout_fwd_dev", "dropout_fwd_reference",
            "dropout_bwd_reference", "mask_reference", "philox4x32_10",
@@ -412,3 +413,20 @@ def fused_dropout_add(x, res, seed, rate: float) -> torch.Tensor:
     if _on_cuda(x):
         return _DropoutApply.apply(x, res, seed, rate)
     return res + _apply_mask(x, _mask_of(seed)(x, seed, rate), rate)
+
+
+def fused_dropout_shared(x: torch.Tensor, seed, rate: float,
+                         axes) -> torch.Tensor:
+    """Dropout of ``x`` with one keep-mask shared along ``axes``: the
+    mask of (``seed``, the reduced numel, ``rate``) drawn by the mask
+    kernel (`dropout_mask`, or `dropout_mask_dev` for a seed-table slot)
+    at x's shape with ``axes`` set to 1, and ``where(keep, x * scale,
+    0)`` broadcast over them (autograd's backward).  The degenerate
+    rates are `fused_dropout`'s."""
+    if rate >= 1.0 or rate <= 0.0 or x.numel() == 0:
+        return fused_dropout(x, seed, rate)
+    shape = list(x.shape)
+    for a in axes:
+        shape[a] = 1
+    mask = _mask_of(seed)(x.new_empty(shape), seed, rate)
+    return _apply_mask(x, mask, rate)

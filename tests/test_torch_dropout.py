@@ -197,8 +197,15 @@ def test_seed_replays_the_same_masks():
 
 
 def test_dropout_axes_is_not_ported():
-    with pytest.raises(MXNetError):
-        nd.Dropout(torch.ones(2, 3), p=0.5, axes=(0,))
+    """The ``axes`` form is ported now (its name is kept from when it
+    raised): one mask shared along ``axes``, drawn by the mask entry's
+    plain version on the CPU; the identity outside train mode."""
+    x = torch.ones(4, 6)
+    assert torch.equal(nd.Dropout(x, p=0.5, axes=(0,)), x)
+    with autograd.record():
+        y = nd.Dropout(x, p=0.5, axes=(0,))
+    assert torch.equal(y, y[:1].expand_as(y))
+    assert set(y.unique().tolist()) <= {0.0, 2.0}
 
 
 

@@ -78,11 +78,13 @@ def blocked_imports():
     -> the error its import raised or None, the jax/jaxlib/JAX-package
     modules loaded after all of them, what the long-context CPU path
     `_LONGCTX_RUN` printed or raised).  A module that imports JAX fails
-    to import; one that loads jaxlib shows in the list."""
+    to import; one that loads jaxlib shows in the list.  Then the
+    recurrent and generative CPU path `_RECURRENT_RUN` runs there too
+    (a fourth item)."""
     mods = sorted(set(SLICE4_MODULES + GRAPH_MODULES + NMT_MODULES
                       + VISION_MODULES + PTQ_MODULES + STATE_MODULES
                       + LONGCTX_MODULES + TELEMETRY_MODULES + DATA_MODULES
-                      + CHAIN_MODULES))
+                      + CHAIN_MODULES + RECURRENT_MODULES))
     res = _run(
         "import importlib, json, sys\n"
         "sys.modules['jax'] = None\n"
@@ -104,7 +106,13 @@ def blocked_imports():
         "    run = longctx()\n"
         "except BaseException as e:\n"
         "    run = repr(e)\n"
-        "print(json.dumps([errs, loaded, run]))\n")
+        "def recurrent():\n"
+        + "".join("    " + ln + "\n" for ln in _RECURRENT_RUN.splitlines())
+        + "try:\n"
+        "    rec = recurrent()\n"
+        "except BaseException as e:\n"
+        "    rec = repr(e)\n"
+        "print(json.dumps([errs, loaded, run, rec]))\n")
     assert res.returncode == 0, res.stderr
     return json.loads(res.stdout.strip().splitlines()[-1])
 
@@ -1112,3 +1120,133 @@ def test_chip_smoke_has_the_chained_steps_phase():
     assert "\n43. chained steps" in src
     main = src[src.index("def main() -> int:"):]
     assert "phase_chained_steps" in main and "chain[\"launches\"]" in main
+
+
+# ---- the recurrent and generative slice: RNNs, cells, losses, DCGAN ----
+RECURRENT_MODULES = ["initializer", "ndarray", "ndarray.nn_ops",
+                     "ndarray.rnn_impl", "gluon.rnn", "gluon.rnn.rnn_layer",
+                     "gluon.rnn.rnn_cell", "gluon.utils", "gluon.loss",
+                     "gluon.nn.activations", "gluon.nn.basic_layers",
+                     "gluon.nn.conv_layers", "models.word_lm",
+                     "models.dcgan"]
+
+# run in `blocked_imports`' interpreter after the long-context run (its
+# refusals of every kernel build or load, CUDA graph, event and stream
+# still in place): the word LM (tied, dropout 0.5) hybridized for two
+# windows with clip_global_norm before each step, and one DCGAN
+# iteration (two Trainers, D called twice in one record()); no kernel
+# counted
+_RECURRENT_RUN = """\
+import torch
+from incubator_mxnet_tpu_torch import _build, _graphs, autograd
+from incubator_mxnet_tpu_torch.gluon import Trainer, utils
+from incubator_mxnet_tpu_torch.gluon.loss import (
+    SigmoidBinaryCrossEntropyLoss, SoftmaxCrossEntropyLoss)
+from incubator_mxnet_tpu_torch.models import WordLM, dcgan_nets
+from incubator_mxnet_tpu_torch.ops import dropout_kernel as dk
+from incubator_mxnet_tpu_torch.ops import xent_kernel as xk
+lm = WordLM(600, 8, 8, 2, 0.5, True, device='cpu')
+lm.initialize()
+lm.hybridize()
+loss_fn = SoftmaxCrossEntropyLoss()
+loss_fn.hybridize()
+tr = Trainer(lm.collect_params(), 'sgd', {'learning_rate': 1.0})
+states = lm.begin_state(2)
+for _ in range(2):
+    x = torch.randint(0, 600, (4, 2))
+    states = [s.detach() for s in states]
+    with autograd.record():
+        logits, states = lm(x, states)
+        loss = loss_fn(logits, x).mean()
+    loss.backward()
+    utils.clip_global_norm([p.grad for p in lm.collect_params().values()],
+                           0.5, check_isfinite=False)
+    tr.step(1)
+G, D = dcgan_nets(2, 2, 4, device='cpu')
+for n in (G, D):
+    n.initialize()
+    n.hybridize()
+bce = SigmoidBinaryCrossEntropyLoss()
+tG = Trainer(G.collect_params(), 'adam', {'beta1': 0.5})
+tD = Trainer(D.collect_params(), 'adam', {'beta1': 0.5})
+z = torch.randn(2, 4, 1, 1)
+fake = G(z).detach()
+with autograd.record():
+    lD = (bce(D(torch.rand(2, 3, 32, 32)), torch.ones(2, 1))
+          + bce(D(fake), torch.zeros(2, 1))).mean()
+lD.backward()
+tD.step(1)
+with autograd.record():
+    lG = bce(D(G(z)), torch.ones(2, 1)).mean()
+lG.backward()
+tG.step(1)
+assert not _build._libs and not _graphs.captures
+assert dk.dropout_fwd.launches == dk.dropout_fwd_dev.launches == 0
+assert dk.dropout_bwd.launches == xk.xent_forward.launches == 0
+return 'ok'
+"""
+
+
+@pytest.mark.parametrize("mod", RECURRENT_MODULES)
+def test_recurrent_modules_import_with_jax_blocked(mod, blocked_imports):
+    _assert_imports_with_jax_blocked(blocked_imports, mod)
+
+
+@pytest.mark.parametrize("name", ["ndarray/rnn_impl.py", "gluon/utils.py",
+                                  "gluon/rnn/rnn_layer.py",
+                                  "gluon/rnn/rnn_cell.py",
+                                  "models/word_lm.py", "models/dcgan.py"])
+def test_recurrent_sources_import_neither_jax_nor_the_jax_package(name):
+    mods = list(_imported_modules(os.path.join(PKG, name)))
+    assert mods and not [m for m in mods if (m or "").split(".")[0] in
+                         ("jax", "jaxlib", "incubator_mxnet_tpu")]
+
+
+def test_recurrent_cpu_path_never_builds_or_loads_kernels(blocked_imports):
+    """The word LM (hybridized, dropout on, clip_global_norm before the
+    step) and a DCGAN iteration on the CPU, with jax blocked (run in the
+    shared interpreter): no build, no library load, no CUDA graph, event
+    or stream, no kernel counted."""
+    assert blocked_imports[3] == "ok", blocked_imports[3]
+
+
+def test_recurrent_entry_points_default_to_cuda(monkeypatch):
+    """Without a GPU the slice's entry points raise unless given the
+    CPU: the word LM, DCGAN's nets, the recurrent layers and cells, the
+    transposed convolutions, PReLU, GroupNorm, InstanceNorm, and
+    split_and_load to ``cuda``."""
+    from incubator_mxnet_tpu_torch.gluon import nn, rnn, utils
+    from incubator_mxnet_tpu_torch.models import WordLM, dcgan_nets
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    makers = [lambda **k: WordLM(50, 8, 8, 1, **k),
+              lambda **k: dcgan_nets(2, 2, 4, **k)[0],
+              lambda **k: rnn.LSTM(8, input_size=4, **k),
+              lambda **k: rnn.GRU(8, input_size=4, **k),
+              lambda **k: rnn.RNN(8, input_size=4, **k),
+              lambda **k: rnn.LSTMCell(8, input_size=4, **k),
+              lambda **k: rnn.GRUCell(8, input_size=4, **k),
+              lambda **k: rnn.RNNCell(8, input_size=4, **k),
+              lambda **k: nn.Conv1DTranspose(3, 4, in_channels=2, **k),
+              lambda **k: nn.Conv2DTranspose(3, 4, in_channels=2, **k),
+              lambda **k: nn.Conv3DTranspose(3, 4, in_channels=2, **k),
+              lambda **k: nn.PReLU(in_channels=2, **k),
+              lambda **k: nn.GroupNorm(in_channels=2, **k),
+              lambda **k: nn.InstanceNorm(in_channels=2, **k)]
+    for make in makers:
+        with pytest.raises(MXNetError):
+            make()
+        with pytest.raises(MXNetError):
+            make(device="cuda")
+        net = make(device="cpu")
+        assert all(p.device.type == "cpu" for p in net.parameters())
+    with pytest.raises(MXNetError):
+        utils.split_and_load(torch.zeros(4, 2), ["cuda"])
+
+
+def test_chip_smoke_has_the_recurrent_phases():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        src = f.read()
+    assert "\n44. word-level LSTM" in src and "\n45. DCGAN" in src
+    main = src[src.index("def main() -> int:"):]
+    assert "phase_word_lm" in main and "phase_dcgan" in main
